@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check what comes out.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits nonzero:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernel from src/repro_torch/kernels/csrc/;
+  3. the kernel against its plain PyTorch version at the serving path's
+     shapes, in float32 and bfloat16;
+  4. serve qwen2-7b at full width (random weights from a seed) through
+     repro_torch.launch.serve.main, counting the kernel's launches, then
+     profile a few decode steps for the device's busy time;
+  5. the full-width decode step with the kernels against the plain versions;
+  6. full-width prefill + decode against one full forward (teacher forcing);
+  7. a JSON line with each kernel's time per launch beside its bound, its
+     plain version's time and one PyTorch library call's time.
+The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
+outside the repository, it exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+ARCH = "qwen2-7b"
+BATCH, PROMPT, GEN = 4, 128, 32
+
+# Kernel vs plain version: tests/test_kernels.py's bounds for decode
+# attention (f32) and for bf16.
+TOL_F32, TOL_BF16 = 2e-5, 5e-2
+# The bf16 kernel keeps its statistics in f32 and rounds once, at the
+# output, so against the plain version in f32 on the same bf16 inputs it
+# may differ by half a bf16 ulp (at most 2^-8 of the value) plus the f32
+# limit.  5e-2 is half a typical output here; this bound is ~100x tighter.
+BF16_ROUND = 2.0 ** -8
+# Full-width logits are O(1) (unit-rms final norm times a fan-in-scaled
+# head); f32 attention sums taken in another order in each of 28 layers
+# move them by ~1e-5.  1e-3 leaves room and still catches a wrong
+# position, mask or group (those move logits by O(0.1)).
+TOL_BACKENDS = 1e-3
+TOL_TEACHER = 1e-3
+TOL_LIBRARY = 1e-4   # a library's f32 attention, another sum order
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: FAILED: {what}")
+
+
+def time_ms(fn, flush: torch.Tensor, iters: int = 50) -> float:
+    """Mean device time of one call with the L2 cache cold, as a decode
+    step finds it (each layer's MLP weights stream through L2 between two
+    attention calls).  CUDA events around each call; a 256 MiB write
+    before each evicts the 50 MB L2."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in ev:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def attention_inputs(dtype, dev):
+    """The serving path's decode shapes: B=4 rows, KV=4 groups of rep=7
+    heads, hd=128, a 161-deep cache (prompt 128 + 32 generated + 1) held
+    as (B, Smax, KV, hd) and read through transposed views."""
+    B, KV, rep, hd, Smax = BATCH, 4, 7, 128, PROMPT + GEN + 1
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((B, KV, rep, hd))).to(dev, dtype)
+    cache = torch.from_numpy(rng.standard_normal((2, B, Smax, KV, hd)))
+    cache = cache.to(dev, dtype)
+    valid = torch.tensor([0, 1, 129, 161], dtype=torch.int32, device=dev)
+    return q, cache[0].transpose(1, 2), cache[1].transpose(1, 2), valid
+
+
+def clone(tree):
+    """A copy of a cache tree, so two runs can start from one state."""
+    return {k: clone(v) if isinstance(v, dict) else
+            (v.clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+
+
+def profile_decode(eng, toks, steps: int = 4):
+    """Device time per decode step, from torch.profiler's kernel times
+    over a few steps, the wall time per step of that same window (the
+    profiler slows the host, so it is longer than an unprofiled step), and
+    the largest kernels (ms per step, launches per step, name).  Returns
+    (busy ms per step or None where the profiler records no device time,
+    window ms per step, rows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cache = eng.model.cache_init(BATCH, PROMPT + GEN + 1)
+    logits, cache = eng.prefill(eng.params, cache, toks[:, :PROMPT])
+    tok = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = eng.decode(eng.params, cache, tok)
+            tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) / steps * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: the CPU operators that launched them
+        # report the same device time again
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = e.self_device_time_total
+        if us > 0:
+            rows.append((us / 1e3 / steps, e.count // steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return (busy if busy > 0 else None), window, rows
+
+
+def decode_attention_bound(q, k, valid):
+    """Least time for the function on these inputs: each input byte read
+    once (K and V only at valid positions; an empty row reads all of V,
+    whose mean it returns), the output written once; against the f32
+    operations at the CUDA-core rate.  Returns (ms, "bytes"|"operations")."""
+    B, KV, rep, hd = q.shape
+    Smax = k.shape[2]
+    el = q.element_size()
+    row = KV * hd * el
+    kv_bytes = sum(Smax * row if n <= 0 else 2 * min(n, Smax) * row
+                   for n in valid.tolist())
+    nbytes = 2 * q.numel() * el + valid.numel() * 4 + kv_bytes
+    flops = sum(KV * rep * hd * (Smax if n <= 0 else 4 * min(n, Smax))
+                for n in valid.tolist())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.serve.engine import throughput_stats
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)      # the card's name and power limit, as nvidia-smi gives them
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    # 2. build the kernel
+    t0 = time.perf_counter()
+    _build.load("decode_attention")
+    print(f"[build] {_build.library_path('decode_attention').name} in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    # 3. kernel vs plain version at the serving path's shapes
+    errs = {}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        q, k, v, valid = attention_inputs(dtype, dev)
+        got = da.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        want = da.decode_attention_ref(q, k, v, valid)
+        err = (got.float() - want.float()).abs().max().item()
+        errs[dtype] = err
+        print(f"[kernel] decode_attention {str(dtype)[6:]} "
+              f"B=4 KV=4 rep=7 hd=128 Smax=161 valid=[0,1,129,161]: "
+              f"max_abs_err {err:.3e} (limit {tol:g})")
+        check(err <= tol, f"decode_attention {dtype} error {err} > {tol}")
+        if dtype == torch.bfloat16:
+            want32 = da.decode_attention_ref(q.float(), k.float(), v.float(),
+                                             valid)
+            diff = (got.float() - want32).abs()
+            ratio = (diff / (BF16_ROUND * want32.abs() + TOL_F32)).max().item()
+            print(f"[kernel] decode_attention bfloat16 vs the plain version "
+                  f"in f32 on the same inputs: max_abs_err "
+                  f"{diff.max().item():.3e}, max |err| / (2^-8 |want| + "
+                  f"{TOL_F32:g}) = {ratio:.3f} (limit 1)")
+            check(ratio <= 1.0, f"bf16 decode_attention off by {ratio} x "
+                  "its output-rounding bound")
+
+    # 4. serve at full width through the user's entry point
+    da.decode_attention.launches = 0
+    res = serve.main(["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
+                      str(PROMPT), "--gen", str(GEN)])
+    launches = da.decode_attention.launches
+    eng = res["engine"]
+    model, params, cfg = eng.model, eng.params, eng.model.cfg
+    steps = res["decode_steps"]
+    print(f"[serve] {cfg.name}: {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab_size}, "
+          f"{model.param_count():,} params")
+    print(f"[serve] prefill {res['prefill_tok_per_s']:.1f} tok/s, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s "
+          f"({res['decode_s'] / max(steps, 1) * 1e3:.2f} ms/step), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"[serve] decode_attention launches {launches} = "
+          f"{cfg.num_layers} layers x {steps} decode steps")
+    check(steps == GEN, f"{steps} decode steps, expected {GEN}")
+    check(launches == cfg.num_layers * steps,
+          f"decode_attention launched {launches} times, expected "
+          f"{cfg.num_layers} x {steps}")
+    warm = throughput_stats(eng, np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32), GEN)
+    print(f"[serve] warm rerun: prefill {warm['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {warm['decode_tok_per_s']:.1f} tok/s "
+          f"({warm['decode_s'] / GEN * 1e3:.2f} ms/step)")
+
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        BATCH, PROMPT + 4)).astype(np.int64)).to(dev)
+    plain = Model(cfg, RunConfig(backend="torch"), dev)
+    with torch.no_grad():
+        busy, window, rows = profile_decode(eng, toks)
+        step_ms = warm["decode_s"] / GEN * 1e3
+        if busy is None:
+            print("[profile] decode step device time: not measured (the "
+                  "profiler recorded no device time)")
+        else:
+            print(f"[profile] decode step: device busy {busy:.2f} ms of "
+                  f"{window:.2f} ms wall in the same profiled window (idle "
+                  f"share {1 - busy / window:.1%}); of {step_ms:.2f} ms in "
+                  f"the unprofiled warm rerun, idle share "
+                  f"{1 - busy / step_ms:.1%}; weight-bytes bound "
+                  f"{model.param_count() * 4 / HBM_BYTES_PER_S * 1e3:.2f} ms")
+            for ms, n, name in rows[:8]:
+                print(f"[profile]   {ms:8.3f} ms/step  {n:4d} launches/step"
+                      f"  {name[:90]}")
+
+        # 5. decode logits, kernels vs plain versions, same params and cache
+        cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+        model.apply(params, toks[:, :PROMPT], cache=cache)
+        twin = clone(cache)
+        got, _ = model.apply(params, toks[:, PROMPT:PROMPT + 1], cache=cache)
+        want, _ = plain.apply(params, toks[:, PROMPT:PROMPT + 1], cache=twin)
+        err = (got - want).abs().max().item()
+        print(f"[backends] full-width decode logits, cuda vs torch: "
+              f"max_abs_diff {err:.3e} (limit {TOL_BACKENDS:g}; logits "
+              f"max |x| {want.abs().max().item():.2f})")
+        check(bool(torch.isfinite(got).all()), "non-finite decode logits")
+        check(err <= TOL_BACKENDS, f"backends differ by {err}")
+
+        # 6. prefill + decode against one full forward
+        full, _ = model.apply(params, toks)
+        cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+        pre, _ = model.apply(params, toks[:, :PROMPT], cache=cache)
+        errs_tf = [(pre - full[:, :PROMPT]).abs().max().item()]
+        for t in range(PROMPT, PROMPT + 4):
+            lg, _ = model.apply(params, toks[:, t:t + 1], cache=cache)
+            errs_tf.append((lg[:, 0] - full[:, t]).abs().max().item())
+        check(tuple(full.shape) == (BATCH, PROMPT + 4, cfg.padded_vocab),
+              f"logits shape {tuple(full.shape)}")
+        check(bool(torch.isfinite(full).all()), "non-finite logits")
+        print(f"[teacher] full-width prefill {PROMPT} + 4 decode steps vs "
+              f"full forward: max_abs_diff {max(errs_tf):.3e} "
+              f"(limit {TOL_TEACHER:g})")
+        check(max(errs_tf) <= TOL_TEACHER, f"decode drift {errs_tf}")
+    del cache, twin, full, pre, eng, res, params
+    torch.cuda.empty_cache()
+
+    # 7. time per launch beside the bound, the plain version and SDPA
+    q, k, v, valid = attention_inputs(torch.float32, dev)
+    B, KV, rep, hd = q.shape
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    addmask = torch.where(
+        torch.arange(k.shape[2], device=dev)[None, :] < valid[:, None],
+        0.0, -1e30).to(q.dtype)[:, None, None, :]
+    qh = q.reshape(B, KV * rep, 1, hd)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, k, v, attn_mask=addmask, enable_gqa=True)
+
+    lib_err = (library().reshape(q.shape) - da.decode_attention(
+        q, k, v, valid)).abs().max().item()
+    check(lib_err <= TOL_LIBRARY, f"SDPA differs from the kernel by {lib_err}")
+    bound, bound_by = decode_attention_bound(q, k, valid)
+    row = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:33",
+           "launches": launches, "max_abs_err": errs[torch.float32],
+           "ms": time_ms(lambda: da.decode_attention(q, k, v, valid), flush),
+           "plain_ms": time_ms(
+               lambda: da.decode_attention_ref(q, k, v, valid), flush),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": time_ms(library, flush)}
+    print(f"[timing] decode_attention f32 B=4 KV=4 rep=7 hd=128 Smax=161 "
+          f"valid=[0,1,129,161], cold L2: kernel {row['ms'] * 1e3:.1f} us, "
+          f"bound {bound * 1e3:.2f} us ({bound_by}), plain "
+          f"{row['plain_ms'] * 1e3:.1f} us, SDPA {row['library_ms'] * 1e3:.1f}"
+          f" us (SDPA vs kernel {lib_err:.1e}); card {smi}")
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,3 +16,5 @@ except ImportError:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where none is present")

@@ -1,0 +1,72 @@
+"""The port stands alone: no module of ``repro_torch`` and nothing that
+``chip_smoke.py`` imports may load JAX or the JAX package."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        for p in PKG.rglob("*.py"))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.kernels.decode_attention" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
+           or m == "repro" or m.startswith("repro.")]
+    assert not bad, bad
+    assert set(mods) <= set(loaded)
+
+
+def _imports(path):
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  *sorted(PKG.rglob("*.py"))],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_jax_or_repro(path):
+    bad = [n for n in _imports(path)
+           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Here, with no CUDA device, it exits nonzero and prints no result;
+    in a directory holding nothing else of the repo it fails too."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(script)], env=env,
+                             cwd=script.parent, capture_output=True,
+                             text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
