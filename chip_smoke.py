@@ -7,22 +7,30 @@ Run from the repository root, with no arguments:
 
 Phases, each printing its own lines; any failure exits nonzero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernel from src/repro_torch/kernels/csrc/;
-  3. the kernel against its plain PyTorch version at the serving path's
-     shapes, in float32 and bfloat16;
+  2. compile qwen2-7b's MLP products through the compiler stack
+     (repro_torch.core.compile_gemm), then build every CUDA kernel, one
+     nvcc per source, all at once: decode_attention from
+     src/repro_torch/kernels/csrc/ and the emitted GEMMs;
+  3. decode_attention against its plain PyTorch version at the serving
+     path's shapes, in float32 and bfloat16;
   4. serve qwen2-7b at full width (random weights from a seed) through
      repro_torch.launch.serve.main, counting the kernel's launches, then
      profile a few decode steps for the device's busy time;
   5. the full-width decode step with the kernels against the plain versions;
   6. full-width prefill + decode against one full forward (teacher forcing);
-  7. a JSON line with each kernel's time per launch beside its bound, its
-     plain version's time and one PyTorch library call's time.
+  7. decode_attention's time per launch beside its bound, its plain
+     version's time and one PyTorch library call's time;
+  8. the compiled-GEMM path: the MLP products through the emitted kernels
+     and a gemm_op forward and backward, counting the launches; each
+     against its plain version, then timed like phase 7;
+  9. a JSON line with phases 7 and 8's rows.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -54,6 +62,25 @@ TOL_LIBRARY = 1e-4   # a library's f32 attention, another sum order
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+
+# qwen2-7b's MLP products for the serving phase's 4 x 128 prefill tokens:
+# (M, N, K).  The tiles are the compiler's default 128, which divides all.
+MLP = {"up": (BATCH * PROMPT, 18944, 3584), "down": (BATCH * PROMPT, 3584,
+                                                      18944)}
+# (product, schedule, input dtype, epilogue); "bf16-acc" is a matmul that
+# accumulates in bf16, so its k-grid schedule rounds to bf16 per k tile
+GEMMS = ([(p, s, d, "none") for p in MLP for s in ("tpu_mxu",
+                                                   "tpu_mxu_kgrid")
+          for d in ("float32", "bfloat16")]
+         + [("up", "tpu_mxu", "float32", "bias_relu"),
+            ("up", "tpu_mxu_kgrid", "bf16-acc", "none")])
+GEMM_OP = (512, 1024, 768)      # gemm_op forward + backward, (M, N, K)
+# Emitted GEMM vs gemm_plain: tests/test_kernels.py's bounds, f32 (rtol,
+# atol) and bf16.  compile_gemm's bf16 products have an f32 output
+# (TensorIR's matmul accumulates in f32), so after the bf16 inputs nothing
+# rounds coarser than f32 and they are held to the f32 bound as well.
+GEMM_F32, GEMM_BF16 = (1e-4, 1e-3), (5e-2, 5e-1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -154,6 +181,157 @@ def decode_attention_bound(q, k, valid):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def compile_gemms(dev):
+    """The GEMM variants through the compiler stack, each with its
+    modelled cycles (priced on the TPU_V5E machine model: not a time)."""
+    import repro_torch.core.frontend as fe
+    from repro_torch.core import compile_gemm, compile_traced
+    out = []
+    for prod, sched, dtype, epi in GEMMS:
+        m, n, k = MLP[prod]
+        t0 = time.perf_counter()
+        if dtype == "bf16-acc":
+            g = fe.trace(lambda a, b: a._emit("matmul", [b],
+                                              acc_dtype="bfloat16"),
+                         [fe.spec((m, k), "bfloat16"),
+                          fe.spec((k, n), "bfloat16")],
+                         name=f"gemm_{m}x{n}x{k}_bf16acc")
+            ck = compile_traced(g, schedule=sched, device=str(dev),
+                                want_torch=False)
+        else:
+            ck = compile_gemm(m, n, k, schedule=sched, dtype=dtype,
+                              epilogue=epi, device=str(dev),
+                              want_torch=False)
+        name = f"stagecc_gemm {prod} {sched} {dtype} {epi}"
+        check(ck.run_cuda is not None, f"{name}: no CUDA emission")
+        print(f"[compile] {name}: M={m} N={n} K={k}, tiles "
+              f"{ck.run_cuda.plan.tiles}, {ck.cycles.total:,} cycles "
+              f"modelled on TPU_V5E (a machine model, not a time), "
+              f"compiled in {time.perf_counter() - t0:.2f}s")
+        out.append((prod, name, ck))
+    return out
+
+
+def gemm_bound(plan, m, n, k):
+    """Least time for the GEMM on this card: each input read once and the
+    output written once over the memory rate, against 2MNK flops over the
+    peak of the inputs' type (bf16 tensor cores, or f32 CUDA cores).
+    Returns (ms, "bytes"|"operations")."""
+    size = {"float32": 4, "bfloat16": 2}
+    lhs = plan.dtypes[plan.matmul.lhs.buffer.name]
+    nbytes = ((m * k + k * n) * size[lhs]
+              + m * n * size[plan.dtypes[plan.out_buffer]]
+              + sum(n * size[plan.dtypes[e]] for e in plan.epilogue_inputs))
+    peak = BF16_FLOP_PER_S if lhs == "bfloat16" else F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gemm_phase(gemms, dev, flush, smi):
+    """Phase 8: drive the compiled-GEMM path with the launch count reset,
+    then hold each result to its plain version and time it.  Returns the
+    JSON rows."""
+    from repro_torch.core import backend_cuda, compile_gemm, integrate
+    from repro_torch.kernels import gemm
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = {prod: [torch.randn(s, generator=gen, device=dev)
+                   for s in ((m, k), (k, n), (n,))]
+            for prod, (m, n, k) in MLP.items()}
+    args = [[x.to(dtypes[ck.run_cuda.plan.dtypes[b]]) for b, x in
+             zip(ck.run_cuda.plan.in_buffers, data[prod])]
+            for prod, _, ck in gemms]
+    m, n, k = GEMM_OP
+    x, y, w = (torch.randn(s, generator=gen, device=dev)
+               for s in ((m, k), (k, n), (m, n)))
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+
+    # the path: every product once, then gemm_op forward and backward
+    gemm.cuda_gemm.launches = 0
+    outs, counts = [], []
+    for (_, _, ck), a in zip(gemms, args):
+        before = gemm.cuda_gemm.launches
+        outs.append(ck.run_cuda(*a))
+        counts.append(gemm.cuda_gemm.launches - before)
+    op = integrate.gemm_op(m, n, k, backend="cuda")
+    (op(xg, yg) * w).sum().backward()
+    torch.cuda.synchronize()
+    total = gemm.cuda_gemm.launches
+    print(f"[gemm] cuda_gemm launches {total} = {len(gemms)} products + "
+          f"gemm_op {m}x{n}x{k} forward 1 and backward 2")
+    check(counts == [1] * len(gemms) and total == len(gemms) + 3,
+          f"cuda_gemm launched {counts} per product, {total} in all")
+
+    rows = []
+    for (prod, name, ck), a, got, count in zip(gemms, args, outs, counts):
+        plan = ck.run_cuda.plan
+        want = backend_cuda.gemm_plain(plan, *a)
+        lo, hi = backend_cuda.bracket(plan, *a)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name}: {tuple(got.shape)} {got.dtype}")
+        got32, want32 = got.float(), want.float()
+        check(bool(torch.isfinite(got32).all()), f"{name}: non-finite")
+        diff = (got32 - want32).abs()
+        err = diff.max().item()
+        outside = ((got32 < lo) | (got32 > hi)).sum().item()
+        bf16_in = plan.dtypes[plan.matmul.lhs.buffer.name] == "bfloat16"
+        rtol, atol = GEMM_BF16 if bf16_in else GEMM_F32
+        share = (diff / (atol + rtol * want32.abs())).max().item()
+        line = (f"[gemm] {name}: max_abs_err {err:.3e} vs gemm_plain, "
+                f"worst element at {share:.3g} of rtol {rtol:g} atol "
+                f"{atol:g}; {outside} elements outside the bracket of "
+                f"its roundings")
+        check(share <= 1 and outside == 0, f"{name}: off its bounds")
+        if plan.dtypes[plan.out_buffer] == "bfloat16":
+            exact = lo == hi
+            moved = (got32[exact] != want32[exact]).sum().item()
+            wide = torch.maximum(hi - want32, want32 - lo)
+            worst = torch.where(diff > 0, diff / wide, 0.0).max().item()
+            line += (f"; bf16 output: {1 - exact.float().mean().item():.3%}"
+                     f" of elements may round either way, {moved} of the "
+                     f"others differ, worst element at {worst:.3g} of its "
+                     f"bracket")
+            check(moved == 0, f"{name}: {moved} elements rounded elsewhere")
+        elif bf16_in:
+            f32 = (diff / (GEMM_F32[1] + GEMM_F32[0] * want32.abs())
+                   ).max().item()
+            line += (f"; f32 output, so no bf16 rounding after the inputs:"
+                     f" worst element at {f32:.3g} of the f32 bound")
+            check(f32 <= 1, f"{name}: off the f32 bound")
+        print(line)
+        del want, lo, hi, diff, got32, want32
+        bound, bound_by = gemm_bound(plan, *MLP[prod])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/stagecc_gemm.cuh",
+            "replaces": "src/repro/core/backend_pallas.py:229",
+            "launches": count, "max_abs_err": err,
+            "ms": time_ms(lambda: ck.run_cuda(*a), flush, iters=20),
+            "plain_ms": time_ms(
+                lambda: backend_cuda.gemm_plain(plan, *a), flush, iters=20),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.matmul(a[0], a[1]), flush,
+                                  iters=20)})
+        r = rows[-1]
+        print(f"[timing] {name}, cold L2: kernel {r['ms']:.3f} ms, bound "
+              f"{bound:.3f} ms ({bound_by}), gemm_plain "
+              f"{r['plain_ms']:.3f} ms, torch.matmul {r['library_ms']:.3f}"
+              f" ms; card {smi}")
+
+    plan = compile_gemm(m, n, k).run_cuda.plan
+    xp, yp = x.clone().requires_grad_(), y.clone().requires_grad_()
+    (backend_cuda.gemm_plain(plan, xp, yp) * w).sum().backward()
+    for what, g, p in (("dA", xg.grad, xp.grad), ("dB", yg.grad, yp.grad)):
+        e = (g - p).abs().max().item()
+        ok = bool(((g - p).abs() <= GEMM_F32[1]
+                   + GEMM_F32[0] * p.abs()).all())
+        print(f"[gemm] gemm_op {m}x{n}x{k} {what}: kernels vs autograd "
+              f"through gemm_plain, max_abs_err {e:.3e}")
+        check(ok, f"gemm_op {what} off by {e}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -178,10 +356,17 @@ def main() -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build the kernel
+    # 2. compile the GEMMs; build every kernel, one nvcc per source at once
+    gemms = compile_gemms(dev)
+    sources = sorted({ck.run_cuda.source for _, _, ck in gemms})
     t0 = time.perf_counter()
-    _build.load("decode_attention")
-    print(f"[build] {_build.library_path('decode_attention').name} in "
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        jobs = [pool.submit(_build.load, "decode_attention")]
+        jobs += [pool.submit(_build.load_source, src) for src in sources]
+        for job in jobs:
+            job.result()
+    print(f"[build] decode_attention and {len(sources)} emitted GEMM "
+          f"sources, one nvcc each, in parallel: "
           f"{time.perf_counter() - t0:.1f}s")
 
     # 3. kernel vs plain version at the serving path's shapes
@@ -320,7 +505,12 @@ def main() -> int:
           f"bound {bound * 1e3:.2f} us ({bound_by}), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, SDPA {row['library_ms'] * 1e3:.1f}"
           f" us (SDPA vs kernel {lib_err:.1e}); card {smi}")
-    print(json.dumps({"kernels": [row]}))
+
+    # 8. the compiled-GEMM path
+    rows = [row] + gemm_phase(gemms, dev, flush, smi)
+
+    # 9. every kernel's row
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

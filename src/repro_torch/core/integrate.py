@@ -1,0 +1,74 @@
+"""Integration layer — the AXI-wrapper analogue.
+
+The paper wraps its generated hardware module "with an AXI-full interface
+and a synthesizable IP core" so the accelerator couples to the host CPU.
+In PyTorch the host/device contract of a generated kernel is a
+**differentiable** op (``torch.autograd.Function``), so the kernel drops
+into a training step.
+
+``gemm_op`` builds that wrapper around a stagecc-compiled GEMM:
+forward = the compiled kernel; backward = two more stagecc GEMMs
+(dA = dC @ B^T, dB = A^T @ dC) compiled through the same pipeline — the
+whole training-facing surface is generated by the infrastructure.  The
+sharded form waits for the port's distribution layer.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+
+from .pipeline import compile_gemm
+
+BACKENDS = ("torch", "cuda")
+
+
+@functools.lru_cache(maxsize=64)
+def _compiled(m: int, n: int, k: int, schedule: str, backend: str):
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from "
+                         f"{BACKENDS}")
+    ck = compile_gemm(m, n, k, schedule=schedule,
+                      want_torch=(backend == "torch"),
+                      want_cuda=(backend == "cuda"))
+    if backend == "torch":
+        f = ck.run_torch
+        return lambda a, b: f(a, b)[0]
+    if ck.run_cuda is None:
+        raise ValueError(f"schedule {schedule} has no cuda emission")
+    return ck.run_cuda
+
+
+class _GemmFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, m, n, k, schedule, backend):
+        ctx.save_for_backward(a, b)
+        ctx.key = (m, n, k, schedule, backend)
+        return _compiled(m, n, k, schedule, backend)(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        m, n, k, schedule, backend = ctx.key
+        # the gradients are stagecc-compiled GEMMs too; the transposes are
+        # views, which the kernel reads through their strides
+        da = _compiled(m, k, n, schedule, backend)(g.to(a.dtype), b.t())
+        db = _compiled(k, n, m, schedule, backend)(a.t(), g.to(b.dtype))
+        return da.to(a.dtype), db.to(b.dtype), None, None, None, None, None
+
+
+def gemm_op(m: int, n: int, k: int, schedule: str = "tpu_mxu",
+            backend: str = "torch") -> Callable:
+    """Differentiable (m,k)x(k,n) GEMM generated by the stagecc pipeline.
+
+    backend: "torch" (the eager interpreter, runs anywhere) | "cuda" (the
+    emitted CUDA kernel; its plain version on CPU tensors).
+    """
+    _compiled(m, n, k, schedule, backend)       # refuse a bad pair early
+
+    def op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _GemmFn.apply(a, b, m, n, k, schedule, backend)
+
+    return op

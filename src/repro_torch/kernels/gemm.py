@@ -1,0 +1,72 @@
+"""GEMM kernels — the paper's case study, generated by the stagecc stack.
+
+The port of ``repro/kernels/gemm.py``.  ``cuda_gemm`` is *emitted* by the
+compiler infrastructure (frontend -> TensorIR -> LoopIR -> schedule ->
+CUDA source on ``csrc/stagecc_gemm.cuh``), so the paper's whole pipeline
+sits on the hot path.  Both block schedules exist:
+
+  * ``tpu_mxu_kgrid`` — the k tiles walked in order inside each block,
+    the output-typed sum rounded after each (the reference's revisited
+    output block);
+  * ``tpu_mxu``       — all of K summed in one f32 accumulator.
+
+``cuda_gemm.launches`` counts the launches of every emitted GEMM kernel,
+whichever entry point (``cuda_gemm``, ``CompiledKernel.run_cuda``,
+``integrate.gemm_op``) made them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.pipeline import compile_gemm
+
+_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _pick_tile(dim: int, pref: int = 128) -> int:
+    t = min(pref, dim)
+    while dim % t:
+        t -= 1
+    return t
+
+
+@functools.lru_cache(maxsize=256)
+def _build(m: int, n: int, k: int, schedule: str, dtype: str,
+           tm: int, tn: int, tk: int):
+    ck = compile_gemm(m, n, k, schedule=schedule, dtype=dtype,
+                      tile={"m": tm, "n": tn, "k": tk},
+                      want_torch=False, want_cuda=True)
+    if ck.run_cuda is None:
+        raise RuntimeError(f"stagecc failed to emit cuda for {ck.name}")
+    return ck
+
+
+def cuda_gemm(a: torch.Tensor, b: torch.Tensor, *,
+              schedule: str = "tpu_mxu_kgrid", tile: int = 128
+              ) -> torch.Tensor:
+    """(m,k) @ (k,n) through the stagecc-emitted CUDA kernel (its plain
+    version for CPU tensors).  f32 and bf16 operands keep their dtype;
+    others are computed in f32."""
+    m, kdim = a.shape
+    k2, n = b.shape
+    if kdim != k2:
+        raise ValueError(f"cuda_gemm: {tuple(a.shape)} @ {tuple(b.shape)}")
+    ck = _build(m, n, kdim, schedule, _DTYPES.get(a.dtype, "float32"),
+                _pick_tile(m, tile), _pick_tile(n, tile),
+                _pick_tile(kdim, tile))
+    return ck.run_cuda(a, b)
+
+
+cuda_gemm.launches = 0      # emitted-GEMM kernel launches (CUDA tensors)
+
+
+def gemm_cost(m: int, n: int, k: int, schedule: str = "tpu_mxu_kgrid",
+              tile: int = 128):
+    """(cycles, resources) of the generated kernel — TABLE I / Fig. 3
+    terms, modelled on the TPU v5e machine model, not GPU times."""
+    ck = _build(m, n, k, schedule, "float32",
+                _pick_tile(m, tile), _pick_tile(n, tile), _pick_tile(k, tile))
+    return ck.cycles, ck.resources

@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain versions, on a
-GPU.  Every test here is marked ``cuda`` and skips where no card is
+"""The port's CUDA kernels (hand-written, and emitted by the compiler)
+against their plain versions, on a GPU.  Every test here is marked ``cuda`` and skips where no card is
 present.  The file imports no JAX, so it runs on a machine with PyTorch
 alone:
 
@@ -7,13 +7,18 @@ alone:
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.core.frontend as fe
 from repro_torch.configs.base import get_config, reduced
+from repro_torch.core import backend_cuda, compile_gemm, compile_traced
+from repro_torch.core import integrate
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import gemm
 from repro_torch.models.model import Model, RunConfig
 from repro_torch.serve.engine import Engine, EngineConfig
 
@@ -30,6 +35,8 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plain GEMM's f32 products must be full f32, as PyTorch's default
+    assert not torch.backends.cuda.matmul.allow_tf32
     return torch.device("cuda")
 
 
@@ -116,3 +123,165 @@ def test_engine_serves_past_one_tile(cuda):
     want = Engine(plain, params, EngineConfig(max_len=300)).generate(
         prompts, 12)
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the compiler-emitted GEMM ----------------------------------------------
+
+# tests/test_kernels.py's GEMM bound in f32.  compile_gemm's bf16 products
+# have an f32 output (TensorIR's matmul accumulates in f32), so after the
+# bf16 inputs nothing rounds coarser than f32 and the same bound holds.
+GEMM_RTOL, GEMM_ATOL = 1e-4, 1e-3
+
+
+def _gemm_inputs(dev, m, n, k, epilogue, seed=0):
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal((m, k)), rng.standard_normal((k, n))]
+    if epilogue == "bias_relu":
+        xs.append(rng.standard_normal(n))
+    return [torch.from_numpy(x).to(dev, torch.float32) for x in xs]
+
+
+def _check_gemm(fn, xs, exact=False):
+    """Launch ``fn`` once on ``xs``; hold it to gemm_plain and to the
+    bracket of its roundings."""
+    before = gemm.cuda_gemm.launches
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    assert gemm.cuda_gemm.launches == before + 1
+    plan = fn.plan
+    args = [x.to(backend_cuda._TORCH_DTYPE[plan.dtypes[n]])
+            for n, x in zip(plan.in_buffers, xs)]
+    want = backend_cuda.gemm_plain(plan, *args)
+    lo, hi = backend_cuda.bracket(plan, *args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert ((got >= lo) & (got <= hi)).all()
+    if exact:       # bf16 output: equal wherever only one value can be
+        assert torch.equal(got[lo == hi], want[lo == hi])
+    else:
+        torch.testing.assert_close(got, want, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("schedule,dtype,epilogue", list(itertools.product(
+    ("tpu_mxu", "tpu_mxu_kgrid"), ("float32", "bfloat16"),
+    ("none", "relu", "bias_relu"))))
+def test_gemm_kernel_matches_plain(cuda, schedule, dtype, epilogue):
+    ck = compile_gemm(256, 384, 640, schedule=schedule, dtype=dtype,
+                      epilogue=epilogue, want_torch=False)
+    _check_gemm(ck.run_cuda, _gemm_inputs(cuda, 256, 384, 640, epilogue))
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+@pytest.mark.parametrize("shape", [(96, 96, 96), (131, 96, 64),
+                                   (64, 127, 257)])
+def test_gemm_kernel_odd_tiles(cuda, schedule, shape):
+    """cuda_gemm's tiles are the largest divisors up to 128: 96, and 1
+    for a prime dimension (131, 127, 257)."""
+    m, n, k = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = (x.to(dtype) for x in _gemm_inputs(cuda, m, n, k, "none"))
+        ck = gemm._build(m, n, k, schedule, str(dtype)[6:],
+                         gemm._pick_tile(m), gemm._pick_tile(n),
+                         gemm._pick_tile(k))
+        got = _check_gemm(ck.run_cuda, [a, b])
+        assert torch.equal(got, gemm.cuda_gemm(a, b, schedule=schedule))
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_gemm_kernel_reads_transposed_views(cuda, schedule):
+    """The backward of gemm_op passes transposed views; the kernel reads
+    them through their strides."""
+    ck = compile_gemm(192, 320, 256, schedule=schedule, want_torch=False)
+    rng = np.random.default_rng(3)
+    at, bt = (torch.from_numpy(rng.standard_normal(s)).to(cuda,
+                                                          torch.float32).t()
+              for s in ((256, 192), (320, 256)))   # (192, 256), (256, 320)
+    assert not at.is_contiguous() and not bt.is_contiguous()
+    a, b = at.contiguous(), bt.contiguous()
+    want = ck.run_cuda(a, b)
+    for x, y in ((at, bt), (at, b), (a, bt)):
+        # the order of the sums does not depend on how tiles are loaded
+        assert torch.equal(_check_gemm(ck.run_cuda, [x, y]), want)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "bias_relu"])
+def test_gemm_kernel_bf16_output(cuda, epilogue):
+    """A matmul that accumulates in bf16: the k-grid kernel rounds its
+    running sum after every k tile, as the reference does."""
+    m, n, k = 128, 256, 1024
+
+    def f(a, b, *bias):
+        y = a._emit("matmul", [b], acc_dtype="bfloat16")
+        return fe.relu(y + bias[0]) if bias else y
+    specs = [fe.spec((m, k), "bfloat16"), fe.spec((k, n), "bfloat16")]
+    specs += [fe.spec((n,), "float32")] if epilogue == "bias_relu" else []
+    ck = compile_traced(fe.trace(f, specs, name="g"),
+                        schedule="tpu_mxu_kgrid",
+                        tile={"m": 64, "n": 128, "k": 128}, want_torch=False)
+    got = _check_gemm(ck.run_cuda, _gemm_inputs(cuda, m, n, k, epilogue),
+                      exact=True)
+    assert got.dtype == torch.float32     # _check_gemm widened it
+
+
+@pytest.mark.parametrize("op", ["relu", "gelu", "exp", "neg", "tanh",
+                                "sigmoid", "abs", "sqrt", "rsqrt", "log1p",
+                                "add", "sub", "mul", "div", "maximum"])
+def test_gemm_kernel_every_epilogue_op(cuda, op):
+    """Each op of the generated epilogue against the plain version's
+    PyTorch op, the binary ones on an (M, N) input.  The products agree
+    bit for bit, so only the ops' own last bits may differ."""
+    m, n, k = 64, 96, 128
+    binary = op in ("add", "sub", "mul", "div", "maximum")
+    specs = [fe.spec((m, k)), fe.spec((k, n))]
+    specs += [fe.spec((m, n))] if binary else []
+    g = fe.trace(lambda a, b, *q: fe.matmul(a, b)._emit(op, list(q)),
+                 specs, name=f"gemm_{op}")
+    ck = compile_traced(g, schedule="tpu_mxu", tile={"m": 32, "n": 32,
+                                                     "k": 64},
+                        want_torch=False)
+    a, b = _gemm_inputs(cuda, m, n, k, "none", seed=6)
+    b = b / 8
+    if op in ("sqrt", "rsqrt", "log1p"):       # positive, far from 0
+        a, b = a.abs(), b.abs()
+    xs = [a, b]
+    if binary:
+        xs.append(1 + _gemm_inputs(cuda, m, n, n, "none", seed=7)[0].abs())
+    got = ck.run_cuda(*xs)
+    want = backend_cuda.gemm_plain(ck.run_cuda.plan, *xs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_gemm_nested_schedule_has_no_kernel(cuda):
+    assert compile_gemm(32, 32, 32, schedule="nested").run_cuda is None
+
+
+def test_gemm_kernel_refuses_what_it_does_not_take(cuda):
+    ck = compile_gemm(64, 64, 64, schedule="tpu_mxu", want_torch=False)
+    a, b = _gemm_inputs(cuda, 64, 64, 64, "none")
+    with pytest.raises(ValueError, match="several devices"):
+        ck.run_cuda(a, b.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        ck.run_cuda(a[:32], b)
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_gemm_op_gradients_on_the_card(cuda, schedule):
+    """Forward and backward are three emitted-GEMM launches; the gradients
+    match autograd through the plain version."""
+    m, n, k = 128, 192, 256
+    a, b = _gemm_inputs(cuda, m, n, k, "none", seed=9)
+    w = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (m, n))).to(cuda, torch.float32)
+    op = integrate.gemm_op(m, n, k, schedule=schedule, backend="cuda")
+    plan = compile_gemm(m, n, k, schedule=schedule).run_cuda.plan
+    grads = []
+    for fn in (op, lambda x, y: backend_cuda.gemm_plain(plan, x, y)):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        before = gemm.cuda_gemm.launches
+        (fn(x, y) * w).sum().backward()
+        grads.append((x.grad, y.grad, gemm.cuda_gemm.launches - before))
+    (ga, gb, n_op), (pa, pb, n_plain) = grads
+    assert (n_op, n_plain) == (3, 0)
+    torch.testing.assert_close(ga, pa, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+    torch.testing.assert_close(gb, pb, rtol=GEMM_RTOL, atol=GEMM_ATOL)

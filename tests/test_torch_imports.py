@@ -15,14 +15,18 @@ PKG = ROOT / "src" / "repro_torch"
 
 
 def _modules():
-    return sorted(
-        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
-        for p in PKG.rglob("*.py"))
+    names = (p.relative_to(ROOT / "src").with_suffix("").parts
+             for p in PKG.rglob("*.py"))
+    return sorted(".".join(n[:-1] if n[-1] == "__init__" else n)
+                  for n in names)
 
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.decode_attention" in mods
+    assert {"repro_torch.kernels.decode_attention", "repro_torch.core",
+            "repro_torch.core.backend_cuda", "repro_torch.core.integrate",
+            "repro_torch.kernels.ops",
+            "repro_torch.examples.quickstart"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
