@@ -9,8 +9,8 @@ Phases, each printing its own lines; any failure exits nonzero:
   1. the card's name and power limit (nvidia-smi);
   2. compile qwen2-7b's MLP products through the compiler stack
      (repro_torch.core.compile_gemm), then build every CUDA kernel, one
-     nvcc per source, all at once: decode_attention from
-     src/repro_torch/kernels/csrc/ and the emitted GEMMs;
+     nvcc per source, all at once: decode_attention, flash_attention and
+     ssd_scan from src/repro_torch/kernels/csrc/ and the emitted GEMMs;
   3. decode_attention against its plain PyTorch version at the serving
      path's shapes, in float32 and bfloat16;
   4. serve qwen2-7b at full width (random weights from a seed) through
@@ -23,7 +23,14 @@ Phases, each printing its own lines; any failure exits nonzero:
   8. the compiled-GEMM path: the MLP products through the emitted kernels
      and a gemm_op forward and backward, counting the launches; each
      against its plain version, then timed like phase 7;
-  9. a JSON line with phases 7 and 8's rows.
+  9. blocked attention through repro_torch.kernels.ops.attention (backend
+     "cuda", the flash_attention kernel) at qwen2-7b's widths (causal) and
+     gemma3-4b's (causal, local window 1024), f32 and bf16, counting the
+     launches; each against its plain version and SDPA, then timed;
+ 10. the Mamba-2 SSD scan through ops.ssd (backend "cuda", the ssd_scan
+     kernel) at mamba2-130m's widths, f32 and bf16, likewise, and against
+     ops.ssd's "torch" backend;
+ 11. a JSON line with the rows of phases 7-10.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 """
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -63,6 +71,9 @@ TOL_LIBRARY = 1e-4   # a library's f32 attention, another sum order
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# the peak of the inputs' type: the attention and SSD kernels compute in
+# f32 whatever their inputs, but a bound holds bf16 work to the bf16 rate
+PEAK = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
 
 # qwen2-7b's MLP products for the serving phase's 4 x 128 prefill tokens:
 # (M, N, K).  The tiles are the compiler's default 128, which divides all.
@@ -81,6 +92,15 @@ GEMM_OP = (512, 1024, 768)      # gemm_op forward + backward, (M, N, K)
 # (TensorIR's matmul accumulates in f32), so after the bf16 inputs nothing
 # rounds coarser than f32 and they are held to the f32 bound as well.
 GEMM_F32, GEMM_BF16 = (1e-4, 1e-3), (5e-2, 5e-1)
+# Blocked attention: batch 4 at each model's widths, K/V drawn per KV head
+# and repeated to the query heads (ops.attention has no GQA).
+ATTN = (("qwen2_7b", 2048), ("gemma3_4b", 4096))      # (config, Sq = Sk)
+# SSD: batch 4 of 4096 steps at mamba2-130m's widths; tests/test_kernels.py
+# bound (rtol, atol) in f32.  In bf16 the kernel's result must lie in
+# ssd_scan.bracket: one f32 bound on y, then the plain version's roundings.
+SSD_BATCH, SSD_SEQ = 4, 4096
+SSD_F32 = (1e-3, 1e-4)
+HAND_KERNELS = ("decode_attention", "flash_attention", "ssd_scan")
 
 
 def check(ok: bool, what: str) -> None:
@@ -162,6 +182,14 @@ def profile_decode(eng, toks, steps: int = 4):
     return (busy if busy > 0 else None), window, rows
 
 
+def roofline(nbytes, flops, peak):
+    """(ms, "bytes"|"operations"): the larger of the bytes over the memory
+    rate and the flops over ``peak`` flop/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def decode_attention_bound(q, k, valid):
     """Least time for the function on these inputs: each input byte read
     once (K and V only at valid positions; an empty row reads all of V,
@@ -176,9 +204,235 @@ def decode_attention_bound(q, k, valid):
     nbytes = 2 * q.numel() * el + valid.numel() * 4 + kv_bytes
     flops = sum(KV * rep * hd * (Smax if n <= 0 else 4 * min(n, Smax))
                 for n in valid.tolist())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline(nbytes, flops, F32_FLOP_PER_S)
+
+
+def flash_work(q, k, causal, window):
+    """(bytes, flops) that attention needs on these inputs: q, k and v read
+    once and the output written once; 4 hd flops per unmasked (query, key)
+    pair (2 for q.k, 2 for p.v), and 2 hd per key for a row masked
+    everywhere, which averages all of V."""
+    *lead, sq, hd = q.shape
+    sk = k.shape[-2]
+    qpos = np.arange(sq, dtype=np.int64) + sk - sq
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(sq, np.int64))
+    n = np.maximum(hi - lo + 1, 0)
+    flops = math.prod(lead) * hd * float(np.where(n > 0, 4 * n, 2 * sk).sum())
+    return (2 * q.numel() + 2 * k.numel()) * q.element_size(), flops
+
+
+def ssd_work(x, B, chunk):
+    """(bytes, flops) that the SSD scan needs: x, dt, B, C (and the f32 A
+    and D) read once, y written once; per chunk C B^T's lower triangle once
+    for all heads (it does not depend on the head), and per chunk and head
+    the intra product's lower triangle, C h^T and the state update, plus
+    the D skip."""
+    *lead, S, H, P = x.shape
+    N = B.shape[-1]
+    batch, nc, tri = math.prod(lead), S // chunk, chunk * (chunk + 1) // 2
+    flops = (batch * nc * (2 * tri * N + H * (2 * tri * P + 4 * chunk * N * P))
+             + 2 * x.numel())
+    nbytes = ((2 * x.numel() + x.numel() // P + 2 * B.numel())
+              * x.element_size() + 2 * H * 4)
+    return nbytes, flops
+
+
+def share_of(got, want, rtol, atol):
+    """Largest |got - want| / (atol + rtol |want|): <= 1 is inside."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def attention_phase(dev, flush, smi):
+    """Phase 9: drive ops.attention (backend "cuda") once per case with the
+    launch count reset, then hold each result to the plain version and to
+    SDPA, and time it.  Returns the JSON rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    cases = []
+    for arch, seq in ATTN:
+        cfg = get_config(arch)
+        hd, rep = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+        rng = np.random.default_rng(0)
+        q = torch.from_numpy(rng.standard_normal(
+            (BATCH, cfg.num_heads, seq, hd), dtype=np.float32)).to(dev)
+        kv = [torch.from_numpy(rng.standard_normal(
+            (BATCH, cfg.num_kv_heads, seq, hd), dtype=np.float32)).to(dev)
+            .repeat_interleave(rep, dim=1) for _ in range(2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((cfg, seq, cfg.layer_windows()[0], dtype,
+                          [t.to(dtype) for t in (q, *kv)]))
+        del q, kv
+
+    # the path: one ops.attention call per case
+    fa.flash_attention.launches = 0
+    outs, counts = [], []
+    for cfg, seq, window, dtype, (q, k, v) in cases:
+        before = fa.flash_attention.launches
+        outs.append(ops.attention(q, k, v, causal=True, window=window,
+                                  backend="cuda"))
+        counts.append(fa.flash_attention.launches - before)
+    torch.cuda.synchronize()
+    total = fa.flash_attention.launches
+    print(f"[attention] flash_attention launches {total} = {len(cases)} "
+          f"ops.attention calls")
+    check(counts == [1] * len(cases) and total == len(cases),
+          f"flash_attention launched {counts} per call, {total} in all")
+
+    rows = []
+    for (cfg, seq, window, dtype, (q, k, v)), got, count in zip(
+            cases, outs, counts):
+        B, H, _, hd = q.shape
+        name = (f"flash_attention {cfg.name} B={B} H={H} S={seq} hd={hd} "
+                f"causal window={window} {str(dtype)[6:]}")
+        kw = dict(causal=True, window=window)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        check(got.shape == want.shape and got.dtype == dtype,
+              f"{name}: {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        line = (f"[attention] {name}: max_abs_err {err:.3e} vs the plain "
+                f"version (limit {tol:g})")
+        check(err <= tol, f"{name}: error {err} > {tol}")
+        if dtype == torch.bfloat16:
+            want32 = fa.flash_attention_plain(q.float(), k.float(),
+                                              v.float(), **kw)
+            ratio = ((got.float() - want32).abs()
+                     / (BF16_ROUND * want32.abs() + TOL_F32)).max().item()
+            line += (f"; vs the plain version in f32 on the same inputs, "
+                     f"max |err| / (2^-8 |want| + {TOL_F32:g}) = {ratio:.3f}"
+                     f" (limit 1)")
+            check(ratio <= 1.0, f"{name}: off its output-rounding bound")
+            del want32
+        del want
+        mask = (None if window is None else
+                ref.attention_mask(seq, seq, True, window, dev))
+
+        def library(q=q, k=k, v=v, mask=mask):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None)
+
+        lib_err = (library().float() - got.float()).abs().max().item()
+        # the same function: a wrong mask or scale moves outputs by O(0.1)
+        check(lib_err <= TOL_BF16, f"{name}: SDPA differs by {lib_err}")
+        print(line + f"; SDPA vs kernel {lib_err:.1e}")
+        nbytes, flops = flash_work(q, k, True, window)
+        bound, bound_by = roofline(nbytes, flops, PEAK[dtype])
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:34",
+               "launches": count, "max_abs_err": err,
+               "ms": time_ms(lambda: ops.attention(
+                   q, k, v, backend="cuda", **kw), flush, iters=10),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+                   q, k, v, **kw), flush, iters=10),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": time_ms(library, flush, iters=10)}
+        rows.append(row)
+        print(f"[timing] {name}, cold L2: kernel {row['ms']:.3f} ms, bound "
+              f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP of unmasked pairs; at the f32 "
+              f"CUDA-core rate the kernel computes in, "
+              f"{flops / F32_FLOP_PER_S * 1e3:.3f} ms), plain "
+              f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms; "
+              f"card {smi}")
+    return rows
+
+
+def ssd_phase(dev, flush, smi):
+    """Phase 10: drive ops.ssd (backend "cuda") in f32 and bf16 with the
+    launch count reset, then hold each result to the plain version (and
+    the f32 one to ops.ssd's "torch" backend), and time it.  Returns the
+    JSON rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    cfg = get_config("mamba2_130m")
+    H, P = cfg.ssm.d_inner // cfg.ssm.head_dim, cfg.ssm.head_dim
+    N, chunk = cfg.ssm.state_dim, cfg.ssm.chunk
+    rng = np.random.default_rng(0)       # tests/test_kernels.py:82-90's draw
+    f32 = np.float32
+    host = [rng.standard_normal((SSD_BATCH, SSD_SEQ, H, P), dtype=f32),
+            np.abs(rng.standard_normal((SSD_BATCH, SSD_SEQ, H),
+                                       dtype=f32)) * 0.1]
+    A = torch.from_numpy(-np.abs(rng.standard_normal(H, dtype=f32))).to(dev)
+    host += [rng.standard_normal((SSD_BATCH, SSD_SEQ, N), dtype=f32)
+             for _ in range(2)]
+    D = torch.from_numpy(rng.standard_normal(H, dtype=f32)).to(dev)
+    cases = [(dtype, [torch.from_numpy(a).to(dev, dtype) for a in host])
+             for dtype in (torch.float32, torch.bfloat16)]
+
+    # the path: one ops.ssd call per dtype
+    ss.ssd_scan.launches = 0
+    outs, counts = [], []
+    for dtype, (x, dt, B, C) in cases:
+        before = ss.ssd_scan.launches
+        outs.append(ops.ssd(x, dt, A, B, C, D, chunk=chunk, backend="cuda"))
+        counts.append(ss.ssd_scan.launches - before)
+    torch.cuda.synchronize()
+    total = ss.ssd_scan.launches
+    print(f"[ssd] ssd_scan launches {total} = {len(cases)} ops.ssd calls")
+    check(counts == [1] * len(cases) and total == len(cases),
+          f"ssd_scan launched {counts} per call, {total} in all")
+
+    rows = []
+    rtol, atol = SSD_F32
+    for (dtype, (x, dt, B, C)), got, count in zip(cases, outs, counts):
+        name = (f"ssd_scan {cfg.name} batch={SSD_BATCH} S={SSD_SEQ} H={H} "
+                f"P={P} N={N} chunk={chunk} {str(dtype)[6:]}")
+        args = (x, dt, A, B, C, D)
+        want = ss.ssd_scan_plain(*args, chunk=chunk)
+        check(got.shape == want.shape and got.dtype == dtype,
+              f"{name}: {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            share = share_of(got, want, rtol, atol)
+            torch_err = share_of(got, ops.ssd(*args, chunk=chunk,
+                                              backend="torch"), rtol, atol)
+            print(f"[ssd] {name}: max_abs_err {err:.3e} vs the plain "
+                  f"version, worst element at {share:.3g} of rtol {rtol:g} "
+                  f"atol {atol:g}; vs ops.ssd backend torch (ssd_chunked) "
+                  f"at {torch_err:.3g}")
+            check(share <= 1 and torch_err <= 1, f"{name}: off its bound")
+        else:
+            lo, hi = ss.bracket(*args, chunk=chunk, rtol=rtol, atol=atol)
+            outside = ((got < lo) | (got > hi)).sum().item()
+            moved = (got != want).float().mean().item()
+            share = share_of(got, want, TOL_BF16, TOL_BF16)
+            print(f"[ssd] {name}: max_abs_err {err:.3e} vs the plain "
+                  f"version (worst element at {share:.3g} of the 5e-2 "
+                  f"bound), {moved:.3%} of elements differ; {outside} "
+                  f"outside ssd_scan.bracket (f32 bound on y, then the "
+                  f"plain version's roundings)")
+            check(outside == 0 and share <= 1, f"{name}: off its bounds")
+            del lo, hi
+        del want
+        nbytes, flops = ssd_work(x, B, chunk)
+        bound, bound_by = roofline(nbytes, flops, PEAK[dtype])
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "replaces": "src/repro/kernels/ssd_scan.py:35",
+               "launches": count, "max_abs_err": err,
+               "ms": time_ms(lambda: ops.ssd(*args, chunk=chunk,
+                                             backend="cuda"), flush,
+                             iters=10),
+               "plain_ms": time_ms(lambda: ss.ssd_scan_plain(
+                   *args, chunk=chunk), flush, iters=10),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": None}
+        rows.append(row)
+        print(f"[timing] {name}, cold L2: kernel {row['ms']:.3f} ms, bound "
+              f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP; at the f32 CUDA-core rate the "
+              f"kernel computes in, {flops / F32_FLOP_PER_S * 1e3:.3f} ms), "
+              f"plain {row['plain_ms']:.3f} ms, library: no single PyTorch "
+              f"call; card {smi}")
+    return rows
 
 
 def compile_gemms(dev):
@@ -223,9 +477,7 @@ def gemm_bound(plan, m, n, k):
               + m * n * size[plan.dtypes[plan.out_buffer]]
               + sum(n * size[plan.dtypes[e]] for e in plan.epilogue_inputs))
     peak = BF16_FLOP_PER_S if lhs == "bfloat16" else F32_FLOP_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * m * n * k / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline(nbytes, 2 * m * n * k, peak)
 
 
 def gemm_phase(gemms, dev, flush, smi):
@@ -360,13 +612,14 @@ def main() -> int:
     gemms = compile_gemms(dev)
     sources = sorted({ck.run_cuda.source for _, _, ck in gemms})
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
-        jobs = [pool.submit(_build.load, "decode_attention")]
+    with concurrent.futures.ThreadPoolExecutor(
+            len(sources) + len(HAND_KERNELS)) as pool:
+        jobs = [pool.submit(_build.load, name) for name in HAND_KERNELS]
         jobs += [pool.submit(_build.load_source, src) for src in sources]
         for job in jobs:
             job.result()
-    print(f"[build] decode_attention and {len(sources)} emitted GEMM "
-          f"sources, one nvcc each, in parallel: "
+    print(f"[build] {', '.join(HAND_KERNELS)} and {len(sources)} emitted "
+          f"GEMM sources, one nvcc each, in parallel: "
           f"{time.perf_counter() - t0:.1f}s")
 
     # 3. kernel vs plain version at the serving path's shapes
@@ -509,7 +762,12 @@ def main() -> int:
     # 8. the compiled-GEMM path
     rows = [row] + gemm_phase(gemms, dev, flush, smi)
 
-    # 9. every kernel's row
+    # 9. blocked attention; 10. the SSD scan
+    rows += attention_phase(dev, flush, smi)
+    torch.cuda.empty_cache()
+    rows += ssd_phase(dev, flush, smi)
+
+    # 11. every kernel's row
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

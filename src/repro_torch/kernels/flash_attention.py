@@ -1,0 +1,102 @@
+"""Blocked (flash) attention.
+
+The PyTorch counterpart of ``repro/kernels/flash_attention.py``.  q is
+(BH, Sq, D) and k/v are (BH, Sk, D); the result is (BH, Sq, D) in q's
+dtype, with the softmax statistics in f32.  Causal and local-window masks
+place query row i at position i + (Sk - Sq); masked logits are -1e30, not
+-inf, so a row that is masked everywhere returns the mean of V.
+
+On a CUDA tensor ``flash_attention`` launches the hand-written kernel in
+``csrc/flash_attention.cu`` (built at first use); on a CPU tensor it runs
+``flash_attention_plain``, the plain PyTorch version of the same function.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256      # the kernel keeps a 64-row query tile in shared memory
+_LIB = None
+
+
+def _kernel():
+    global _LIB
+    if _LIB is None:
+        fn = _build.load("flash_attention").flash_attention_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = fn
+    return _LIB
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q: (BH, Sq, D); k, v: (BH, Sk, D) -> (BH, Sq, D).
+
+    ``block_q`` / ``block_k`` are the reference's tiles and must divide
+    the lengths, as there.  The CUDA kernel picks its own tile (64 query
+    rows by 32 keys), and the result does not depend on them."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or (
+            k.shape[0], k.shape[2]) != (q.shape[0], q.shape[2]):
+        raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}: expected q (BH, Sq, D) and "
+                         f"k/v (BH, Sk, D)")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"seq lens ({sq},{sk}) must divide blocks "
+                         f"({block_q},{block_k})")
+    scale = float(scale) if scale is not None else float(1.0 / math.sqrt(d))
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    device = q.device
+    if device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one dtype of {list(_DTYPES)}; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q/k/v must be contiguous")
+    if bh > 65535:
+        raise ValueError(f"BH={bh} > 65535 (the grid's second axis)")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _kernel()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), bh, sq, sk, d,
+                        int(causal), int(window is not None),
+                        int(window or 0), scale, stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0     # kernel launches (CUDA tensors only)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
+    """Plain version: the masked softmax over the whole (BH, Sq, Sk) score
+    tensor at once, in f32."""
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)

@@ -285,3 +285,156 @@ def test_gemm_op_gradients_on_the_card(cuda, schedule):
     assert (n_op, n_plain) == (3, 0)
     torch.testing.assert_close(ga, pa, rtol=GEMM_RTOL, atol=GEMM_ATOL)
     torch.testing.assert_close(gb, pb, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+
+
+# ---- flash attention ---------------------------------------------------------
+
+
+def _qkv(dev, dtype, bh, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s)).to(dev, dtype)
+            for s in ((bh, sq, d), (bh, sk, d), (bh, sk, d))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
+                                       (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((3, 128, 128, 64), True, None),
+    ((3, 128, 128, 64), False, None),
+    ((2, 64, 128, 32), True, 32),            # Sk > Sq, a window
+    ((2, 256, 256, 64), True, 128),          # tiles skipped on both sides
+    ((2, 128, 256, 128), True, None),
+    ((2, 128, 64, 32), True, None),          # rows masked everywhere
+    ((2, 256, 256, 256), True, 40),          # hd 256
+    ((1, 100, 70, 20), True, None),          # ragged tiles, hd not 4k
+    ((2, 96, 96, 130), False, 16),           # a window without causal
+    ((1, 64, 64, 16), True, 0),              # every row masked
+])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, dtype, *shape)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          causal=causal, window=window)
+        assert ((got.float() - want32).abs()
+                <= BF16_ROUND * want32.abs() + TOL).all()
+
+
+def test_flash_kernel_ignores_the_reference_blocks(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, torch.float32, 2, 128, 128, 32, seed=42)
+    want = fa.flash_attention(q, k, v)
+    for bq, bk in ((32, 32), (32, 128), (128, 64)):
+        got = fa.flash_attention(q, k, v, block_q=bq, block_k=bk)
+        assert torch.equal(got, want)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, torch.float32, 1, 32, 32, 16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                           v)
+    wide = _qkv(cuda, torch.float32, 1, 32, 32, 264)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*wide)
+
+
+def test_ops_attention_one_launch(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q, k, v = (t.reshape(2, 3, *t.shape[1:])
+               for t in _qkv(cuda, torch.float32, 6, 64, 96, 32, seed=9))
+    before = fa.flash_attention.launches
+    got = ops.attention(q, k, v, window=24, backend="cuda")
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ops.attention(q, k, v, window=24, backend="torch")
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= TOL
+
+
+# ---- SSD scan ----------------------------------------------------------------
+
+SSD_TOL = dict(rtol=1e-3, atol=1e-4)      # tests/test_kernels.py:97
+
+
+def _ssd(dev, dtype, batch, S, H, P, N, seed=0):
+    """tests/test_kernels.py's draw: dt = |N(0,1)| 0.1, A = -|N(0,1)|."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, S, H, P))
+    dt = np.abs(rng.standard_normal((batch, S, H))) * 0.1
+    A = -np.abs(rng.standard_normal(H))
+    B = rng.standard_normal((batch, S, N))
+    C = rng.standard_normal((batch, S, N))
+    D = rng.standard_normal(H)
+    return ([torch.from_numpy(a).to(dev, dtype) for a in (x, dt)]
+            + [torch.from_numpy(A).to(dev, torch.float32)]
+            + [torch.from_numpy(a).to(dev, dtype) for a in (B, C)]
+            + [torch.from_numpy(D).to(dev, torch.float32)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,chunk,with_d", [
+    ((1, 128, 4, 16, 8), 16, True),
+    ((1, 128, 4, 16, 8), 32, False),
+    ((2, 256, 3, 64, 128), 64, True),        # mamba2-130m's P, N, chunk
+    ((1, 96, 2, 6, 5), 32, True),            # widths not 4k
+    ((2, 8, 2, 3, 4), 64, True),             # one chunk shorter than 64
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, shape, chunk, with_d):
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, B, C, D = _ssd(cuda, dtype, *shape)
+    D = D if with_d else None
+    before = ss.ssd_scan.launches
+    got = ss.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = ss.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **SSD_TOL)
+    else:
+        lo, hi = ss.bracket(x, dt, A, B, C, D, chunk=chunk, **SSD_TOL)
+        assert ((got >= lo) & (got <= hi)).all()
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, B, C, D = _ssd(cuda, torch.float32, 1, 256, 2, 8, 4)
+    with pytest.raises(ValueError, match="chunk 128"):
+        ss.ssd_scan(x, dt, A, B, C, D, chunk=128)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x.half(), dt.half(), A, B.half(), C.half(), D)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x, dt.bfloat16(), A, B, C, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2),
+                    C, D)
+    for P, N in ((65, 4), (8, 129)):
+        big = _ssd(cuda, torch.float32, 1, 64, 1, P, N)
+        with pytest.raises(ValueError, match="the kernel takes"):
+            ss.ssd_scan(*big)
+
+
+def test_ops_ssd_one_launch_and_backends(cuda):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, B, C, D = _ssd(cuda, torch.float32, 3, 256, 4, 32, 16, seed=5)
+    before = ss.ssd_scan.launches
+    got = ops.ssd(x, dt, A, B, C, D, chunk=64, backend="cuda")
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    want = ops.ssd(x, dt, A, B, C, D, chunk=64, backend="torch")
+    torch.testing.assert_close(got, want, **SSD_TOL)

@@ -26,6 +26,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.decode_attention", "repro_torch.core",
             "repro_torch.core.backend_cuda", "repro_torch.core.integrate",
             "repro_torch.kernels.ops",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan",
             "repro_torch.examples.quickstart"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
