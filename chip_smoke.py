@@ -7,10 +7,12 @@ Run from the repository root, with no arguments:
 
 Phases, each printing its own lines; any failure exits nonzero:
   1. the card's name and power limit (nvidia-smi);
-  2. compile qwen2-7b's MLP products through the compiler stack
-     (repro_torch.core.compile_gemm), then build every CUDA kernel, one
-     nvcc per source, all at once: decode_attention, flash_attention and
-     ssd_scan from src/repro_torch/kernels/csrc/ and the emitted GEMMs;
+  2. compile qwen2-7b's MLP products (repro_torch.core.compile_gemm) and
+     the four serving-kernel graphs of phase 11 through the compiler stack,
+     then build every CUDA kernel, one nvcc per source, all at once:
+     decode_attention, flash_attention and ssd_scan from
+     src/repro_torch/kernels/csrc/, the emitted GEMMs and the general
+     emitter's four sources;
   3. decode_attention against its plain PyTorch version at the serving
      path's shapes, in float32 and bfloat16;
   4. serve qwen2-7b at full width (random weights from a seed) through
@@ -30,7 +32,14 @@ Phases, each printing its own lines; any failure exits nonzero:
  10. the Mamba-2 SSD scan through ops.ssd (backend "cuda", the ssd_scan
      kernel) at mamba2-130m's widths, f32 and bf16, likewise, and against
      ops.ssd's "torch" backend;
- 11. a JSON line with the rows of phases 7-10.
+ 11. the compiled serving kernels: the flash graph at qwen2-7b's (causal)
+     and gemma3-4b's (window 1024) widths, the decode graph at the serving
+     shapes and the SSD graph at mamba2-130m's, compiled through
+     repro_torch.core.compile_traced and run through run_cuda (the general
+     emitter's per-nest kernels), counting the stage launches; each held to
+     its plain version, a float64 oracle and the hand kernel on the same
+     slice, then timed per call and per stage;
+ 12. a JSON line with the rows of phases 7-11.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 """
@@ -101,6 +110,23 @@ ATTN = (("qwen2_7b", 2048), ("gemma3_4b", 4096))      # (config, Sq = Sk)
 SSD_BATCH, SSD_SEQ = 4, 4096
 SSD_F32 = (1e-3, 1e-4)
 HAND_KERNELS = ("decode_attention", "flash_attention", "ssd_scan")
+# The compiled serving kernels (phase 11), one (batch, head) slice each,
+# at the schedules whose every stage traces at most 4096 statements:
+# (label, graph kind, dims, window / valid, pipeline).  grid{vars=N} maps
+# only the first nest to the grid, so the later nests run as one block.
+GRID2 = "lower{tile_m=128,tile_n=128,tile_k=128},fuse-epilogue,grid{vars=2}"
+GRID1 = "lower{tile_m=128,tile_n=128,tile_k=128},fuse-epilogue,grid{vars=1}"
+COMPILED = (("flash qwen2-7b causal", "flash", (2048, 2048, 128), None, GRID2),
+            ("flash gemma3-4b window 1024", "flash", (4096, 4096, 256), 1024,
+             GRID2),
+            ("decode qwen2-7b rep 7 Smax 161 valid 129", "decode",
+             (7, 161, 128), 129, GRID2),
+            ("ssd mamba2-130m one head", "ssd", (4096, 64, 128), None, GRID1))
+# tests/test_compiled_kernels.py's bound for a compiled graph against its
+# oracle and the hand kernels; against ssd_scan, tests/test_kernels.py's
+# SSD bound (a 4096-step sequential scan against the chunked kernel)
+TOL_COMPILED = (1e-4, 1e-4)
+NEG = -1e30
 
 
 def check(ok: bool, what: str) -> None:
@@ -108,12 +134,12 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = 50) -> float:
+def time_ms(fn, flush: torch.Tensor, iters: int = 50, warm: int = 3) -> float:
     """Mean device time of one call with the L2 cache cold, as a decode
     step finds it (each layer's MLP weights stream through L2 between two
     attention calls).  CUDA events around each call; a 256 MiB write
     before each evicts the 50 MB L2."""
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -435,6 +461,224 @@ def ssd_phase(dev, flush, smi):
     return rows
 
 
+def compile_graphs(dev):
+    """Phase 11's graphs through the compiler stack: (label, kind, dims,
+    window / valid, compiled kernel)."""
+    import repro_torch.core.frontend as fe
+    from repro_torch.core import compile_traced
+    build = {"flash": fe.flash_attention_graph,
+             "decode": fe.decode_attention_graph, "ssd": fe.ssd_scan_graph}
+    out = []
+    for label, kind, dims, extra, pipe in COMPILED:
+        t0 = time.perf_counter()
+        ck = compile_traced(build[kind](*dims), pipeline=pipe,
+                            device=str(dev), want_torch=False)
+        check(ck.run_cuda is not None and ck.run_cuda.plan is None,
+              f"{label}: no general CUDA emission")
+        grids = [list(st.grid) for st in ck.run_cuda.stages]
+        print(f"[compile] stagecc_general {label}: {ck.name}, {pipe}; "
+              f"{len(grids)} stages, grids {grids}; compiled in "
+              f"{time.perf_counter() - t0:.2f}s")
+        out.append((label, kind, dims, extra, ck))
+    return out
+
+
+def attn_mask(sq, sk, causal=True, window=None, valid=None):
+    """tests/test_compiled_kernels.py's additive mask: 0 where query t (at
+    cache position t + sk - sq) may attend, -1e30 elsewhere."""
+    qpos = np.arange(sq)[:, None] + (sk - sq)
+    kpos = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    if valid is not None:
+        keep &= kpos < valid
+    return np.where(keep, 0.0, NEG).astype(np.float32)
+
+
+def compiled_case(kind, dims, extra, dev):
+    """The graph's inputs on the card (numpy seed 0, built as
+    tests/test_compiled_kernels.py's _flash_case / _ssd_case build them)
+    and the port's hand kernel on the same slice, as a thunk."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    if kind in ("flash", "decode"):
+        sq, sk, d = dims
+        q, k, v = (rng.standard_normal((1, n, d)).astype(f32)
+                   for n in (sq, sk, sk))
+        mask = (attn_mask(sq, sk, causal=True, window=extra)
+                if kind == "flash"
+                else attn_mask(sq, sk, causal=False, valid=extra))
+        host = [q[0] / np.sqrt(d).astype(f32), k[0].T.copy(), v[0], mask]
+        tq, tk, tv = (torch.from_numpy(a).to(dev) for a in (q, k, v))
+        if kind == "flash":
+            hand = lambda: flash_attention(tq, tk, tv, causal=True,
+                                           window=extra)[0]
+        else:       # one (batch, kv group) of the decode kernel's input
+            valid = torch.tensor([extra], dtype=torch.int32, device=dev)
+            hand = lambda: decode_attention(tq[None], tk[None], tv[None],
+                                            valid)[0, 0]
+    else:
+        s, p, n = dims
+        head, H = 0, 1
+        x = rng.standard_normal((s, H, p)).astype(f32)
+        dt = rng.uniform(0.01, 0.5, (s, H)).astype(f32)
+        A = rng.uniform(-1.0, -0.1, (H,)).astype(f32)
+        B = rng.standard_normal((s, n)).astype(f32)
+        C = rng.standard_normal((s, n)).astype(f32)
+        a = np.repeat(np.exp(dt[:, head] * A[head])[:, None], p * n, axis=1)
+        u = ((dt[:, head, None] * x[:, head, :])[:, :, None]
+             * B[:, None, :]).reshape(s, p * n)
+        ct = np.broadcast_to(C[:, None, :], (s, p, n)).reshape(s, p * n)
+        g = np.kron(np.eye(p), np.ones((n, 1))).astype(f32)
+        host = [a.astype(f32), u.astype(f32), ct.astype(f32), g]
+        tx, tdt, tA, tB, tC = (torch.from_numpy(t).to(dev)
+                               for t in (x, dt, A, B, C))
+        hand = lambda: ssd_scan(tx, tdt, tA, tB, tC, None, chunk=64)[:, head]
+    return [torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+            for t in host], hand
+
+
+def compiled_oracle(kind, xs):
+    """tests/test_compiled_kernels.py's _softmax_oracle / _scan_oracle, in
+    float64 on the card."""
+    if kind in ("flash", "decode"):
+        qs, kt, v, mask = (t.double() for t in xs)
+        sc = qs @ kt + mask
+        p = torch.exp(sc - sc.max(dim=1, keepdim=True).values)
+        return ((p @ v) / p.sum(dim=1, keepdim=True)).float()
+    a, u, ct, g = (t.double() for t in xs)
+    h = torch.zeros_like(u[0])
+    hs = torch.empty_like(u)
+    for t in range(u.shape[0]):
+        h = a[t] * h + u[t]
+        hs[t] = h
+    return ((hs * ct) @ g).float()
+
+
+def compiled_phase(compiled, dev, flush, smi):
+    """Phase 11: drive each compiled graph's run_cuda once with the stage
+    launch count reset, then hold each result to its plain version, the
+    float64 oracle and the hand kernel, and time it per call and per
+    stage.  Returns the JSON rows."""
+    from repro_torch.core import backend_cuda
+    from repro_torch.kernels import gemm
+    cases = [(label, kind, dims, ck) + compiled_case(kind, dims, extra, dev)
+             for label, kind, dims, extra, ck in compiled]
+
+    # the path: one run_cuda call per graph
+    backend_cuda.emit_general.launches = 0
+    gemm_before = gemm.cuda_gemm.launches
+    outs, counts = [], []
+    for label, kind, dims, ck, xs, hand in cases:
+        before = backend_cuda.emit_general.launches
+        outs.append(ck.run_cuda(*xs))
+        counts.append(backend_cuda.emit_general.launches - before)
+    torch.cuda.synchronize()
+    total = backend_cuda.emit_general.launches
+    want = [len(c[3].run_cuda.stages) for c in cases]
+    print(f"[compiled] emit_general stage launches {counts} per run_cuda "
+          f"call ({total} in all); stages per graph {want}; cuda_gemm "
+          f"launches moved by {gemm.cuda_gemm.launches - gemm_before}")
+    check(counts == want and total == sum(want),
+          f"stage launches {counts}, expected {want}")
+    check(gemm.cuda_gemm.launches == gemm_before, "cuda_gemm launched")
+
+    rows = []
+    rtol, atol = TOL_COMPILED
+    for (label, kind, dims, ck, xs, hand), got, count in zip(cases, outs,
+                                                             counts):
+        fn = ck.run_cuda
+        name = f"stagecc_general {label} {'x'.join(map(str, dims))} float32"
+        plain = backend_cuda.general_plain(fn, *xs)
+        torch.cuda.synchronize()
+        check(got.shape == plain.shape and got.dtype == plain.dtype,
+              f"{name}: {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        err = (got - plain).abs().max().item()
+        oracle = compiled_oracle(kind, xs)
+        ref = hand()
+        shares = {"plain": share_of(got, plain, rtol, atol),
+                  "oracle": share_of(got, oracle, rtol, atol)}
+        hand_tol = SSD_F32 if kind == "ssd" else TOL_COMPILED
+        shares["hand"] = share_of(got, ref, *hand_tol)
+        hand_name = {"flash": "flash_attention", "decode":
+                     "decode_attention", "ssd": "ssd_scan(chunk=64)"}[kind]
+        print(f"[compiled] {name}: max_abs_err {err:.3e} vs general_plain; "
+              f"worst element at {shares['plain']:.3g} of rtol {rtol:g} atol "
+              f"{atol:g} vs general_plain, {shares['oracle']:.3g} vs the "
+              f"float64 oracle, {shares['hand']:.3g} of rtol {hand_tol[0]:g}"
+              f" atol {hand_tol[1]:g} vs {hand_name} (max |diff| "
+              f"{(got - ref).abs().max().item():.3e})")
+        check(max(shares.values()) <= 1, f"{name}: off its bounds {shares}")
+        del plain, oracle, ref
+        library = None
+        if kind != "ssd":
+            qs, kt, v, mask = xs
+            args4 = (qs[None, None], kt.t()[None, None], v[None, None])
+            sdpa_mask = mask[None, None]
+
+            def library(args4=args4, sdpa_mask=sdpa_mask):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    *args4, attn_mask=sdpa_mask, scale=1.0)
+
+            lib_share = share_of(library()[0, 0], got, rtol, atol)
+            print(f"[compiled] {name}: SDPA (the same additive mask, scale "
+                  f"1) vs run_cuda at {lib_share:.3g} of the bound")
+            check(lib_share <= 1, f"{name}: SDPA differs")
+
+        # the function's bound: the graph's inputs read once and its output
+        # written once, against the f32 operations its stages do
+        flops = sum(st.flops for st in fn.stages)
+        nbytes = sum(t.numel() * 4 for t in xs) + got.numel() * 4
+        bound, bound_by = roofline(nbytes, flops, F32_FLOP_PER_S)
+        # per stage: its own HBM reads and writes, the materialised
+        # temporaries included
+        env = fn.environment(*xs)
+        for st in fn.stages:
+            st(env)
+        stage_ms, stage_bounds = [], []
+        for st in fn.stages:
+            stage_ms.append(time_ms(lambda st=st: st(env), flush, iters=5))
+            stage_bounds.append(roofline(st.hbm_bytes, st.flops,
+                                         F32_FLOP_PER_S))
+        del env
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/stagecc_stage.cuh",
+               "replaces": "src/repro/core/backend_pallas.py:402",
+               "launches": count, "max_abs_err": err,
+               "ms": time_ms(lambda: fn(*xs), flush, iters=5),
+               "plain_ms": time_ms(lambda: backend_cuda.general_plain(
+                   fn, *xs), flush, iters=3, warm=1),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": (None if library is None else
+                              time_ms(library, flush, iters=10))}
+        rows.append(row)
+        for st, ms, (b, by) in zip(fn.stages, stage_ms, stage_bounds):
+            print(f"[timing] {name} stage {st.index}: grid "
+                  f"{list(st.grid)} ({st.programs} blocks of {st.threads} "
+                  f"threads), cold L2: {ms:.3f} ms, bound {b:.4f} ms ({by}: "
+                  f"{st.hbm_bytes / 1e6:.1f} MB of its HBM reads and writes, "
+                  f"{st.flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32)")
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.3f} ms")
+        print(f"[timing] {name}, cold L2: run_cuda {row['ms']:.3f} ms per "
+              f"call ({count} stage launches; stages sum to "
+              f"{sum(stage_ms):.3f} ms), bound {bound:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB of inputs and output, "
+              f"{flops / 1e9:.3f} GFLOP; the stages' own bounds sum to "
+              f"{sum(b for b, _ in stage_bounds):.4f} ms with the "
+              f"temporaries), general_plain {row['plain_ms']:.3f} ms, SDPA "
+              f"{lib}; card {smi}")
+        del got
+    return rows
+
+
 def compile_gemms(dev):
     """The GEMM variants through the compiler stack, each with its
     modelled cycles (priced on the TPU_V5E machine model: not a time)."""
@@ -608,19 +852,23 @@ def main() -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. compile the GEMMs; build every kernel, one nvcc per source at once
+    # 2. compile the GEMMs and the graphs; build every kernel, one nvcc per
+    # source at once
     gemms = compile_gemms(dev)
+    compiled = compile_graphs(dev)
     sources = sorted({ck.run_cuda.source for _, _, ck in gemms})
+    general = [ck.run_cuda.source for *_, ck in compiled]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(
-            len(sources) + len(HAND_KERNELS)) as pool:
+            len(sources) + len(general) + len(HAND_KERNELS)) as pool:
         jobs = [pool.submit(_build.load, name) for name in HAND_KERNELS]
-        jobs += [pool.submit(_build.load_source, src) for src in sources]
+        jobs += [pool.submit(_build.load_source, src)
+                 for src in sources + general]
         for job in jobs:
             job.result()
-    print(f"[build] {', '.join(HAND_KERNELS)} and {len(sources)} emitted "
-          f"GEMM sources, one nvcc each, in parallel: "
-          f"{time.perf_counter() - t0:.1f}s")
+    print(f"[build] {', '.join(HAND_KERNELS)}, {len(sources)} emitted "
+          f"GEMM sources and {len(general)} general-emitter sources, one "
+          f"nvcc each, in parallel: {time.perf_counter() - t0:.1f}s")
 
     # 3. kernel vs plain version at the serving path's shapes
     errs = {}
@@ -766,8 +1014,12 @@ def main() -> int:
     rows += attention_phase(dev, flush, smi)
     torch.cuda.empty_cache()
     rows += ssd_phase(dev, flush, smi)
+    torch.cuda.empty_cache()
 
-    # 11. every kernel's row
+    # 11. the compiled serving kernels through the general emitter
+    rows += compiled_phase(compiled, dev, flush, smi)
+
+    # 12. every kernel's row
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 Levels (Fig. 1 of the paper):
     frontend (SYCL/DPC++ role)  ->  TensorIR (MLIR role)
         ->  LoopIR (Calyx role)  ->  HwIR (FSM + datapath, the RTL role)
-        ->  backends (eager PyTorch, an emitted CUDA GEMM) + Verilog-style
-            text
+        ->  backends (eager PyTorch, emitted CUDA: a GEMM template or one
+            generated kernel per loop nest) + Verilog-style text
 with cycle/resource models derived structurally from the HwIR module
 (the Vivado-report role), priced on the modelled TPU v5e as in the JAX
 package.  Design-space exploration and autotuning are not ported yet.

@@ -1,8 +1,12 @@
-"""CUDA backend: emit a GEMM kernel for Hopper from scheduled LoopIR.
+"""CUDA backend: emit Hopper kernels from scheduled LoopIR.
 
-The port of the contraction emitter of ``backend_pallas.py``
-(``_analyze``, ``_emit_gemm``, ``_apply_epilogue``, ``emit``).  It accepts
-the same structured subset, a single scheduled contraction nest::
+The port of ``backend_pallas.py``'s two emitters, with its dispatch:
+``emit`` tries the contraction classifier ``_analyze`` first and falls
+through to the general multi-nest emitter ``emit_general`` only when
+``_analyze`` refuses the kernel.
+
+**The contraction emitter** (``_analyze``, ``_emit_gemm``,
+``_apply_epilogue``) accepts a single scheduled contraction nest::
 
     Loop(g0 @grid) { Loop(g1 @grid) { [Loop(g2 @grid)]
         [ZeroTile(acc)]
@@ -16,29 +20,45 @@ whether the k tiles' f32 products are summed in f32 (``tpu_mxu``: K
 inside the block) or rounded to the output dtype after each tile
 (``tpu_mxu_kgrid``: the reference revisits its output block along a k
 grid axis), the element types, and the ``EwiseTile`` epilogue chain as a
-generated ``__device__`` functor.  The source is built by nvcc at the first launch on a CUDA
-tensor (``kernels/_build.load_source``).  On CPU tensors the emitted
-callable runs ``gemm_plain``, the plain PyTorch version of the same
-arithmetic.
+generated ``__device__`` functor.  On CPU tensors the emitted callable
+runs ``gemm_plain``, the plain PyTorch version of the same arithmetic.
+Its own refusals (element types other than f32 / bf16, epilogue inputs
+shaped other than (N,) or (M, N), tiles that do not divide the problem)
+stay refusals: such a contraction gets no kernel.
 
-``emit`` raises :class:`EmitError` for a kernel outside that subset (the
-``nested`` / ``inner_flattened`` schedules, multi-nest graphs); there is
-no general emitter in the port yet, and nothing takes over in its place.
+**The general emitter** (``emit_general``, after ``_emit_stage``) takes
+what the classifier refuses: the ``nested`` / ``inner_flattened``
+schedules and the multi-nest serving-kernel graphs.  Each top-level nest
+is a stage: its leading @grid chain is the CUDA grid, every other loop a
+C loop in the block, scratch lives in shared memory, and every statement
+is a block-cooperative loop over its tile (``kernels/csrc/
+stagecc_stage.cuh``).  One source holds every stage of a kernel.  On CPU
+tensors the callable runs ``general_plain``, which executes each stage
+as the Pallas body does, in PyTorch.
+
+Sources are built by nvcc at the first launch on a CUDA tensor
+(``kernels/_build.load_source``).  On a CUDA tensor the kernel launches
+or the call raises; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+import itertools
+import math
+import re
+import struct
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 from .backend_torch import _EWISE, _TORCH_DTYPE, as_tensor
-from .loop_ir import (EwiseTile, Kernel, Loop, LoopKind, MatmulTile,
-                      MemSpace, Stmt, TileRef, ZeroTile)
+from .loop_ir import (Buffer, EwiseTile, FillTile, Kernel, Loop, LoopKind,
+                      MatmulTile, MemSpace, ReduceTile, ScanTile, Stmt,
+                      TileRef, ZeroTile, _stmt_refs, _stmt_written_refs)
 
 
 class EmitError(NotImplementedError):
@@ -222,13 +242,21 @@ def _analyze(kernel: Kernel) -> _Plan:
 
 
 def emit(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
-    """Emit ``f(*hbm_inputs) -> out`` for a scheduled contraction.
+    """Emit ``f(*hbm_inputs) -> out`` for a scheduled kernel.
 
-    Raises :class:`EmitError` for a kernel outside the single-nest
-    contraction subset.  numpy inputs go to ``device``; tensor inputs
-    stay where they are.  All inputs on the CPU run ``gemm_plain``; on a
-    CUDA device the emitted kernel launches, or the call raises."""
-    return _emit_gemm(kernel, device)
+    Dispatch, as ``backend_pallas.emit``: the single-nest contraction
+    classifier (``_analyze``) first, and the general multi-nest emitter
+    (``emit_general``) only where the classifier refuses.  A contraction
+    the classifier takes but the GEMM template does not is refused here
+    (:class:`EmitError`) rather than sent down the general path.  numpy
+    inputs go to ``device``; tensor inputs stay where they are.  All
+    inputs on the CPU run the plain version; on a CUDA device the emitted
+    kernel launches, or the call raises."""
+    try:
+        plan = _analyze(kernel)
+    except EmitError:
+        return emit_general(kernel, device)
+    return _emit_gemm(kernel, device, plan)
 
 
 # C type of each element type the template takes
@@ -366,9 +394,10 @@ extern "C" int stagecc_gemm_launch(const void* a, const void* b, {params}void* o
 """
 
 
-def _emit_gemm(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
+def _emit_gemm(kernel: Kernel, device="cuda",
+               plan: Optional[_Plan] = None) -> Callable[..., torch.Tensor]:
     """The single-nest contraction emitter (see module doc)."""
-    plan = _analyze(kernel)
+    plan = plan or _analyze(kernel)
     index = _layout(kernel, plan)
     source = _render(kernel, plan, index)
     shapes = {b.name: b.shape for b in kernel.params}
@@ -535,3 +564,877 @@ def bracket(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
     inputs = dict(zip(plan.epilogue_inputs, epi))
     return tuple(_apply_epilogue(plan, x.to(acc_t), inputs).to(out).float()
                  for x in (lo, hi))
+
+
+# --------------------------------------------------------------------------
+# general multi-nest emitter
+# --------------------------------------------------------------------------
+#
+# The serving-kernel graphs lower to several top-level nests chained
+# through HBM temporaries (matmul -> mask add -> carried max -> exp ->
+# carried sum -> matmul -> div), which the single-nest classifier cannot
+# express.  As in ``backend_pallas``, each top-level statement is a stage:
+#
+#   * the nest's leading @grid chain is the grid, one program per CUDA
+#     block; every other loop (@seq, @unrolled) is a C loop in the block,
+#     walked in the schedule's order;
+#   * scratch (@vreg / @vmem) lives in the block's shared memory, zeroed
+#     per program, as the reference's local values are fresh per program;
+#   * every HBM buffer the stage touches is a pointer to the whole array;
+#     a tile's origin is ``index.evaluate(env) * tile`` per dimension;
+#   * stages communicate through a host-level environment: each stage's
+#     written HBM buffers are new arrays that feed the next stages.
+#
+# Interior @grid loops (the k-on-grid revisit trick) stay exclusive to
+# the GEMM path, and the general emitter refuses them, as the reference's.
+
+_MAX_STMTS = 4096                   # the reference's trace limit per stage
+_SMEM_LIMIT = 232448                # shared memory one block can have
+_SMEM_DEFAULT = 48 * 1024           # above it, the launch opts in
+_CHUNK = 16                         # stagecc_stage::kChunk
+
+
+def _stage_io(stmts: Sequence[Stmt]) -> Tuple[List[str], List[str]]:
+    """(read, written) HBM buffer names under ``stmts``, in first-use
+    order.  The carry of a ScanTile counts as read *and* written."""
+    read: List[str] = []
+    written: List[str] = []
+
+    def go(ss):
+        for s in ss:
+            if isinstance(s, Loop):
+                go(s.body)
+                continue
+            w = {r.buffer.name for r in _stmt_written_refs(s)}
+            for r in _stmt_refs(s):
+                if r.buffer.space != MemSpace.HBM:
+                    continue
+                tgt = written if r.buffer.name in w else read
+                if r.buffer.name not in tgt:
+                    tgt.append(r.buffer.name)
+            if isinstance(s, (MatmulTile, ReduceTile)) and s.accumulate \
+                    and s.dst.buffer.space == MemSpace.HBM:
+                raise EmitError(
+                    f"stage accumulates into HBM buffer "
+                    f"{s.dst.buffer.name} (schedule an accumulator)")
+    go(stmts)
+    return read, written
+
+
+def _walk_stmts(stmts):
+    for s in stmts:
+        yield s
+        if isinstance(s, Loop):
+            yield from _walk_stmts(s.body)
+
+
+def _traced_stmts(stmts) -> int:
+    """Leaf statements the reference's stage body traces (loop trips
+    multiply)."""
+    n = 0
+    for s in stmts:
+        if isinstance(s, Loop):
+            n += s.var.extent * _traced_stmts(s.body)
+        else:
+            n += 1
+    return n
+
+
+@dataclasses.dataclass
+class _Stage:
+    """One top-level nest: what it reads and writes, and how it runs."""
+    index: int
+    kernel_name: str
+    grid_vars: List[str]
+    grid: Tuple[int, ...]
+    inner: List[Stmt]
+    reads: List[str]                     # HBM buffers read, first-use order
+    writes: List[str]                    # HBM buffers written
+    scratch: List[Buffer]
+    buffers: Dict[str, Buffer]
+    flops: int = 0                       # of the stage's statements
+    hbm_bytes: int = 0                   # reads and writes, each once
+    lib: Optional["_Library"] = None     # the kernel's built source
+
+    @property
+    def params(self) -> List[str]:
+        """The launcher's pointers: a name both read and written is bound
+        once, to the written copy (``dict(zip(reads + writes, refs))`` in
+        the reference)."""
+        return [n for n in self.reads if n not in self.writes] + self.writes
+
+    @property
+    def programs(self) -> int:
+        return math.prod(self.grid)
+
+    @property
+    def threads(self) -> int:
+        """A grid that fills the card gets 256-thread blocks; a stage of
+        few programs (one, for a nest with no grid loop) gets 1024 threads
+        per block, so its one SM has loads in flight."""
+        return 256 if self.programs >= 132 else 1024
+
+    def __call__(self, env: Dict[str, torch.Tensor]) -> None:
+        """Run the stage over ``env``: its kernel if the arrays are on a
+        CUDA device (or raise), the plain version if on the CPU."""
+        dev = next(iter(env.values())).device
+        if dev.type == "cpu":
+            stage_plain(self, env)
+        elif dev.type == "cuda":
+            self._launch(env, dev)
+        else:
+            raise ValueError(f"{self.kernel_name}: runs on cuda or cpu, "
+                             f"not {dev}")
+
+    def _launch(self, env, dev) -> None:
+        outs = _fresh(self, dev)
+        ptrs = [outs[n] if n in outs else env[n] for n in self.params]
+        for name, t in zip(self.params, ptrs):
+            if t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{self.kernel_name}: {name} is not a "
+                                 f"contiguous array on {dev}")
+        launcher = self.lib.stage(self.index, len(ptrs))
+        with torch.cuda.device(dev):
+            err = launcher(*(t.data_ptr() for t in ptrs),
+                           torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.kernel_name}: stage {self.index} "
+                               f"launch failed: cudaError {err}")
+        emit_general.launches += 1
+        env.update(outs)
+
+
+def _fresh(stage: _Stage, dev) -> Dict[str, torch.Tensor]:
+    """New arrays for the stage's writes.  They start as NaN, as the
+    reference's outputs do in Pallas interpret mode, so a tile no program
+    writes, or a read of a written buffer before its write, shows the
+    same in both."""
+    return {n: torch.full(stage.buffers[n].shape, float("nan"),
+                          dtype=_TORCH_DTYPE[stage.buffers[n].type.dtype],
+                          device=dev)
+            for n in stage.writes}
+
+
+class _Library:
+    """The compiled kernel's source, built and loaded at the first
+    launch; one ctypes entry per stage."""
+
+    def __init__(self, source: str):
+        self.source = source
+        self._lib = None
+        self._fns: Dict[int, object] = {}
+
+    def stage(self, index: int, nptrs: int):
+        if index not in self._fns:
+            if self._lib is None:
+                self._lib = _build.load_source(self.source)
+            fn = getattr(self._lib, f"stagecc_stage{index}")
+            fn.argtypes = [ctypes.c_void_p] * (nptrs + 1)
+            fn.restype = ctypes.c_int
+            self._fns[index] = fn
+        return self._fns[index]
+
+
+def _stage_flops(stmts) -> int:
+    """f32 operations of one program: 2mnk per MatmulTile, one per
+    element reduced, scanned (two for ``linear``) or computed by an
+    elementwise op; copies, casts and fills count none."""
+    n = 0
+    for s in stmts:
+        if isinstance(s, Loop):
+            n += s.var.extent * _stage_flops(s.body)
+        elif isinstance(s, MatmulTile):
+            n += 2 * s.macs
+        elif isinstance(s, ReduceTile):
+            n += s.src.tile_elems
+        elif isinstance(s, ScanTile):
+            n += (2 if s.kind == "linear" else 1) * s.dst.tile_elems
+        elif isinstance(s, EwiseTile) and s.op not in ("ones", "copy",
+                                                       "copy1", "cast"):
+            n += s.dst.tile_elems
+    return n
+
+
+def _emit_stage(kernel: Kernel, top: Stmt, buffers: Dict[str, Buffer],
+                index: int) -> _Stage:
+    """The analysis of ``backend_pallas._emit_stage``: the grid, the inner
+    statements, the HBM buffers read and written and the scratch, with
+    the reference's refusals."""
+    # 1. peel the leading @grid chain
+    grid_vars: List[str] = []
+    grid: List[int] = []
+    cur = top
+    while isinstance(cur, Loop) and cur.kind == LoopKind.GRID:
+        grid_vars.append(cur.var.name)
+        grid.append(cur.var.extent)
+        if len(cur.body) == 1 and isinstance(cur.body[0], Loop) \
+                and cur.body[0].kind == LoopKind.GRID:
+            cur = cur.body[0]
+        else:
+            break
+    inner: List[Stmt] = list(cur.body) if isinstance(cur, Loop) \
+        and cur.kind == LoopKind.GRID else [cur]
+    for s in inner:
+        for n in _walk_stmts([s]):
+            if isinstance(n, Loop) and n.kind == LoopKind.GRID:
+                raise EmitError(
+                    f"{kernel.name}: interior @grid loop %{n.var.name} "
+                    f"(k-on-grid is a single-nest schedule)")
+
+    reads, writes = _stage_io([top])
+    if not writes:
+        raise EmitError(f"{kernel.name}: stage writes no HBM buffer")
+    # the reference unrolls the non-grid loops at trace time and refuses
+    # a stage this large; the port keeps the same limit
+    traced = _traced_stmts(inner)
+    if traced > _MAX_STMTS:
+        raise EmitError(
+            f"{kernel.name}: stage would trace {traced} statements "
+            f"(grid-map or tile the schedule first)")
+    used = {r.buffer.name for s in _walk_stmts([top])
+            if not isinstance(s, Loop) for r in _stmt_refs(s)}
+    scratch = [b for b in kernel.scratch if b.name in used]
+    grid_t = tuple(grid)
+    return _Stage(index=index, kernel_name=kernel.name, grid_vars=grid_vars,
+                  grid=grid_t, inner=inner, reads=reads, writes=writes,
+                  scratch=scratch, buffers=buffers,
+                  flops=math.prod(grid_t) * _stage_flops(inner),
+                  hbm_bytes=sum(buffers[n].type.nbytes
+                                for n in reads + writes))
+
+
+# ---- rendering ---------------------------------------------------------------
+
+
+def _strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for d in reversed(shape):
+        out.append(acc)
+        acc *= d
+    return tuple(reversed(out))
+
+
+def _cvar(name: str) -> str:
+    return "v_" + re.sub(r"\W", "_", name)
+
+
+def _flit(value: float) -> str:
+    """``value`` rounded to f32, as an exact C expression."""
+    bits = struct.unpack("<I", struct.pack("<f", value))[0]
+    return {0: "0.f", 0x3F800000: "1.f"}.get(
+        bits, f"__int_as_float((int)0x{bits:08x}u)")
+
+
+def _rnd(expr: str, dtype: str) -> str:
+    """``expr`` rounded to ``dtype`` (a no-op for f32)."""
+    return f"stagecc_stage::bf16r({expr})" if dtype == "bfloat16" else expr
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _mm_layout(nt: int, tm: int, tn: int) -> Tuple[int, int, int, int]:
+    """(RX, MI, MJ, shared bytes) of ``matmul_tile`` for a tm x tn tile
+    with nt threads: an RX-wide thread grid (RY = nt / RX rows, at most
+    256), each thread an MI x MJ register tile (at most 8 x 8, or 4 x 4
+    where 1024 threads leave 64 registers each), a pass at most 256 rows
+    high."""
+    cap = 4 if nt == 1024 else 8
+    rx = min(max(_pow2ceil(tn), nt // 256), 32 if nt == 1024 else 16)
+    ry = nt // rx
+    mi = max(1, min(cap, -(-tm // ry), 256 // ry))
+    mj = max(1, min(cap, -(-tn // rx)))
+    return rx, mi, mj, (ry * mi + rx * mj) * _CHUNK * 4
+
+
+def _same_ref(a: TileRef, b: TileRef) -> bool:
+    return (a.buffer.name, a.index, a.tile) == (b.buffer.name, b.index,
+                                                b.tile)
+
+
+def _staged(s: Stmt) -> bool:
+    """Whether a statement writes a buffer it reads in a way one pass of
+    the block cannot do in place: the reference reads every operand tile
+    before it writes, so such a statement computes into shared memory
+    first.  An elementwise op or a scan may read and write one identical
+    tile (each element is read and written by one thread); a matmul or a
+    reduction reads other threads' elements."""
+    written = _stmt_written_refs(s)
+    if isinstance(s, MatmulTile):
+        srcs = [s.lhs, s.rhs]
+    elif isinstance(s, ReduceTile):
+        srcs = [s.src]
+    elif isinstance(s, ScanTile):
+        srcs = list(s.srcs)
+        if s.carry.buffer.name == s.dst.buffer.name:
+            return True
+    elif isinstance(s, EwiseTile):
+        srcs = list(s.srcs)
+    else:
+        return False
+    elementwise = isinstance(s, (EwiseTile, ScanTile))
+    return any(r.buffer.name == w.buffer.name
+               and not (elementwise and _same_ref(r, w))
+               for r in srcs for w in written)
+
+
+class _StageRenderer:
+    """CUDA C++ of one stage: its ``__global__`` and its launcher."""
+
+    def __init__(self, kernel: Kernel, stage: _Stage):
+        self.kernel, self.stage = kernel, stage
+        self.nt = stage.threads
+        self.dtypes = {n: b.type.dtype for n, b in stage.buffers.items()}
+        names = stage.params + [b.name for b in stage.scratch]
+        for n in names:
+            if self.dtypes[n] not in _CTYPE:
+                raise EmitError(f"{kernel.name}: {n} is {self.dtypes[n]}; "
+                                f"the CUDA stages take {sorted(_CTYPE)}")
+        self.ptr = {n: f"g{i}" for i, n in enumerate(stage.params)}
+        self.ptr.update({b.name: f"s{i}"
+                         for i, b in enumerate(stage.scratch)})
+        self.read_only = set(stage.reads) - set(stage.writes)
+        # shared memory: scratch, then matmul staging, then staged results
+        self.smem_off: Dict[str, int] = {}
+        off = 0
+        for b in stage.scratch:
+            self.smem_off[b.name] = off
+            off += -(-b.type.nbytes // 16) * 16
+        self.scratch_bytes = off
+        mm = stg = 0
+        for s in _walk_stmts(stage.inner):
+            if isinstance(s, MatmulTile):
+                tm, tn = s.dst.tile[-2:]
+                mm = max(mm, _mm_layout(self.nt, tm, tn)[3])
+            if _staged(s):
+                extra = s.carry.tile_elems if isinstance(s, ScanTile) else 0
+                stg = max(stg, 4 * (s.dst.tile_elems + extra))
+        self.mm_off, self.stg_off = off, off + mm
+        self.smem = off + mm + -(-stg // 16) * 16
+        if self.smem > _SMEM_LIMIT:
+            raise EmitError(
+                f"{kernel.name}: stage {stage.index} needs {self.smem} "
+                f"bytes of shared memory (scratch {self.scratch_bytes}); a "
+                f"block has {_SMEM_LIMIT}")
+        self.lines: List[str] = []
+        self.depth = 1
+        self.onames: Dict[int, str] = {}     # id(TileRef) -> origin name
+
+    # -- helpers ----------------------------------------------------------
+
+    def out(self, line: str) -> None:
+        self.lines.append("  " * self.depth + line)
+
+    def ctype(self, name: str) -> str:
+        return _CTYPE[self.dtypes[name]]
+
+    def origin(self, r: TileRef) -> str:
+        """The tile's first element, as a 64-bit offset into its buffer."""
+        terms = []
+        for e, t, st in zip(r.index, r.tile, _strides(r.buffer.shape)):
+            aff = [str(e.const)] if e.const or not e.coeffs else []
+            aff += [_cvar(v) if c == 1 else f"{c} * {_cvar(v)}"
+                    for v, c in e.coeffs]
+            if e.coeffs or e.const:
+                terms.append(f"(long long)({' + '.join(aff)}) * "
+                             f"{t * st}LL")
+        return " + ".join(terms) or "0LL"
+
+    def element(self, r: TileRef, idx: Sequence[str],
+                shape: Sequence[int]) -> str:
+        """The address of element ``idx`` (indices over ``shape``) of
+        ``r``, by numpy broadcasting: ``r``'s dimensions align with the
+        last of ``shape``, and a dimension of 1 is read at 0."""
+        off = len(shape) - len(r.tile)
+        if off < 0:
+            raise EmitError(f"{self.kernel.name}: {r} has more dimensions "
+                            f"than the statement's {tuple(shape)}")
+        terms = []
+        for d, (t, st) in enumerate(zip(r.tile, _strides(r.buffer.shape))):
+            if t == 1:
+                continue
+            if t != shape[d + off]:
+                raise EmitError(f"{self.kernel.name}: tile {r.tile} does "
+                                f"not broadcast to {tuple(shape)}")
+            terms.append(idx[d + off] if st == 1 else f"{idx[d + off]} * "
+                         f"{st}LL")
+        return (f"{self.ptr[r.buffer.name]} + {self.onames[id(r)]}"
+                + "".join(f" + {t}" for t in terms))
+
+    def bind(self, *refs: TileRef) -> None:
+        """Declare each ref's origin, ``o0``, ``o1``, ... in the
+        statement's scope."""
+        self.onames = {}
+        for r in refs:
+            if id(r) not in self.onames:
+                self.onames[id(r)] = name = f"o{len(self.onames)}"
+                self.out(f"const long long {name} = {self.origin(r)};")
+
+    def elems_loop(self, shape: Sequence[int], name: str = "e") -> List[str]:
+        """Open a block-cooperative loop over the elements of ``shape``
+        (row-major) and return the per-dimension index names."""
+        self.out(f"for (int {name} = threadIdx.x; {name} < "
+                 f"{math.prod(shape)}; {name} += {self.nt}) {{")
+        self.depth += 1
+        return self.elems_index(name, shape)
+
+    def close(self) -> None:
+        self.depth -= 1
+        self.out("}")
+
+    # -- statements ---------------------------------------------------------
+
+    def render_fill(self, dst: TileRef, value: float) -> None:
+        self.bind(dst)
+        idx = self.elems_loop(dst.tile)
+        self.out(f"stagecc_stage::st({self.element(dst, idx, dst.tile)}, "
+                 f"{_flit(value)});")
+        self.close()
+
+    def render_ewise(self, s: EwiseTile, staged: bool) -> None:
+        shape = s.dst.tile
+        self.bind(s.dst, *s.srcs)
+        idx = self.elems_loop(shape)
+        if s.op == "ones":
+            val = "1.f"
+        elif s.op == "copy1":
+            src = s.srcs[0]
+            if src.tile_elems != s.dst.tile_elems:
+                raise EmitError(f"{self.kernel.name}: copy1 of {src.tile} "
+                                f"into {shape}")
+            # the flat element e of the dst is the flat element e of src
+            self.out("const int f = e;")
+            sidx = self.elems_index("f", src.tile)
+            self.out(f"const float x0 = stagecc_stage::ld("
+                     f"{self.element(src, sidx, src.tile)});")
+            val = "x0"
+        else:
+            if s.op != "cast" and s.op not in _EWISE_CUDA:
+                raise EmitError(f"{self.kernel.name}: no CUDA emission for "
+                                f"op {s.op!r}")
+            for i, r in enumerate(s.srcs):
+                self.out(f"const float x{i} = stagecc_stage::ld("
+                         f"{self.element(r, idx, shape)});")
+            if s.op == "cast":
+                val = "x0"
+            else:
+                args = [f"x{i}" for i in range(len(s.srcs))]
+                dtype = _promote(*(self.dtypes[r.buffer.name]
+                                   for r in s.srcs))
+                val = _rnd(_EWISE_CUDA[s.op].format(*args), dtype)
+        if staged:
+            self.out(f"stg[e] = {val};")
+        else:
+            self.out(f"stagecc_stage::st({self.element(s.dst, idx, shape)},"
+                     f" {val});")
+        self.close()
+        if staged:
+            self.sync()
+            idx = self.elems_loop(shape)
+            self.out(f"stagecc_stage::st({self.element(s.dst, idx, shape)},"
+                     f" stg[e]);")
+            self.close()
+
+    def elems_index(self, flat: str, shape: Sequence[int]) -> List[str]:
+        """Indices over ``shape`` of the flat row-major element ``flat``."""
+        names = [f"{flat}{d}" for d in range(len(shape))]
+        if shape:
+            self.out(f"int q_{flat} = {flat};")
+        for d in range(len(shape) - 1, 0, -1):
+            self.out(f"const int {names[d]} = q_{flat} % {shape[d]}; "
+                     f"q_{flat} /= {shape[d]};")
+        if shape:
+            self.out(f"const int {names[0]} = q_{flat};")
+        return names
+
+    def view(self, r: TileRef) -> str:
+        if len(r.tile) != 2:
+            raise EmitError(f"{self.kernel.name}: rank-{len(r.tile)} matmul "
+                            f"operand {r}")
+        rs, cs = _strides(r.buffer.shape)
+        # only the read-only global pointers are const
+        const = "const " if r.buffer.name in self.read_only else ""
+        return (f"stagecc_stage::View2<{const}{self.ctype(r.buffer.name)}>"
+                f"{{{self.ptr[r.buffer.name]} + {self.onames[id(r)]}, "
+                f"{rs}LL, {cs}LL}}")
+
+    def render_matmul(self, s: MatmulTile, staged: bool) -> None:
+        tm, tk = s.lhs.tile[-2:]
+        tn = s.rhs.tile[-1]
+        rx, mi, mj, _ = _mm_layout(self.nt, tm, tn)
+        self.bind(s.dst, s.lhs, s.rhs)
+        dst = (f"stagecc_stage::View2<float>{{stg, {tn}LL, 1LL}}" if staged
+               else self.view(s.dst))
+        acc = "true" if s.accumulate and not staged else "false"
+        self.out(f"stagecc_stage::matmul_tile<{self.nt}, {tm}, {tn}, {tk}, "
+                 f"{rx}, {mi}, {mj}, {acc}>(")
+        self.out(f"    {self.view(s.lhs)},")
+        self.out(f"    {self.view(s.rhs)},")
+        self.out(f"    {dst}, mm);")
+        if staged:
+            self.sync()
+            idx = self.elems_loop(s.dst.tile)
+            d = self.element(s.dst, idx, s.dst.tile)
+            val = (f"stagecc_stage::ld({d}) + stg[e]" if s.accumulate
+                   else "stg[e]")
+            self.out(f"stagecc_stage::st({d}, {val});")
+            self.close()
+
+    def render_reduce(self, s: ReduceTile, staged: bool) -> None:
+        mx = s.kind == "max"
+        rows_shape = s.src.tile[:-1]
+        width = s.src.tile[-1]
+        rows = math.prod(rows_shape)
+        src_t = self.dtypes[s.src.buffer.name]
+        combined = _promote(self.dtypes[s.dst.buffer.name], src_t)
+        self.bind(s.dst, s.src)
+        self.out(f"for (int row = threadIdx.x / 32; row < {rows}; "
+                 f"row += {self.nt // 32}) {{")
+        self.depth += 1
+        ridx = self.elems_index("row", rows_shape)
+        s_last = _strides(s.src.buffer.shape)[-1]
+        src_row = self.element(s.src, ridx + ["0"], s.src.tile)
+        self.out(f"float v = {'-INFINITY' if mx else '0.f'};")
+        self.out(f"for (int c = threadIdx.x % 32; c < {width}; c += 32) {{")
+        self.out(f"  const float x = stagecc_stage::ld({src_row} + c * "
+                 f"{s_last}LL);")
+        self.out(f"  v = {'fmaxf(v, x)' if mx else 'v + x'};")
+        self.out("}")
+        self.out(f"v = {_rnd(f'stagecc_stage::warp_reduce<{str(mx).lower()}>(v)', src_t)};")
+        dst = self.element(s.dst, ridx + ["0"], s.dst.tile)
+        self.out("if (threadIdx.x % 32 == 0) {")
+        if staged:
+            self.out("  stg[row] = v;")
+        else:
+            if s.accumulate:
+                d = f"stagecc_stage::ld({dst})"
+                comb = f"fmaxf({d}, v)" if mx else f"{d} + v"
+                self.out(f"  v = {_rnd(comb, combined)};")
+            self.out(f"  stagecc_stage::st({dst}, v);")
+        self.out("}")
+        self.close()
+        if staged:
+            self.sync()
+            idx = self.elems_loop(s.dst.tile)
+            d = self.element(s.dst, idx, s.dst.tile)
+            val = "stg[e]"
+            if s.accumulate:
+                dv = f"stagecc_stage::ld({d})"
+                val = _rnd(f"fmaxf({dv}, stg[e])" if mx
+                           else f"{dv} + stg[e]", combined)
+            self.out(f"stagecc_stage::st({d}, {val});")
+            self.close()
+
+    def render_scan(self, s: ScanTile, staged: bool) -> None:
+        rows = s.dst.tile[0]
+        cols_shape = s.dst.tile[1:]
+        cols = math.prod(cols_shape)
+        dtype = _promote(self.dtypes[s.carry.buffer.name],
+                         *(self.dtypes[r.buffer.name] for r in s.srcs))
+        self.bind(s.dst, s.carry, *s.srcs)
+        self.out(f"for (int col = threadIdx.x; col < {cols}; "
+                 f"col += {self.nt}) {{")
+        self.depth += 1
+        cidx = self.elems_index("col", cols_shape)
+        carry = self.element(s.carry, ["0"] + cidx, s.carry.tile)
+        self.out(f"float c = stagecc_stage::ld({carry});")
+        self.out("#pragma unroll 4")
+        self.out(f"for (int r = 0; r < {rows}; ++r) {{")
+        self.depth += 1
+        srcs = [self.element(r, ["r"] + cidx, s.dst.tile) for r in s.srcs]
+        if s.kind == "linear":
+            self.out(f"const float a = stagecc_stage::ld({srcs[0]});")
+            self.out(f"const float x = stagecc_stage::ld({srcs[1]});")
+            self.out(f"c = {_rnd('__fadd_rn(__fmul_rn(a, c), x)', dtype)};")
+        else:
+            self.out(f"const float x = stagecc_stage::ld({srcs[0]});")
+            self.out(f"c = {_rnd('__fadd_rn(c, x)', dtype)};")
+        if staged:
+            self.out(f"stg[r * {cols} + col] = c;")
+        else:
+            self.out(f"stagecc_stage::st("
+                     f"{self.element(s.dst, ['r'] + cidx, s.dst.tile)}, c);")
+        self.close()
+        if staged:
+            self.out(f"stg[{rows * cols} + col] = c;")
+        else:
+            self.out(f"stagecc_stage::st({carry}, c);")
+        self.close()
+        if staged:
+            self.sync()
+            idx = self.elems_loop(s.dst.tile)
+            self.out(f"stagecc_stage::st("
+                     f"{self.element(s.dst, idx, s.dst.tile)}, stg[e]);")
+            self.close()
+            cidx = self.elems_loop(s.carry.tile, "k")
+            self.out(f"stagecc_stage::st("
+                     f"{self.element(s.carry, cidx, s.carry.tile)}, "
+                     f"stg[{rows * cols} + k]);")
+            self.close()
+
+    def sync(self) -> None:
+        self.out("__syncthreads();")
+
+    def statement(self, s: Stmt) -> None:
+        staged = _staged(s)
+        self.out(f"{{  // {_describe(s)}")
+        self.depth += 1
+        if isinstance(s, ZeroTile):
+            self.render_fill(s.dst, 0.0)
+        elif isinstance(s, FillTile):
+            self.render_fill(s.dst, s.value)
+        elif isinstance(s, MatmulTile):
+            self.render_matmul(s, staged)
+        elif isinstance(s, ReduceTile):
+            self.render_reduce(s, staged)
+        elif isinstance(s, ScanTile):
+            self.render_scan(s, staged)
+        elif isinstance(s, EwiseTile):
+            self.render_ewise(s, staged)
+        else:
+            raise EmitError(f"{self.kernel.name}: no CUDA emission for "
+                            f"{type(s).__name__}")
+        self.depth -= 1
+        self.out("}")
+        self.sync()
+
+    def body(self, stmts: Sequence[Stmt]) -> None:
+        for s in stmts:
+            if isinstance(s, Loop):
+                v = _cvar(s.var.name)
+                self.out(f"for (int {v} = 0; {v} < {s.var.extent}; ++{v}) "
+                         f"{{  // @{s.kind.value}")
+                self.depth += 1
+                self.body(s.body)
+                self.depth -= 1
+                self.out("}")
+            else:
+                self.statement(s)
+
+    # -- the stage ------------------------------------------------------------
+
+    def render(self) -> str:
+        st = self.stage
+        i = st.index
+        params = []
+        for n in st.params:
+            c = self.ctype(n)
+            params.append(f"const {c}* __restrict__ {self.ptr[n]}"
+                          if n in self.read_only else f"{c}* {self.ptr[n]}")
+        self.out("extern __shared__ __align__(16) unsigned char smem[];")
+        for b in st.scratch:
+            c = self.ctype(b.name)
+            self.out(f"{c}* const {self.ptr[b.name]} = reinterpret_cast<{c}*>"
+                     f"(smem + {self.smem_off[b.name]});  // {b.name} "
+                     f"{'x'.join(map(str, b.shape))}")
+        self.out(f"float* const mm = reinterpret_cast<float*>(smem + "
+                 f"{self.mm_off});")
+        self.out(f"float* const stg = reinterpret_cast<float*>(smem + "
+                 f"{self.stg_off});")
+        if self.scratch_bytes:
+            self.out(f"stagecc_stage::zero_shared<{self.nt}>(smem, "
+                     f"{self.scratch_bytes});")
+            self.sync()
+        if st.grid_vars:
+            self.out("long long pid = blockIdx.x;")
+            for v, g in reversed(list(zip(st.grid_vars, st.grid))):
+                self.out(f"const int {_cvar(v)} = (int)(pid % {g}); "
+                         f"pid /= {g};")
+        self.body(st.inner)
+        grid = "x".join(map(str, st.grid)) or "none"
+        head = (f"// stage {i}: grid [{grid}] ({st.programs} blocks of "
+                f"{self.nt} threads, {self.smem} bytes of shared memory);"
+                f"\n// reads {', '.join(st.reads) or '-'}; writes "
+                f"{', '.join(st.writes)}\n")
+        kernel = (f"__global__ void __launch_bounds__({self.nt}) "
+                  f"stage{i}({', '.join(params)}) {{\n"
+                  + "\n".join(self.lines) + "\n}\n")
+        casts = ", ".join(
+            f"static_cast<{'const ' if n in self.read_only else ''}"
+            f"{self.ctype(n)}*>({self.ptr[n]})" for n in st.params)
+        vparams = "".join(f"void* {self.ptr[n]}, " for n in st.params)
+        opt_in = ""
+        if self.smem > _SMEM_DEFAULT:
+            opt_in = (f"  const cudaError_t attr = cudaFuncSetAttribute("
+                      f"stage{i}, cudaFuncAttributeMaxDynamicSharedMemorySize,"
+                      f" {self.smem});\n"
+                      f"  if (attr != cudaSuccess) return (int)attr;\n")
+        launcher = (f'extern "C" int stagecc_stage{i}({vparams}void* stream) '
+                    f"{{\n{opt_in}"
+                    f"  stage{i}<<<{st.programs}, {self.nt}, {self.smem}, "
+                    f"static_cast<cudaStream_t>(stream)>>>({casts});\n"
+                    f"  return (int)cudaGetLastError();\n}}\n")
+        return head + kernel + "\n" + launcher
+
+
+def _describe(s: Stmt) -> str:
+    from . import ir_text
+    return " ".join(" ".join(ir_text.print_stmt(s)).split())[:110]
+
+
+def _render_general(kernel: Kernel, stages: Sequence[_Stage]) -> str:
+    parts = [_StageRenderer(kernel, st).render() for st in stages]
+    return (f"// Emitted by repro_torch.core.backend_cuda.emit_general from "
+            f"the scheduled LoopIR\n// of {kernel.name}: {len(stages)} "
+            f"stage(s), one kernel and one launcher each.\n"
+            f'#include "stagecc_stage.cuh"\n\n' + "\n".join(parts))
+
+
+def emit_general(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
+    """Emit a multi-nest kernel as a chain of per-nest CUDA kernels.
+
+    ``f(*inputs) -> out``: inputs fill the non-output params in order;
+    params not passed, and the output, start as zeros.  The stages run in
+    order, on the current stream; each stage's writes are new arrays.
+    numpy inputs go to ``device``; tensors stay where they are.  On CPU
+    tensors every stage runs ``stage_plain``."""
+    kernel.verify()
+    if len(kernel.outputs) != 1:
+        raise EmitError(f"{kernel.name}: exactly one output supported")
+    buffers = {b.name: b for b in kernel.params + kernel.scratch}
+    stages = [_emit_stage(kernel, top, buffers, i)
+              for i, top in enumerate(kernel.body)]
+    source = _render_general(kernel, stages)
+    lib = _Library(source)
+    for st in stages:
+        st.lib = lib
+    out_name = kernel.outputs[0].name
+    in_params = [b for b in kernel.params if b.name != out_name]
+
+    def environment(*inputs) -> Dict[str, torch.Tensor]:
+        """The host-level buffer environment before the first stage."""
+        if len(inputs) > len(in_params):
+            raise ValueError(f"{kernel.name}: expected <= {len(in_params)} "
+                             f"inputs, got {len(inputs)}")
+        env = {b.name: as_tensor(x, _TORCH_DTYPE[b.type.dtype], device)
+               for b, x in zip(in_params, inputs)}
+        for b in in_params[:len(inputs)]:
+            if tuple(env[b.name].shape) != b.shape:
+                raise ValueError(f"{kernel.name}: {b.name} has shape "
+                                 f"{tuple(env[b.name].shape)}, expected "
+                                 f"{b.shape}")
+        devices = {t.device for t in env.values()}
+        if len(devices) > 1:
+            raise ValueError(f"{kernel.name}: inputs on several devices: "
+                             f"{devices}")
+        dev = devices.pop() if devices else torch.device(device)
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{kernel.name}: runs on cuda or cpu, not {dev}")
+        env = {n: t.contiguous() for n, t in env.items()}
+        for b in kernel.params:
+            if b.name not in env:
+                env[b.name] = torch.zeros(b.shape, device=dev, dtype=
+                                          _TORCH_DTYPE[b.type.dtype])
+        return env
+
+    def fn(*inputs):
+        env = environment(*inputs)
+        for st in stages:
+            st(env)
+        return env[out_name]
+
+    fn.__name__ = f"stagecc_cuda_{kernel.name}"
+    fn.plan = None                       # the general path has no _Plan
+    fn.stages = stages                   # reads / writes, per-stage calls
+    fn.source = source                   # the CUDA text built at first launch
+    fn.environment = environment
+    fn.out_name = out_name
+    return fn
+
+
+emit_general.launches = 0   # stage kernel launches (CUDA tensors)
+
+
+# ---- the plain version --------------------------------------------------------
+
+
+def stage_plain(stage: _Stage, env: Dict[str, torch.Tensor]) -> None:
+    """The plain PyTorch version of one stage, as the Pallas body runs
+    it: the grid's programs in order, each with fresh zeroed scratch, the
+    inner loops as Python loops, every operand tile read before the
+    statement writes, the same casts and broadcasting.  Its writes are new
+    arrays (NaN where no program writes), rebound in ``env``."""
+    dev = next(iter(env.values())).device
+    outs = _fresh(stage, dev)
+    hbm = {**{n: env[n] for n in stage.params if n not in outs}, **outs}
+    for pid in itertools.product(*(range(g) for g in stage.grid)):
+        mem = dict(hbm)
+        mem.update({b.name: torch.zeros(b.shape, device=dev, dtype=
+                                        _TORCH_DTYPE[b.type.dtype])
+                    for b in stage.scratch})
+        _run_plain(stage.inner, dict(zip(stage.grid_vars, pid)), mem, dev)
+    env.update(outs)
+
+
+def _run_plain(stmts, env: Dict[str, int], mem: Dict[str, torch.Tensor],
+               dev) -> None:
+    def read(r: TileRef):
+        return mem[r.buffer.name][r.slices(env)].clone()
+
+    def write(r: TileRef, val: torch.Tensor):
+        dst = mem[r.buffer.name]
+        dst[r.slices(env)] = val.to(dst.dtype)
+
+    def full(r: TileRef, value: float):
+        return torch.full(r.tile, value, dtype=torch.float32, device=dev)
+
+    for s in stmts:
+        if isinstance(s, Loop):
+            for t in range(s.var.extent):
+                env[s.var.name] = t
+                _run_plain(s.body, env, mem, dev)
+            del env[s.var.name]
+        elif isinstance(s, ZeroTile):
+            write(s.dst, full(s.dst, 0.0))
+        elif isinstance(s, FillTile):
+            write(s.dst, full(s.dst, s.value))
+        elif isinstance(s, MatmulTile):
+            c = read(s.lhs).float() @ read(s.rhs).float()
+            if s.accumulate:
+                c = read(s.dst).float() + c
+            write(s.dst, c)
+        elif isinstance(s, ReduceTile):
+            src = read(s.src)
+            r = (src.amax(dim=-1, keepdim=True) if s.kind == "max"
+                 else src.sum(dim=-1, keepdim=True))
+            if s.accumulate:
+                d = read(s.dst)
+                r = torch.maximum(d, r) if s.kind == "max" else d + r
+            write(s.dst, r)
+        elif isinstance(s, ScanTile):
+            srcs = [read(r) for r in s.srcs]
+            c = read(s.carry)[0]
+            rows = []
+            for t in range(srcs[0].shape[0]):
+                c = srcs[0][t] * c + srcs[1][t] if s.kind == "linear" \
+                    else c + srcs[0][t]
+                rows.append(c)
+            write(s.dst, torch.stack(rows))
+            write(s.carry, c[None])
+        elif isinstance(s, EwiseTile):
+            if s.op == "ones":
+                write(s.dst, full(s.dst, 1.0))
+                continue
+            srcs = [read(r) for r in s.srcs]
+            if s.op == "copy1":
+                write(s.dst, srcs[0].reshape(s.dst.tile))
+            elif s.op == "cast":
+                write(s.dst, srcs[0])
+            else:
+                if len(srcs) == 2 and srcs[1].ndim < srcs[0].ndim:
+                    srcs[1] = srcs[1][(None,) * (srcs[0].ndim
+                                                 - srcs[1].ndim)]
+                write(s.dst, _EWISE[s.op](*srcs))
+        else:
+            raise EmitError(f"no plain version of {type(s).__name__}")
+
+
+def general_plain(fn: Callable, *inputs) -> torch.Tensor:
+    """The plain PyTorch version of an ``emit_general`` callable ``fn``
+    on ``inputs``: every stage through ``stage_plain``, on the inputs'
+    device."""
+    env = fn.environment(*inputs)
+    for st in fn.stages:
+        stage_plain(st, env)
+    return env[fn.out_name]

@@ -290,7 +290,7 @@ def _emit_torch(k: Kernel, device: str = "cuda"):
     return backend_torch.emit(k, device=device)
 
 
-@register_pass("emit-cuda", "backend", "emit CUDA GEMM kernel")
+@register_pass("emit-cuda", "backend", "emit CUDA kernel (GEMM or per-nest)")
 def _emit_cuda(k: Kernel, device: str = "cuda"):
     return backend_cuda.emit(k, device=device)
 

@@ -44,7 +44,7 @@ class CompiledKernel:
     hbm_bytes: int
     run_ref: Callable                  # numpy oracle
     run_torch: Optional[Callable]      # eager PyTorch interpreter
-    run_cuda: Optional[Callable]       # emitted CUDA GEMM (plain on CPU)
+    run_cuda: Optional[Callable]       # emitted CUDA kernel (plain on CPU)
     machine: MachineModel = TPU_V5E    # the model the reports were priced on
     pass_records: List[PassRecord] = dataclasses.field(default_factory=list)
 
@@ -119,9 +119,14 @@ def compile_traced(fn_or_graph, in_specs: Optional[Sequence[spec]] = None,
     the schedule label on the artifact becomes the pipeline text.
 
     ``device`` is where ``run_torch`` and ``run_cuda`` put numpy inputs;
-    tensor inputs stay on their own device.  ``run_cuda`` is None where
-    the CUDA emitter refuses the kernel (the ``nested`` and
-    ``inner_flattened`` schedules, multi-nest graphs).
+    tensor inputs stay on their own device.  ``run_cuda`` is the emitted
+    GEMM for a single scheduled contraction and the general emitter's
+    per-nest kernels for everything else (``backend_cuda.emit``); it is
+    None where both refuse the kernel, as ``run_pallas`` is in the
+    reference (a stage over 4096 traced statements, an interior @grid
+    loop, ...), and where the port alone refuses it (element types other
+    than f32 / bf16, scratch beyond a block's shared memory, and the GEMM
+    template's own refusals).
     """
     if isinstance(fn_or_graph, Graph):
         graph = fn_or_graph

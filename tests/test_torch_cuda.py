@@ -16,11 +16,13 @@ import torch
 import repro_torch.core.frontend as fe
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import backend_cuda, compile_gemm, compile_traced
-from repro_torch.core import integrate
+from repro_torch.core import integrate, ir_text
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import gemm
 from repro_torch.models.model import Model, RunConfig
 from repro_torch.serve.engine import Engine, EngineConfig
+
+import _torch_stage_cases as stage_cases
 
 TOL, TOL_BF16 = 2e-5, 5e-2      # tests/test_kernels.py's bounds
 # bf16 output rounding: half a bf16 ulp, at most 2^-8 of the value, over
@@ -438,3 +440,136 @@ def test_ops_ssd_one_launch_and_backends(cuda):
     assert ss.ssd_scan.launches == before + 1
     want = ops.ssd(x, dt, A, B, C, D, chunk=64, backend="torch")
     torch.testing.assert_close(got, want, **SSD_TOL)
+
+
+# --------------------------------------------------------------------------
+# the general emitter's stage kernels (backend_cuda.emit_general)
+# --------------------------------------------------------------------------
+
+STAGE_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_compiled_kernels.py's
+ATTN_PIPES = ["lower{{{t}}}", "lower{{{t}}},fuse-epilogue",
+              "lower{{{t}}},fuse-epilogue,grid{{vars=1}}",
+              "lower{{{t}}},fuse-epilogue,grid{{vars=2}}"]
+# (graph, dims, tile, pipelines): tests/test_compiled_kernels.py's matrix at
+# its small size and at a mid size; flash at tile 16 gives grid{vars=2}
+# 512 programs, so its first stage runs 256-thread blocks
+STAGE_CELLS = [
+    ("flash_attention_graph", (8, 16, 4), (4, 4, 4), ATTN_PIPES),
+    ("flash_attention_graph", (256, 512, 64), (16, 16, 16), ATTN_PIPES),
+    ("decode_attention_graph", (4, 16, 4), (4, 4, 4),
+     [ATTN_PIPES[0], ATTN_PIPES[3]]),
+    ("decode_attention_graph", (7, 161, 128), (128, 128, 128),
+     [ATTN_PIPES[0], ATTN_PIPES[3]]),
+    ("ssd_scan_graph", (8, 2, 2), (4, 4, 4), ATTN_PIPES[:3]),
+    ("ssd_scan_graph", (512, 8, 16), (64, 64, 64), ATTN_PIPES[:3]),
+]
+
+
+def _stage_graph_inputs(graph, dims, cuda):
+    if graph == "ssd_scan_graph":
+        _, xs = stage_cases.ssd_inputs(*dims, head=1)
+    elif graph == "flash_attention_graph":
+        _, xs = stage_cases.flash_inputs(*dims)
+    else:
+        rep, smax, hd = dims
+        (q, k, v), xs = stage_cases.flash_inputs(rep, smax, hd, seed=3)
+        xs[3] = stage_cases.attn_mask(rep, smax, causal=False,
+                                      valid=smax // 2 + 1)
+    return [torch.from_numpy(x).to(cuda) for x in xs]
+
+
+@pytest.mark.parametrize("graph,dims,tile,pipe", [
+    pytest.param(g, d, t, p.format(t="tile_m={},tile_n={},tile_k={}"
+                                   .format(*t)),
+                 id=f"{g.split('_')[0]}-{'x'.join(map(str, d))}-{i}")
+    for g, d, t, ps in STAGE_CELLS for i, p in enumerate(ps)])
+def test_stage_kernels_match_the_plain_version(cuda, graph, dims, tile,
+                                               pipe):
+    """Every graph and schedule of the compiled-kernel matrix: one launch
+    per stage, no GEMM launch, and the kernels within 1e-4 of
+    general_plain."""
+    ck = compile_traced(getattr(fe, graph)(*dims), pipeline=pipe,
+                        want_torch=False)
+    fn = ck.run_cuda
+    assert fn is not None and fn.plan is None
+    xs = _stage_graph_inputs(graph, dims, cuda)
+    before = (backend_cuda.emit_general.launches, gemm.cuda_gemm.launches)
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    assert (backend_cuda.emit_general.launches, gemm.cuda_gemm.launches) \
+        == (before[0] + len(fn.stages), before[1])
+    assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, backend_cuda.general_plain(fn, *xs),
+                               **STAGE_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(stage_cases.TEXT_CASES))
+def test_stage_kernels_run_every_statement(cuda, case):
+    """Every op and statement kind, statements staged in shared memory
+    because they write their own operands, and a stage that reads its
+    fresh (NaN) output and writes part of another: the kernels against
+    general_plain, NaN where it has NaN."""
+    text, nin = stage_cases.TEXT_CASES[case]
+    fn = backend_cuda.emit(ir_text.parse_ir(text()))
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
+          .to(cuda) for _ in range(nin)]
+    before = backend_cuda.emit_general.launches
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    assert backend_cuda.emit_general.launches == before + len(fn.stages)
+    want = backend_cuda.general_plain(fn, *xs)
+    assert got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert torch.equal(got.isnan(), want.isnan())
+    # all_ops ends in a bf16 cast of f32 values that may differ within
+    # 1e-4, so a value may land one bf16 step (2^-7 of it at most) away
+    tol = (dict(rtol=2 ** -7, atol=1e-4) if case == "all_ops"
+           else STAGE_TOL)
+    torch.testing.assert_close(got[~got.isnan()], want[~want.isnan()],
+                               **tol)
+
+
+@pytest.mark.parametrize("pipe", ATTN_PIPES[:3])
+def test_stage_kernels_in_bf16(cuda, pipe):
+    """bf16 buffers, a bf16 shared-memory accumulator and bf16 roundings:
+    within tests/test_kernels.py's bf16 bound of general_plain."""
+    ck = compile_traced(stage_cases.bf16_graph(fe, 64),
+                        pipeline=pipe.format(t="tile_m=16,tile_n=16,"
+                                               "tile_k=16"),
+                        want_torch=False)
+    rng = np.random.default_rng(1)
+    xs = [torch.from_numpy(rng.standard_normal((64, 64)).astype(
+        np.float32)).to(cuda) for _ in range(3)]
+    got = ck.run_cuda(*xs)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), backend_cuda.general_plain(ck.run_cuda, *xs).float(),
+        rtol=TOL_BF16, atol=TOL_BF16)
+
+
+def test_stage_kernels_are_deterministic(cuda):
+    """Two calls give bit-identical outputs (no atomics, a fixed order)."""
+    ck = compile_traced(fe.flash_attention_graph(256, 512, 64),
+                        pipeline=ATTN_PIPES[3].format(
+                            t="tile_m=16,tile_n=16,tile_k=16"),
+                        want_torch=False)
+    xs = _stage_graph_inputs("flash_attention_graph", (256, 512, 64), cuda)
+    assert torch.equal(ck.run_cuda(*xs), ck.run_cuda(*xs))
+
+
+def test_stage_kernels_refuse_what_they_do_not_take(cuda):
+    ck = compile_traced(fe.flash_attention_graph(8, 16, 4),
+                        pipeline=ATTN_PIPES[3].format(
+                            t="tile_m=4,tile_n=4,tile_k=4"),
+                        want_torch=False)
+    xs = _stage_graph_inputs("flash_attention_graph", (8, 16, 4), cuda)
+    before = backend_cuda.emit_general.launches
+    with pytest.raises(ValueError, match="several devices"):
+        ck.run_cuda(xs[0], xs[1].cpu(), *xs[2:])
+    with pytest.raises(ValueError, match="shape"):
+        ck.run_cuda(xs[0][:4], *xs[1:])
+    with pytest.raises(ValueError, match="inputs"):
+        ck.run_cuda(*xs, xs[0], xs[0], xs[0], xs[0], xs[0], xs[0], xs[0],
+                    xs[0], xs[0])
+    assert backend_cuda.emit_general.launches == before
