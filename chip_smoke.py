@@ -38,7 +38,8 @@ Phases, each printing its own lines; any failure exits nonzero:
      repro_torch.core.compile_traced and run through run_cuda (the general
      emitter's per-nest kernels), counting the stage launches; each held to
      its plain version, a float64 oracle and the hand kernel on the same
-     slice, then timed per call and per stage;
+     slice, then timed per call and per stage, beside each stage's launch
+     layout (grid, spread loops, row split, blocks x threads);
  12. a JSON line with the rows of phases 7-11.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
@@ -113,7 +114,8 @@ HAND_KERNELS = ("decode_attention", "flash_attention", "ssd_scan")
 # The compiled serving kernels (phase 11), one (batch, head) slice each,
 # at the schedules whose every stage traces at most 4096 statements:
 # (label, graph kind, dims, window / valid, pipeline).  grid{vars=N} maps
-# only the first nest to the grid, so the later nests run as one block.
+# only the first nest to the grid; the emitter spreads the later nests'
+# independent loops over blocks and cuts row-local tiles by rows.
 GRID2 = "lower{tile_m=128,tile_n=128,tile_k=128},fuse-epilogue,grid{vars=2}"
 GRID1 = "lower{tile_m=128,tile_n=128,tile_k=128},fuse-epilogue,grid{vars=1}"
 COMPILED = (("flash qwen2-7b causal", "flash", (2048, 2048, 128), None, GRID2),
@@ -475,10 +477,16 @@ def compile_graphs(dev):
                             device=str(dev), want_torch=False)
         check(ck.run_cuda is not None and ck.run_cuda.plan is None,
               f"{label}: no general CUDA emission")
-        grids = [list(st.grid) for st in ck.run_cuda.stages]
+        stages = ck.run_cuda.stages
         print(f"[compile] stagecc_general {label}: {ck.name}, {pipe}; "
-              f"{len(grids)} stages, grids {grids}; compiled in "
+              f"{len(stages)} stages; compiled in "
               f"{time.perf_counter() - t0:.2f}s")
+        for st in stages:
+            print(f"[compile]   stage {st.index}: {st.layout}")
+        # the last nest (flash P V, SSD (h.C) G) is a matmul over 16 or
+        # 32 row tiles, spread and split to at least 128 blocks
+        check(kind == "decode" or stages[-1].programs >= 128,
+              f"{label}: last stage launches {stages[-1].programs} blocks")
         out.append((label, kind, dims, extra, ck))
     return out
 
@@ -660,9 +668,8 @@ def compiled_phase(compiled, dev, flush, smi):
                               time_ms(library, flush, iters=10))}
         rows.append(row)
         for st, ms, (b, by) in zip(fn.stages, stage_ms, stage_bounds):
-            print(f"[timing] {name} stage {st.index}: grid "
-                  f"{list(st.grid)} ({st.programs} blocks of {st.threads} "
-                  f"threads), cold L2: {ms:.3f} ms, bound {b:.4f} ms ({by}: "
+            print(f"[timing] {name} stage {st.index}: {st.layout}, cold "
+                  f"L2: {ms:.3f} ms, bound {b:.4f} ms ({by}: "
                   f"{st.hbm_bytes / 1e6:.1f} MB of its HBM reads and writes, "
                   f"{st.flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32)")
         lib = ("none" if row["library_ms"] is None

@@ -29,10 +29,11 @@ stay refusals: such a contraction gets no kernel.
 **The general emitter** (``emit_general``, after ``_emit_stage``) takes
 what the classifier refuses: the ``nested`` / ``inner_flattened``
 schedules and the multi-nest serving-kernel graphs.  Each top-level nest
-is a stage: its leading @grid chain is the CUDA grid, every other loop a
-C loop in the block, scratch lives in shared memory, and every statement
-is a block-cooperative loop over its tile (``kernels/csrc/
-stagecc_stage.cuh``).  One source holds every stage of a kernel.  On CPU
+is a stage: its leading @grid chain, the independent loops below it and,
+where that leaves SMs idle, a split of row-local tiles are the CUDA
+blocks; every other loop is a C loop in the block, scratch lives in
+shared memory, and every statement is a block-cooperative loop over its
+tile (``kernels/csrc/stagecc_stage.cuh``).  One source holds every stage of a kernel.  On CPU
 tensors the callable runs ``general_plain``, which executes each stage
 as the Pallas body does, in PyTorch.
 
@@ -49,16 +50,18 @@ import itertools
 import math
 import re
 import struct
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 from .backend_torch import _EWISE, _TORCH_DTYPE, as_tensor
-from .loop_ir import (Buffer, EwiseTile, FillTile, Kernel, Loop, LoopKind,
-                      MatmulTile, MemSpace, ReduceTile, ScanTile, Stmt,
-                      TileRef, ZeroTile, _stmt_refs, _stmt_written_refs)
+from .loop_ir import (AffineExpr, Buffer, EwiseTile, FillTile, Kernel, Loop,
+                      LoopKind, MatmulTile, MemSpace, ReduceTile, ScanTile,
+                      Stmt, TileRef, ZeroTile, _stmt_refs, _stmt_written_refs)
+from .schedule import carry_axis_reason
+from .tensor_ir import TensorType
 
 
 class EmitError(NotImplementedError):
@@ -573,13 +576,23 @@ def bracket(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
 # The serving-kernel graphs lower to several top-level nests chained
 # through HBM temporaries (matmul -> mask add -> carried max -> exp ->
 # carried sum -> matmul -> div), which the single-nest classifier cannot
-# express.  As in ``backend_pallas``, each top-level statement is a stage:
+# express.  As in ``backend_pallas``, each top-level statement is a stage.
+# The reference's view of a stage (its grid, its inner statements, what it
+# reads and writes) is kept apart from how the stage is laid out on the
+# card:
 #
-#   * the nest's leading @grid chain is the grid, one program per CUDA
-#     block; every other loop (@seq, @unrolled) is a C loop in the block,
-#     walked in the schedule's order;
+#   * the nest's leading @grid chain is the reference's grid, one program
+#     per CUDA block;
+#   * below it, the leading chain of loops whose iterations are
+#     independent (``_spread_reason``) is spread over blocks too, so a
+#     nest the grid pass left alone does not run on one SM;
+#   * where that still gives fewer blocks than the card has SMs and every
+#     statement is row-local (``_split_rows``), each tile's rows are cut
+#     into parts, one block each (``_split_body``);
+#   * every other loop (@seq, @unrolled) is a C loop in the block, walked
+#     in the schedule's order;
 #   * scratch (@vreg / @vmem) lives in the block's shared memory, zeroed
-#     per program, as the reference's local values are fresh per program;
+#     per block, as the reference's local values are fresh per program;
 #   * every HBM buffer the stage touches is a pointer to the whole array;
 #     a tile's origin is ``index.evaluate(env) * tile`` per dimension;
 #   * stages communicate through a host-level environment: each stage's
@@ -592,6 +605,9 @@ _MAX_STMTS = 4096                   # the reference's trace limit per stage
 _SMEM_LIMIT = 232448                # shared memory one block can have
 _SMEM_DEFAULT = 48 * 1024           # above it, the launch opts in
 _CHUNK = 16                         # stagecc_stage::kChunk
+_SMS = 132                          # the H100's SMs: a stage aims at one block each
+_MIN_PART_ROWS = 8                  # the fewest rows of one block's part of a tile
+_PART = "part$"                     # the launch variable of a row split
 
 
 def _stage_io(stmts: Sequence[Stmt]) -> Tuple[List[str], List[str]]:
@@ -628,6 +644,10 @@ def _walk_stmts(stmts):
             yield from _walk_stmts(s.body)
 
 
+def _leaves(stmts) -> List[Stmt]:
+    return [s for s in _walk_stmts(stmts) if not isinstance(s, Loop)]
+
+
 def _traced_stmts(stmts) -> int:
     """Leaf statements the reference's stage body traces (loop trips
     multiply)."""
@@ -640,18 +660,236 @@ def _traced_stmts(stmts) -> int:
     return n
 
 
+# ---- the launch layout -------------------------------------------------------
+
+
+def _stmt_read_refs(s: Stmt) -> List[TileRef]:
+    """Tile refs a statement reads: its operands, an accumulating
+    destination, a scan's carry."""
+    if isinstance(s, MatmulTile):
+        return [s.lhs, s.rhs] + ([s.dst] if s.accumulate else [])
+    if isinstance(s, ReduceTile):
+        return [s.src] + ([s.dst] if s.accumulate else [])
+    if isinstance(s, ScanTile):
+        return [*s.srcs, s.carry]
+    if isinstance(s, EwiseTile):
+        return list(s.srcs)
+    return []
+
+
+def _early_reads(stmts: Sequence[Stmt], names: Set[str]) -> Set[str]:
+    """The buffers of ``names`` that one run of ``stmts`` may read before
+    it writes the elements read.  A read counts as written only after an
+    earlier write of the same tile, its index variables bound by the same
+    loops; anything else is early."""
+    early: Set[str] = set()
+    done: Set[tuple] = set()
+
+    def key(r: TileRef, loops: Dict[str, int]) -> tuple:
+        return (r.buffer.name, r.index, r.tile,
+                tuple(loops.get(v) for e in r.index for v, _ in e.coeffs))
+
+    def go(ss, loops):
+        for s in ss:
+            if isinstance(s, Loop):
+                go(s.body, {**loops, s.var.name: id(s)})
+                continue
+            for r in _stmt_read_refs(s):
+                if r.buffer.name in names and key(r, loops) not in done:
+                    early.add(r.buffer.name)
+            done.update(key(w, loops) for w in _stmt_written_refs(s)
+                        if w.buffer.name in names)
+    go(stmts, {})
+    return early
+
+
+def _own_dim(refs: Sequence[TileRef], var: str) -> bool:
+    """Whether every ref in ``refs`` (all on one buffer) has, in one
+    common dimension, the index ``c * var + k`` (c != 0) and the tile of
+    every other: then each iteration of ``var`` touches its own tiles."""
+    for d in range(len(refs[0].index)):
+        keys = {(r.index[d], r.tile[d]) for r in refs}
+        if len(keys) == 1:
+            e = next(iter(keys))[0]
+            if len(e.coeffs) == 1 and e.coeffs[0][0] == var \
+                    and e.coeffs[0][1] != 0:
+                return True
+    return False
+
+
+def _spread_reason(loop: Loop) -> Optional[str]:
+    """Why the iterations of ``loop`` may not run as separate CUDA blocks
+    (in any order, each with fresh zeroed scratch); None when they may.
+    The loop must carry no reduction or scan (``carry_axis_reason``); it
+    must read no scratch before the same iteration writes it, which also
+    keeps out a matmul accumulating into scratch initialised outside the
+    loop; and each HBM buffer it writes must be written and read, in
+    every iteration, only at tiles that iteration owns (``_own_dim``)."""
+    reason = carry_axis_reason(loop, LoopKind.GRID)
+    if reason:
+        return reason
+    leaves = _leaves(loop.body)
+    scratch = {r.buffer.name for s in leaves for r in _stmt_refs(s)
+               if r.buffer.space != MemSpace.HBM}
+    early = _early_reads(loop.body, scratch)
+    if early:
+        return (f"loop %{loop.var.name} reads scratch {sorted(early)} before "
+                f"the iteration writes it")
+    refs: Dict[str, List[TileRef]] = {}
+    for s in leaves:
+        for r in _stmt_refs(s):
+            refs.setdefault(r.buffer.name, []).append(r)
+    for s in leaves:
+        for w in _stmt_written_refs(s):
+            if w.buffer.space == MemSpace.HBM and \
+                    not _own_dim(refs[w.buffer.name], loop.var.name):
+                return (f"loop %{loop.var.name}: the tiles of "
+                        f"{w.buffer.name} are not each iteration's own")
+    return None
+
+
+def _split_refs(s: Stmt) -> List[TileRef]:
+    """The refs of a statement whose rows follow the statement's rows
+    (all but a matmul's right operand)."""
+    return [r for r in _stmt_refs(s)
+            if not (isinstance(s, MatmulTile) and r is s.rhs)]
+
+
+def _split_rows(stmts: Sequence[Stmt]) -> Optional[int]:
+    """R if every statement under ``stmts`` is row-local over R rows, so
+    that each block can compute a part of every tile's rows alone: rank-2
+    tiles of R rows (a matmul's right operand aside, which must not be
+    written under ``stmts``, since every part reads all of it); no scan,
+    which runs along the rows; no operand broadcast along the rows.
+    Tile origins are multiples of R, so the parts never meet.  None
+    otherwise."""
+    leaves = _leaves(stmts)
+    written = {w.buffer.name for s in leaves for w in _stmt_written_refs(s)}
+    rows: Set[int] = set()
+    for s in leaves:
+        if isinstance(s, ScanTile):
+            return None
+        if isinstance(s, MatmulTile) and s.rhs.buffer.name in written:
+            return None
+        for r in _split_refs(s):
+            if len(r.tile) != 2:
+                return None
+            rows.add(r.tile[0])
+    return rows.pop() if len(rows) == 1 else None
+
+
+def _choose_split(blocks: int, rows: Optional[int]) -> int:
+    """Parts per tile: the fewest that give every SM a block, each part
+    at least ``_MIN_PART_ROWS`` rows and the parts equal; 1 if the blocks
+    already fill the card or the nest is not row-local."""
+    if rows is None or blocks >= _SMS:
+        return 1
+    parts = [p for p in range(2, rows // _MIN_PART_ROWS + 1)
+             if rows % p == 0]
+    return next((p for p in parts if blocks * p >= _SMS),
+                parts[-1] if parts else 1)
+
+
+def _split_body(stmts: Sequence[Stmt], scratch: Sequence[Buffer], rows: int,
+                parts: int) -> Tuple[List[Stmt], List[Buffer]]:
+    """``stmts`` with every row-following tile cut to its part: ``rows /
+    parts`` rows at row ``(index * parts + part$) * rows / parts``, the
+    same statements in the same order.  Scratch of R rows used only at
+    row 0, and never as a matmul's right operand, is the block's own and
+    shrinks to the part (its index stays 0); other scratch keeps its
+    shape.  Returns (statements, scratch)."""
+    rp = rows // parts
+    leaves = _leaves(stmts)
+    refs = [r for s in leaves for r in _split_refs(s)]
+    rhs = {s.rhs.buffer.name for s in leaves if isinstance(s, MatmulTile)}
+    own = {b.name: Buffer(b.name, TensorType((rp,) + b.shape[1:],
+                                             b.type.dtype), b.space)
+           for b in scratch if b.shape[0] == rows and b.name not in rhs
+           and all(r.index[0] == AffineExpr() for r in refs
+                   if r.buffer.name == b.name)}
+
+    def cut(r: TileRef) -> TileRef:
+        tile = (rp,) + r.tile[1:]
+        if r.buffer.name in own:
+            return TileRef(own[r.buffer.name], r.index, tile)
+        e = r.index[0]
+        row = AffineExpr(tuple((v, c * parts) for v, c in e.coeffs)
+                         + ((_PART, 1),), e.const * parts)
+        return TileRef(r.buffer, (row,) + r.index[1:], tile)
+
+    def go(ss):
+        out = []
+        for s in ss:
+            if isinstance(s, Loop):
+                out.append(Loop(s.var, s.kind, go(s.body)))
+            elif isinstance(s, MatmulTile):
+                out.append(MatmulTile(cut(s.dst), cut(s.lhs), s.rhs,
+                                      s.accumulate))
+            elif isinstance(s, ReduceTile):
+                out.append(ReduceTile(s.kind, cut(s.dst), cut(s.src),
+                                      s.accumulate))
+            elif isinstance(s, EwiseTile):
+                out.append(EwiseTile(s.op, cut(s.dst),
+                                     [cut(r) for r in s.srcs]))
+            else:
+                out.append(dataclasses.replace(s, dst=cut(s.dst)))
+        return out
+    return go(stmts), [own.get(b.name, b) for b in scratch]
+
+
+def _covered(top: Stmt, writes: Sequence[str],
+             buffers: Dict[str, Buffer]) -> Set[str]:
+    """The written buffers one statement of the stage writes whole, each
+    dimension's index either 0 on a tile as wide as the dimension or one
+    enclosing loop's variable (coefficient 1, no offset, a distinct
+    variable per dimension) whose extent times the tile is the dimension,
+    and that no block reads before writing.  Their fresh arrays need no
+    fill: every element is written before anything reads it."""
+    whole: Set[str] = set()
+
+    def go(s, extents):
+        if isinstance(s, Loop):
+            for c in s.body:
+                go(c, {**extents, s.var.name: s.var.extent})
+            return
+        for w in _stmt_written_refs(s):
+            seen = set()
+            for e, t, d in zip(w.index, w.tile, w.buffer.shape):
+                if not e.coeffs and e.const == 0 and t == d:
+                    continue
+                if len(e.coeffs) != 1 or e.const:
+                    break
+                (v, c), = e.coeffs
+                if c != 1 or v in seen or extents[v] * t != d:
+                    break
+                seen.add(v)
+            else:
+                whole.add(w.buffer.name)
+    go(top, {})
+    whole &= {n for n in writes if buffers[n].space == MemSpace.HBM}
+    return whole - _early_reads([top], whole)
+
+
 @dataclasses.dataclass
 class _Stage:
-    """One top-level nest: what it reads and writes, and how it runs."""
+    """One top-level nest: what it reads and writes, as the reference
+    sees it, and how its blocks are laid out on the card."""
     index: int
     kernel_name: str
-    grid_vars: List[str]
+    grid_vars: List[str]                 # the reference's Pallas grid
     grid: Tuple[int, ...]
-    inner: List[Stmt]
+    inner: List[Stmt]                    # the reference's program body
     reads: List[str]                     # HBM buffers read, first-use order
     writes: List[str]                    # HBM buffers written
     scratch: List[Buffer]
     buffers: Dict[str, Buffer]
+    spread_vars: List[str] = dataclasses.field(default_factory=list)
+    spread: Tuple[int, ...] = ()         # loops under the grid run as blocks
+    rows: int = 0                        # rows of every tile, if split
+    parts: int = 1                       # blocks each tile's rows go to
+    body: List[Stmt] = dataclasses.field(default_factory=list)  # per block
+    block_scratch: List[Buffer] = dataclasses.field(default_factory=list)
+    covered: Set[str] = dataclasses.field(default_factory=set)
     flops: int = 0                       # of the stage's statements
     hbm_bytes: int = 0                   # reads and writes, each once
     lib: Optional["_Library"] = None     # the kernel's built source
@@ -664,15 +902,36 @@ class _Stage:
         return [n for n in self.reads if n not in self.writes] + self.writes
 
     @property
+    def launch_vars(self) -> List[Tuple[str, int]]:
+        """(variable, extent) of the block index, outermost first."""
+        return (list(zip(self.grid_vars + self.spread_vars,
+                         self.grid + self.spread))
+                + ([(_PART, self.parts)] if self.parts > 1 else []))
+
+    @property
     def programs(self) -> int:
-        return math.prod(self.grid)
+        """Blocks of the launch: the grid's programs times the spread
+        loops' iterations times the parts of a row split."""
+        return math.prod(e for _, e in self.launch_vars)
 
     @property
     def threads(self) -> int:
-        """A grid that fills the card gets 256-thread blocks; a stage of
-        few programs (one, for a nest with no grid loop) gets 1024 threads
-        per block, so its one SM has loads in flight."""
-        return 256 if self.programs >= 132 else 1024
+        """A launch that fills the card, or a row split, gets 256-thread
+        blocks; a stage of few blocks gets 1024 threads per block, so its
+        SMs have loads in flight."""
+        return 256 if self.parts > 1 or self.programs >= _SMS else 1024
+
+    @property
+    def layout(self) -> str:
+        """The launch layout, as the stage's header and the smoke print
+        it."""
+        spread = " x ".join(f"%{v}:{e}" for v, e in zip(self.spread_vars,
+                                                       self.spread))
+        split = (f"{self.rows} rows in {self.parts} parts"
+                 if self.parts > 1 else "none")
+        return (f"grid [{'x'.join(map(str, self.grid)) or 'none'}], spread "
+                f"[{spread or 'none'}], row split {split}: {self.programs} "
+                f"blocks x {self.threads} threads")
 
     def __call__(self, env: Dict[str, torch.Tensor]) -> None:
         """Run the stage over ``env``: its kernel if the arrays are on a
@@ -687,7 +946,7 @@ class _Stage:
                              f"not {dev}")
 
     def _launch(self, env, dev) -> None:
-        outs = _fresh(self, dev)
+        outs = _fresh(self, dev, fill=False)
         ptrs = [outs[n] if n in outs else env[n] for n in self.params]
         for name, t in zip(self.params, ptrs):
             if t.device != dev or not t.is_contiguous():
@@ -704,15 +963,20 @@ class _Stage:
         env.update(outs)
 
 
-def _fresh(stage: _Stage, dev) -> Dict[str, torch.Tensor]:
+def _fresh(stage: _Stage, dev, fill: bool = True) -> Dict[str, torch.Tensor]:
     """New arrays for the stage's writes.  They start as NaN, as the
     reference's outputs do in Pallas interpret mode, so a tile no program
     writes, or a read of a written buffer before its write, shows the
-    same in both."""
-    return {n: torch.full(stage.buffers[n].shape, float("nan"),
-                          dtype=_TORCH_DTYPE[stage.buffers[n].type.dtype],
-                          device=dev)
-            for n in stage.writes}
+    same in both.  With ``fill`` False (the kernels' path) a buffer the
+    blocks write whole before any read (``_Stage.covered``) is left
+    unfilled."""
+    out = {}
+    for n in stage.writes:
+        t = torch.empty(stage.buffers[n].shape, device=dev,
+                        dtype=_TORCH_DTYPE[stage.buffers[n].type.dtype])
+        out[n] = t if not fill and n in stage.covered else t.fill_(
+            float("nan"))
+    return out
 
 
 class _Library:
@@ -757,9 +1021,10 @@ def _stage_flops(stmts) -> int:
 
 def _emit_stage(kernel: Kernel, top: Stmt, buffers: Dict[str, Buffer],
                 index: int) -> _Stage:
-    """The analysis of ``backend_pallas._emit_stage``: the grid, the inner
+    """The analysis of ``backend_pallas._emit_stage`` (the grid, the inner
     statements, the HBM buffers read and written and the scratch, with
-    the reference's refusals."""
+    the reference's refusals), then the stage's launch layout: the loops
+    spread over blocks and the row split."""
     # 1. peel the leading @grid chain
     grid_vars: List[str] = []
     grid: List[int] = []
@@ -791,13 +1056,31 @@ def _emit_stage(kernel: Kernel, top: Stmt, buffers: Dict[str, Buffer],
         raise EmitError(
             f"{kernel.name}: stage would trace {traced} statements "
             f"(grid-map or tile the schedule first)")
-    used = {r.buffer.name for s in _walk_stmts([top])
-            if not isinstance(s, Loop) for r in _stmt_refs(s)}
+    used = {r.buffer.name for s in _leaves([top]) for r in _stmt_refs(s)}
     scratch = [b for b in kernel.scratch if b.name in used]
     grid_t = tuple(grid)
+
+    # 2. the launch layout: spread the leading independent loops, then
+    #    split the rows where the card would still be idle
+    spread_vars: List[str] = []
+    spread: List[int] = []
+    body = inner
+    while len(body) == 1 and isinstance(body[0], Loop) \
+            and _spread_reason(body[0]) is None:
+        spread_vars.append(body[0].var.name)
+        spread.append(body[0].var.extent)
+        body = body[0].body
+    rows = _split_rows(body)
+    parts = _choose_split(math.prod(grid_t) * math.prod(spread), rows)
+    block_scratch = scratch
+    if parts > 1:
+        body, block_scratch = _split_body(body, scratch, rows, parts)
     return _Stage(index=index, kernel_name=kernel.name, grid_vars=grid_vars,
                   grid=grid_t, inner=inner, reads=reads, writes=writes,
-                  scratch=scratch, buffers=buffers,
+                  scratch=scratch, buffers=buffers, spread_vars=spread_vars,
+                  spread=tuple(spread), rows=rows if parts > 1 else 0,
+                  parts=parts, body=list(body), block_scratch=block_scratch,
+                  covered=_covered(top, writes, buffers),
                   flops=math.prod(grid_t) * _stage_flops(inner),
                   hbm_bytes=sum(buffers[n].type.nbytes
                                 for n in reads + writes))
@@ -837,11 +1120,13 @@ def _pow2ceil(n: int) -> int:
 def _mm_layout(nt: int, tm: int, tn: int) -> Tuple[int, int, int, int]:
     """(RX, MI, MJ, shared bytes) of ``matmul_tile`` for a tm x tn tile
     with nt threads: an RX-wide thread grid (RY = nt / RX rows, at most
-    256), each thread an MI x MJ register tile (at most 8 x 8, or 4 x 4
-    where 1024 threads leave 64 registers each), a pass at most 256 rows
-    high."""
+    256; RX up to 32 where 1024 threads or few rows would leave rows of
+    the grid idle, else 16), each thread an MI x MJ register tile (at most
+    8 x 8, or 4 x 4 where 1024 threads leave 64 registers each), a pass at
+    most 256 rows high."""
     cap = 4 if nt == 1024 else 8
-    rx = min(max(_pow2ceil(tn), nt // 256), 32 if nt == 1024 else 16)
+    wide = nt == 1024 or 32 * tm <= nt
+    rx = min(max(_pow2ceil(tn), nt // 256), 32 if wide else 16)
     ry = nt // rx
     mi = max(1, min(cap, -(-tm // ry), 256 // ry))
     mj = max(1, min(cap, -(-tn // rx)))
@@ -886,24 +1171,24 @@ class _StageRenderer:
         self.kernel, self.stage = kernel, stage
         self.nt = stage.threads
         self.dtypes = {n: b.type.dtype for n, b in stage.buffers.items()}
-        names = stage.params + [b.name for b in stage.scratch]
+        names = stage.params + [b.name for b in stage.block_scratch]
         for n in names:
             if self.dtypes[n] not in _CTYPE:
                 raise EmitError(f"{kernel.name}: {n} is {self.dtypes[n]}; "
                                 f"the CUDA stages take {sorted(_CTYPE)}")
         self.ptr = {n: f"g{i}" for i, n in enumerate(stage.params)}
         self.ptr.update({b.name: f"s{i}"
-                         for i, b in enumerate(stage.scratch)})
+                         for i, b in enumerate(stage.block_scratch)})
         self.read_only = set(stage.reads) - set(stage.writes)
         # shared memory: scratch, then matmul staging, then staged results
         self.smem_off: Dict[str, int] = {}
         off = 0
-        for b in stage.scratch:
+        for b in stage.block_scratch:
             self.smem_off[b.name] = off
             off += -(-b.type.nbytes // 16) * 16
         self.scratch_bytes = off
         mm = stg = 0
-        for s in _walk_stmts(stage.inner):
+        for s in _walk_stmts(stage.body):
             if isinstance(s, MatmulTile):
                 tm, tn = s.dst.tile[-2:]
                 mm = max(mm, _mm_layout(self.nt, tm, tn)[3])
@@ -1223,7 +1508,7 @@ class _StageRenderer:
             params.append(f"const {c}* __restrict__ {self.ptr[n]}"
                           if n in self.read_only else f"{c}* {self.ptr[n]}")
         self.out("extern __shared__ __align__(16) unsigned char smem[];")
-        for b in st.scratch:
+        for b in st.block_scratch:
             c = self.ctype(b.name)
             self.out(f"{c}* const {self.ptr[b.name]} = reinterpret_cast<{c}*>"
                      f"(smem + {self.smem_off[b.name]});  // {b.name} "
@@ -1236,16 +1521,14 @@ class _StageRenderer:
             self.out(f"stagecc_stage::zero_shared<{self.nt}>(smem, "
                      f"{self.scratch_bytes});")
             self.sync()
-        if st.grid_vars:
+        if st.launch_vars:
             self.out("long long pid = blockIdx.x;")
-            for v, g in reversed(list(zip(st.grid_vars, st.grid))):
+            for v, g in reversed(st.launch_vars):
                 self.out(f"const int {_cvar(v)} = (int)(pid % {g}); "
                          f"pid /= {g};")
-        self.body(st.inner)
-        grid = "x".join(map(str, st.grid)) or "none"
-        head = (f"// stage {i}: grid [{grid}] ({st.programs} blocks of "
-                f"{self.nt} threads, {self.smem} bytes of shared memory);"
-                f"\n// reads {', '.join(st.reads) or '-'}; writes "
+        self.body(st.body)
+        head = (f"// stage {i}: {st.layout}, {self.smem} bytes of shared "
+                f"memory;\n// reads {', '.join(st.reads) or '-'}; writes "
                 f"{', '.join(st.writes)}\n")
         kernel = (f"__global__ void __launch_bounds__({self.nt}) "
                   f"stage{i}({', '.join(params)}) {{\n"
@@ -1284,9 +1567,11 @@ def _render_general(kernel: Kernel, stages: Sequence[_Stage]) -> str:
 def emit_general(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
     """Emit a multi-nest kernel as a chain of per-nest CUDA kernels.
 
-    ``f(*inputs) -> out``: inputs fill the non-output params in order;
-    params not passed, and the output, start as zeros.  The stages run in
-    order, on the current stream; each stage's writes are new arrays.
+    ``f(*inputs) -> out``: inputs fill the non-output params in order; a
+    param not passed starts as zeros if a stage reads it before an earlier
+    stage writes it, and so does the output if no stage writes it.  The
+    stages run in order, on the current stream; each stage's writes are
+    new arrays.
     numpy inputs go to ``device``; tensors stay where they are.  On CPU
     tensors every stage runs ``stage_plain``."""
     kernel.verify()
@@ -1301,6 +1586,13 @@ def emit_general(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
         st.lib = lib
     out_name = kernel.outputs[0].name
     in_params = [b for b in kernel.params if b.name != out_name]
+    # the params whose value before the first stage some stage can see
+    zeroed, written = set(), set()
+    for st in stages:
+        zeroed |= set(st.reads) - set(st.writes) - written
+        written |= set(st.writes)
+    if out_name not in written:
+        zeroed.add(out_name)
 
     def environment(*inputs) -> Dict[str, torch.Tensor]:
         """The host-level buffer environment before the first stage."""
@@ -1323,7 +1615,9 @@ def emit_general(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
             raise ValueError(f"{kernel.name}: runs on cuda or cpu, not {dev}")
         env = {n: t.contiguous() for n, t in env.items()}
         for b in kernel.params:
-            if b.name not in env:
+            # (the first param, too, if nothing else tells the stages the
+            # device)
+            if b.name not in env and (b.name in zeroed or not env):
                 env[b.name] = torch.zeros(b.shape, device=dev, dtype=
                                           _TORCH_DTYPE[b.type.dtype])
         return env

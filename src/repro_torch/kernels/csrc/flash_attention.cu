@@ -25,9 +25,11 @@
 // quarter-warp's 16-byte reads fall in distinct banks.
 //
 // Design: one block of 256 threads per (bh, 64-row query tile), looping
-// over keys in tiles of 32.  The TPU kernel's 128 x 128 VMEM blocks do
-// not carry over: at D = 256 three 128 x 256 f32 tiles alone are 384 KB,
-// against 227 KB of shared memory per block.  Its sequential kv grid axis,
+// over keys in tiles of 32; bh is the grid's y axis, launched in slices of
+// at most 65535 (its limit), each slice's arrays offset to its first bh.
+// The TPU kernel's 128 x 128 VMEM blocks do not carry over: at D = 256
+// three 128 x 256 f32 tiles alone are 384 KB, against 227 KB of shared
+// memory per block.  Its sequential kv grid axis,
 // with acc/m/l in VMEM scratch, becomes the in-block key loop, with m and
 // l in registers.  Per tile: (1) S = Q K^T, one 4 x 2 block per thread;
 // (2) mask, scale and the online-softmax update, the 32 scores of a row
@@ -53,6 +55,7 @@ constexpr int kThreads = 256;
 constexpr int kBQ = 64;  // query rows per block: 16 thread rows x 4
 constexpr int kBK = 32;  // keys per tile: 16 thread columns x 2
 constexpr float kNeg = -1e30f;
+constexpr int kMaxGridY = 65535;  // blocks a grid's y axis can hold
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -272,11 +275,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_attention_kernel<T, kDMax><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, d, scale, mk);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < bh; b0 += kMaxGridY) {
+    const int n = bh - b0 < kMaxGridY ? bh - b0 : kMaxGridY;
+    const dim3 grid((sq + kBQ - 1) / kBQ, n);
+    const long long oq = (long long)b0 * sq * d, ok = (long long)b0 * sk * d;
+    flash_attention_kernel<T, kDMax><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q) + oq, static_cast<const T*>(k) + ok,
+        static_cast<const T*>(v) + ok, static_cast<T*>(out) + oq, sq, sk, d,
+        scale, mk);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T>

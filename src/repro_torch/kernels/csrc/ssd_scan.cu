@@ -26,7 +26,8 @@
 //
 // Design: the TPU grid is (H, S/L), and its chunk axis carries the state
 // in VMEM scratch.  That axis is sequential, so it becomes a loop over
-// chunks inside one block of 256 threads per (sequence, head), with the
+// chunks inside one block of 256 threads per (sequence, head; the sequence
+// is the grid's y axis, launched in slices of at most 65535), with the
 // state in shared memory, stored transposed (h_s[n][p]) so that a row of
 // the output reads 4 consecutive p as one float4.  Per chunk: (0) load x,
 // dt, B, C, zero-padded to multiples of 4; one thread takes the cumsum,
@@ -46,6 +47,7 @@ constexpr int kThreads = 256;
 constexpr int kLMax = 64;   // chunk: 16 thread rows x 4
 constexpr int kPMax = 64;   // head dim: 16 thread columns x float4
 constexpr int kNMax = 128;  // state dim: 16 thread rows x 8
+constexpr int kMaxGridY = 65535;  // blocks a grid's y axis can hold
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -237,11 +239,19 @@ int launch(const void* x, const void* dt, const void* A, const void* B,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ssd_scan_kernel<T><<<dim3(H, batch), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<T*>(y), S, H, P, N, L);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
+    const long long ox = (long long)b0 * S * H * P,
+                    odt = (long long)b0 * S * H, obc = (long long)b0 * S * N;
+    const int n = batch - b0 < kMaxGridY ? batch - b0 : kMaxGridY;
+    ssd_scan_kernel<T><<<dim3(H, n), kThreads, smem, stream>>>(
+        static_cast<const T*>(x) + ox, static_cast<const T*>(dt) + odt,
+        static_cast<const float*>(A), static_cast<const T*>(B) + obc,
+        static_cast<const T*>(C) + obc, static_cast<T*>(y) + ox, S, H, P, N,
+        L);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace

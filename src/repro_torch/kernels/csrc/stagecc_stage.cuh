@@ -10,12 +10,20 @@
 // file for the statements' block-cooperative bodies.
 //
 // Mapping, as the reference's body computes it:
-//   * the leading @grid chain is the CUDA grid, one program per block; the
-//     schedule's grid pass maps only loops whose iterations are
+//   * the leading @grid chain is part of the CUDA grid, one program per
+//     block; the schedule's grid pass maps only loops whose iterations are
 //     independent, so the blocks may run in any order;
+//   * below it, the emitter spreads the leading loops whose iterations are
+//     independent (no carried reduction or scan, no scratch read before
+//     the iteration writes it, each HBM tile written and read by one
+//     iteration only) over blocks too, and where that leaves SMs idle and
+//     every statement is row-local it cuts each tile's rows into parts,
+//     one block each, with the same statements in the same order; the
+//     block index is decoded into the grid, spread and part variables;
 //   * scratch buffers (@vreg / @vmem) live in dynamic shared memory,
 //     zeroed at the start of every block, as the reference's scratch is
-//     fresh per program;
+//     fresh per program; under a row split an accumulator used only at
+//     row 0 holds the block's own rows only;
 //   * HBM buffers are global pointers at full shape; a tile's origin is
 //     its affine index times the tile size per dimension, in 64-bit
 //     offsets;
@@ -27,10 +35,10 @@
 //     store rounds to the destination's type.
 //
 // What bounds it: the compiled graphs materialise every intermediate in
-// HBM, so a stage moves whole (S, S) score tensors, and a stage whose nest
-// has no grid loop runs as one block on one SM.  This first version is the
-// plain form: IEEE f32 FMA on the CUDA cores, no tensor cores, no TMA, no
-// asynchronous copies.
+// HBM, so a stage moves whole (S, S) score tensors, and a nest whose rows
+// cannot be cut (a scan, a 7-row decode tile) runs as few blocks as its
+// independent loops give.  IEEE f32 FMA on the CUDA cores, no tensor
+// cores, no TMA, no asynchronous copies.
 
 #pragma once
 
@@ -82,38 +90,78 @@ constexpr int kChunk = 16;  // k columns staged in shared memory per step
 // grid's RY*MI x RX*MJ pass are walked in passes.  k is staged through
 // shared memory `sm` (kChunk * (RY*MI + RX*MJ) floats) in chunks, walked
 // in order, so each output is an f32 sum in k order (FFMA, no TF32); then
-// `ACC` adds it to d as read in f32, as the reference's `dst + dot`.  All
-// reads of a and b are done before the last __syncthreads of a pass, so d
-// may not alias them within a pass: the emitter stages such statements.
+// `ACC` adds it to d as read in f32, as the reference's `dst + dot`.  A
+// thread with few outputs (MI * MJ <= 16: a row-split part, a narrow
+// tile) loads its share of the next chunk into registers while the block
+// computes on this one, so the chunk's loads are in flight together and
+// behind the arithmetic; measured on the H100, that halves such a stage,
+// while a thread holding 8 x 8 outputs has no registers to spare (it would
+// drop to one block per SM) and stages each chunk as it goes.  All reads
+// of a and b are done before the last __syncthreads of a pass, so d may
+// not alias them within a pass: the emitter stages such statements.
 template <int NT, int TM, int TN, int TK, int RX, int MI, int MJ, bool ACC,
           typename TA, typename TB, typename TD>
 __device__ __forceinline__ void matmul_tile(const View2<TA>& a,
                                             const View2<TB>& b,
                                             const View2<TD>& d, float* sm) {
   constexpr int RY = NT / RX, PM = RY * MI, PN = RX * MJ;
+  constexpr int LA = (PM * kChunk + NT - 1) / NT;  // a elements per thread
+  constexpr int LB = (kChunk * PN + NT - 1) / NT;  // b elements per thread
+  constexpr bool kAhead = MI * MJ <= 16;  // load chunk k+1 during chunk k
   float* as = sm;                 // [kChunk][PM], k-major
   float* bs = sm + kChunk * PM;   // [kChunk][PN]
   const int tx = threadIdx.x % RX, ty = threadIdx.x / RX;
+  float ra[LA], rb[LB];
   for (int r0 = 0; r0 < TM; r0 += PM) {
     for (int c0 = 0; c0 < TN; c0 += PN) {
+      // chunk k0 of a and b into registers, zero outside the tile;
+      // neighbouring threads take neighbouring k of a row of a
+      auto load = [&](int k0) {
+#pragma unroll
+        for (int i = 0; i < LA; ++i) {
+          const int e = threadIdx.x + i * NT, r = e / kChunk, k = e % kChunk;
+          ra[i] = (e < PM * kChunk && r0 + r < TM && k0 + k < TK)
+                      ? a.get(r0 + r, k0 + k) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const int e = threadIdx.x + i * NT, k = e / PN, c = e % PN;
+          rb[i] = (e < kChunk * PN && c0 + c < TN && k0 + k < TK)
+                      ? b.get(k0 + k, c0 + c) : 0.f;
+        }
+      };
       float acc[MI][MJ];
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < MJ; ++j) acc[i][j] = 0.f;
+      if (kAhead) load(0);
       for (int k0 = 0; k0 < TK; k0 += kChunk) {
-        // neighbouring threads take neighbouring k of a row of a
-        for (int e = threadIdx.x; e < PM * kChunk; e += NT) {
-          const int r = e / kChunk, k = e % kChunk;
-          as[k * PM + r] = (r0 + r < TM && k0 + k < TK)
-                               ? a.get(r0 + r, k0 + k) : 0.f;
-        }
-        for (int e = threadIdx.x; e < kChunk * PN; e += NT) {
-          const int k = e / PN, c = e % PN;
-          bs[k * PN + c] = (c0 + c < TN && k0 + k < TK)
-                               ? b.get(k0 + k, c0 + c) : 0.f;
+        if (kAhead) {
+#pragma unroll
+          for (int i = 0; i < LA; ++i) {
+            const int e = threadIdx.x + i * NT;
+            if (e < PM * kChunk) as[(e % kChunk) * PM + e / kChunk] = ra[i];
+          }
+#pragma unroll
+          for (int i = 0; i < LB; ++i) {
+            const int e = threadIdx.x + i * NT;
+            if (e < kChunk * PN) bs[e] = rb[i];
+          }
+        } else {
+          for (int e = threadIdx.x; e < PM * kChunk; e += NT) {
+            const int r = e / kChunk, k = e % kChunk;
+            as[k * PM + r] = (r0 + r < TM && k0 + k < TK)
+                                 ? a.get(r0 + r, k0 + k) : 0.f;
+          }
+          for (int e = threadIdx.x; e < kChunk * PN; e += NT) {
+            const int k = e / PN, c = e % PN;
+            bs[k * PN + c] = (c0 + c < TN && k0 + k < TK)
+                                 ? b.get(k0 + k, c0 + c) : 0.f;
+          }
         }
         __syncthreads();
+        if (kAhead && k0 + kChunk < TK) load(k0 + kChunk);
 #pragma unroll
         for (int k = 0; k < kChunk; ++k) {
           float av[MI], bv[MJ];

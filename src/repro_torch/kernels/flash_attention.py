@@ -76,8 +76,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q/k/v must be contiguous")
-    if bh > 65535:
-        raise ValueError(f"BH={bh} > 65535 (the grid's second axis)")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):

@@ -144,3 +144,90 @@ stagecc.kernel @partial(arg0: tensor<8x8xfloat32> @hbm, t: tensor<8x8xfloat32> @
 # (kernel text, number of inputs) of the hand-written cases
 TEXT_CASES = {"all_ops": (all_ops_text, 4), "alias": (lambda: ALIAS, 2),
               "partial": (lambda: PARTIAL, 1)}
+
+
+# Nests the general emitter must not spread over blocks (or not cut by
+# rows), each with the reason: (kernel text, number of inputs).  Their
+# inputs are 16 x 8 arrays.
+def _nest(name, body, scratch="", extra=""):
+    return (f"stagecc.kernel @{name}(arg0: tensor<16x8xfloat32> @hbm, "
+            f"arg1: tensor<8x8xfloat32> @hbm{extra}, out: tensor<16x8x"
+            f"float32> @hbm) -> (out) {{\n{scratch}{body}}}")
+
+
+NOT_SPREAD = {
+    # a reduction into scratch that no iteration initialises: the running
+    # sum crosses iterations (schedule.carry_axis_reason)
+    "carried_reduce": _nest("carried_reduce", """\
+  for %i in [0,2) @seq {
+    reduce<sum,acc> acc[0, 0 : 8x1], arg0[i, 0 : 8x8]
+    out[i, 0 : 8x8] = vpu.add(arg0[i, 0 : 8x8], acc[0, 0 : 8x1])
+  }
+""", "  alloc acc: tensor<8x1xfloat32> @vreg\n"),
+    # a matmul accumulating across iterations (carry_axis_reason exempts
+    # it; the scratch it reads was last written by the iteration before)
+    "carried_matmul": _nest("carried_matmul", """\
+  for %i in [0,2) @seq {
+    acc[0, 0 : 8x8] += mxu.matmul(arg0[i, 0 : 8x8], arg1[0, 0 : 8x8])
+    out[i, 0 : 8x8] = vpu.copy(acc[0, 0 : 8x8])
+  }
+""", "  alloc acc: tensor<8x8xfloat32> @vreg\n"),
+    # scratch read before the iteration writes it
+    "scratch_read_first": _nest("scratch_read_first", """\
+  for %i in [0,2) @seq {
+    out[i, 0 : 8x8] = vpu.add(arg0[i, 0 : 8x8], acc[0, 0 : 8x8])
+    acc[0, 0 : 8x8] = vpu.exp(arg0[i, 0 : 8x8])
+  }
+""", "  alloc acc: tensor<8x8xfloat32> @vreg\n"),
+    # an HBM write whose index ignores the loop variable
+    "same_tile": _nest("same_tile", """\
+  for %i in [0,2) @seq {
+    out[0, 0 : 8x8] = vpu.exp(arg0[i, 0 : 8x8])
+  }
+"""),
+    # a read of a tile that another iteration writes
+    "other_tile": _nest("other_tile", """\
+  for %i in [0,2) @seq {
+    t[i, 0 : 8x8] = vpu.exp(arg0[i, 0 : 8x8])
+    out[i, 0 : 8x8] = vpu.add(t[0, 0 : 8x8], arg0[i, 0 : 8x8])
+  }
+""", extra=", t: tensor<16x8xfloat32> @hbm"),
+    # a scan along the loop
+    "scan_along": _nest("scan_along", """\
+  for %i in [0,2) @seq {
+    scan<cumsum> out[i, 0 : 8x8], carry[0, 0 : 1x8], arg0[i, 0 : 8x8]
+  }
+""", "  alloc carry: tensor<1x8xfloat32> @vreg\n"),
+}
+
+# One-iteration nests of 16 rows: the first is row-local, so it is cut
+# into two parts of 8 rows; the others are not (an operand broadcast
+# along the rows; a scan down the rows; a matmul whose right operand the
+# nest writes).
+ROW_SPLIT = {
+    "row_local": (_nest("row_local", """\
+  for %i in [0,1) @seq {
+    fill acc[0, 0 : 16x1], -1e+30
+    reduce<max,acc> acc[0, 0 : 16x1], arg0[0, 0 : 16x8]
+    d[0, 0 : 16x8] = vpu.sub(arg0[0, 0 : 16x8], acc[0, 0 : 16x1])
+    out[0, 0 : 16x8] = mxu.matmul(d[0, 0 : 16x8], arg1[0, 0 : 8x8])
+  }
+""", "  alloc acc: tensor<16x1xfloat32> @vreg\n",
+        ", d: tensor<16x8xfloat32> @hbm"), 2),
+    "row_broadcast": (_nest("row_broadcast", """\
+  for %i in [0,1) @seq {
+    out[0, 0 : 16x8] = vpu.add(arg0[0, 0 : 16x8], arg1[0, 0 : 1x8])
+  }
+"""), 1),
+    "scan_rows": (_nest("scan_rows", """\
+  for %i in [0,1) @seq {
+    scan<cumsum> out[0, 0 : 16x8], carry[0, 0 : 1x8], arg0[0, 0 : 16x8]
+  }
+""", "  alloc carry: tensor<1x8xfloat32> @vreg\n"), 1),
+    "written_rhs": (_nest("written_rhs", """\
+  for %i in [0,1) @seq {
+    w[0, 0 : 8x8] = vpu.exp(arg0[0, 0 : 8x8])
+    out[0, 0 : 16x8] = mxu.matmul(arg0[0, 0 : 16x8], w[0, 0 : 8x8])
+  }
+""", extra=", w: tensor<8x8xfloat32> @hbm"), 1),
+}

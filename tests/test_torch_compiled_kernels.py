@@ -13,6 +13,8 @@ emitters must also refuse the same kernels and cut them into the same
 stages (``reads`` / ``writes``).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -216,28 +218,49 @@ def test_gemm_refusals_and_stages_match_the_reference(schedule, n,
 
 GRID1 = "lower{tile_m=128,tile_n=128,tile_k=128},fuse-epilogue,grid{vars=1}"
 GRID2 = "lower{tile_m=128,tile_n=128,tile_k=128},fuse-epilogue,grid{vars=2}"
+# per stage: the reference's Pallas grid, then the launch layout: the loops
+# spread over blocks and the parts each tile's rows are cut into
 FULL = [("flash_attention_graph", (2048, 2048, 128), GRID2,
-         [[16, 16], [], [], [], []]),
+         [[16, 16], [], [], [], []],
+         [([], 1), (["i7"], 16), (["e10", "e11"], 1), (["i14"], 16),
+          (["i17", "j18"], 16)]),
         ("flash_attention_graph", (4096, 4096, 256), GRID2,
-         [[32, 32], [], [], [], []]),
+         [[32, 32], [], [], [], []],
+         [([], 1), (["i7"], 8), (["e10", "e11"], 1), (["i14"], 8),
+          (["i17", "j18"], 4)]),
         ("decode_attention_graph", (7, 161, 128), GRID2,
-         [[1, 7], [], [], [], []]),
-        ("ssd_scan_graph", (4096, 64, 128), GRID1, [[64], [], []])]
+         [[1, 7], [], [], [], []],
+         [([], 1), (["i7"], 1), (["e10", "e11"], 1), (["i14"], 1),
+          (["i17", "j18"], 1)]),
+        ("ssd_scan_graph", (4096, 64, 128), GRID1, [[64], [], []],
+         [([], 1), (["e4", "e5"], 1), (["i6", "j7"], 8)])]
 
 
-@pytest.mark.parametrize("graph,dims,pipe,grids", FULL,
+@pytest.mark.parametrize("graph,dims,pipe,grids,layouts", FULL,
                          ids=["qwen2-7b", "gemma3-4b", "decode", "mamba2"])
-def test_full_width_stages_match_the_reference(graph, dims, pipe, grids):
+def test_full_width_stages_match_the_reference(graph, dims, pipe, grids,
+                                               layouts):
     """The chip smoke's four graphs at full width, by analysis only: both
-    emitters accept them and cut them into the same stages."""
+    emitters accept them and cut them into the same stages with the same
+    Pallas grids.  On the card every nest after the first spreads its
+    outer loops over blocks, a matmul or reduction nest is cut by rows as
+    well, each stage launches the grid's programs times the spread loops'
+    iterations times the parts, the flash P V and SSD (h.C) G stages at
+    least 128 blocks, and every temporary is written whole before it is
+    read, so none is filled first."""
     ck = compile_traced(getattr(fe, graph)(*dims), pipeline=pipe,
                         device="cpu", want_torch=False)
     rck = ref_pipeline.compile_traced(getattr(ref_fe, graph)(*dims),
                                       pipeline=pipe, want_jax=False)
     _same_stages(ck.run_cuda, rck.run_pallas)
-    assert [list(s.grid) for s in ck.run_cuda.stages] == grids
-    assert all(st.programs == int(np.prod(st.grid))
-               for st in ck.run_cuda.stages)
+    stages = ck.run_cuda.stages
+    assert [list(s.grid) for s in stages] == grids
+    assert [(s.spread_vars, s.parts) for s in stages] == layouts
+    assert all(st.programs == int(np.prod(st.grid)) * int(np.prod(st.spread))
+               * st.parts for st in stages)
+    if graph != "decode_attention_graph":
+        assert stages[-1].programs >= 128
+    assert all(st.covered == set(st.writes) for st in stages)
 
 
 @pytest.mark.parametrize("pipe,refused", [
@@ -285,20 +308,35 @@ def test_emit_dispatch_keeps_the_gemm_template_first():
 
 def test_port_only_refusals():
     """Element types other than f32 / bf16 and scratch beyond a block's
-    shared memory refuse in the port alone (ROADMAP C)."""
+    shared memory refuse in the port alone (ROADMAP C); a row split that
+    leaves each block a part of the scratch lifts the second."""
     g = fe.trace(lambda a: fe.exp(a), [fe.spec((8, 8), "float16")],
                  name="exp_f16")
     k = PassManager.parse("lower{tile_m=4,tile_n=4,tile_k=4}").run(g) \
         .artifact
     with pytest.raises(backend_cuda.EmitError, match="float16"):
         backend_cuda.emit_general(k, device="cpu")
-    # a 256 x 256 f32 accumulator (256 KB) exceeds a block's 227 KB
+    # a 256 x 256 f32 scratch (256 KB) that a scan keeps whole in one
+    # block exceeds its 227 KB
+    big = """\
+stagecc.kernel @big(arg0: tensor<256x256xfloat32> @hbm, out: tensor<256x256xfloat32> @hbm) -> (out) {
+  alloc acc: tensor<256x256xfloat32> @vmem
+  alloc c: tensor<1x256xfloat32> @vreg
+  for %i in [0,1) @seq {
+    scan<cumsum> acc[0, 0 : 256x256], c[0, 0 : 1x256], arg0[0, 0 : 256x256]
+    out[0, 0 : 256x256] = vpu.copy(acc[0, 0 : 256x256])
+  }
+}"""
+    with pytest.raises(backend_cuda.EmitError, match="shared memory"):
+        backend_cuda.emit_general(ir_text.parse_ir(big), device="cpu")
+    # a 256 x 256 matmul accumulator is row-local: each block keeps only
+    # its part's rows, so it fits
     g = fe.trace(lambda a, b: fe.exp(fe.matmul(a, b)),
                  [fe.spec((256, 256)), fe.spec((256, 256))], name="big")
     k = PassManager.parse("lower{tile_m=256,tile_n=256,tile_k=4}") \
         .run(g).artifact
-    with pytest.raises(backend_cuda.EmitError, match="shared memory"):
-        backend_cuda.emit_general(k, device="cpu")
+    st = backend_cuda.emit_general(k, device="cpu").stages[0]
+    assert (st.parts, [b.shape for b in st.block_scratch]) == (32, [(8, 256)])
 
 
 # --------------------------------------------------------------------------
@@ -379,3 +417,149 @@ def test_plain_version_runs_without_touching_the_counters():
             gemm.cuda_gemm.launches) == before
     assert "__global__" in ck.run_cuda.source
     assert ck.run_cuda.source.count("extern \"C\" int stagecc_stage") == 5
+
+
+# --------------------------------------------------------------------------
+# the launch layout: spread loops and row splits, on the CPU
+# --------------------------------------------------------------------------
+
+
+def _blocks_plain(stage, env):
+    """The stage as the card runs it: every block of its launch layout
+    through ``_run_plain`` with its own statements (rows cut to its part)
+    and fresh zeroed scratch, the last block first."""
+    outs = backend_cuda._fresh(stage, torch.device("cpu"))
+    hbm = {**{n: env[n] for n in stage.params if n not in outs}, **outs}
+    names = [v for v, _ in stage.launch_vars]
+    blocks = list(itertools.product(*(range(e)
+                                      for _, e in stage.launch_vars)))
+    assert len(blocks) == stage.programs
+    for pid in reversed(blocks):
+        mem = dict(hbm)
+        mem.update({b.name: torch.zeros(b.shape, dtype=backend_cuda
+                                        ._TORCH_DTYPE[b.type.dtype])
+                    for b in stage.block_scratch})
+        backend_cuda._run_plain(stage.body, dict(zip(names, pid)), mem, "cpu")
+    env.update(outs)
+
+
+def _blocks_match_stage_plain(fn, xs):
+    """Every stage's blocks, last first, against ``stage_plain``: the same
+    bits, NaN where it has NaN."""
+    env, blocks = fn.environment(*xs), fn.environment(*xs)
+    for st in fn.stages:
+        backend_cuda.stage_plain(st, env)
+        _blocks_plain(st, blocks)
+        for n in st.writes:
+            torch.testing.assert_close(blocks[n], env[n], rtol=0, atol=0,
+                                       equal_nan=True)
+    return env[fn.out_name]
+
+
+SPLIT_GRAPHS = [
+    ("flash_attention_graph", (32, 32, 8), (16, 16, 8), ATTN_PIPES),
+    ("flash_attention_graph", (32, 64, 8), (16, 16, 16), ATTN_PIPES),
+    ("decode_attention_graph", (4, 16, 4), (4, 4, 4), ATTN_PIPES),
+    ("ssd_scan_graph", (32, 2, 4), (16, 16, 8), SSD_PIPES),
+]
+
+
+@pytest.mark.parametrize("graph,dims,tile,sched", [
+    pytest.param(g, d, t, p, id=f"{g.split('_')[0]}-{'x'.join(map(str, d))}"
+                 f"-{i}")
+    for g, d, t, ps in SPLIT_GRAPHS for i, p in enumerate(ps)])
+def test_blocks_in_reverse_equal_the_plain_version(graph, dims, tile, sched):
+    """Spread and row-split stages, their blocks run last first, each with
+    fresh zeroed scratch, give ``stage_plain``'s bits; at 16-row tiles the
+    later flash nests spread and split."""
+    ck = compile_traced(getattr(fe, graph)(*dims),
+                        pipeline=_pipe(sched, tile), device="cpu",
+                        want_torch=False)
+    stages = ck.run_cuda.stages
+    if tile[0] == 16 and graph == "flash_attention_graph":
+        assert stages[-1].spread_vars and stages[-1].parts == 2
+    if graph == "ssd_scan_graph":
+        inputs, _ = _ssd_case(*dims, head=1, chunk=dims[0] // 2)
+    elif graph == "flash_attention_graph":
+        inputs, _ = _flash_case(*dims)
+    else:
+        _, inputs = cases.flash_inputs(*dims, seed=3)
+    got = _blocks_match_stage_plain(ck.run_cuda,
+                                    [torch.from_numpy(x) for x in inputs])
+    oracle = (_scan_oracle(*inputs) if graph == "ssd_scan_graph"
+              else _softmax_oracle(*inputs))
+    np.testing.assert_allclose(got.numpy(), oracle, **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(cases.TEXT_CASES)
+                         + sorted(cases.NOT_SPREAD) + sorted(cases.ROW_SPLIT))
+def test_hand_written_blocks_in_reverse(case):
+    """The hand-written kernels (every statement, aliasing, partial writes
+    and early reads, the nests that must not spread or split): their
+    blocks, last first, give ``stage_plain``'s bits."""
+    if case in cases.TEXT_CASES:
+        text, nin = cases.TEXT_CASES[case]
+        text, shape = text(), (8, 8)
+    else:
+        text = cases.NOT_SPREAD.get(case) or cases.ROW_SPLIT[case][0]
+        nin, shape = 2, None
+    fn = backend_cuda.emit(ir_text.parse_ir(text), device="cpu")
+    rng = np.random.default_rng(0)
+    params = [b for b in ir_text.parse_ir(text).params][:nin]
+    xs = [torch.from_numpy(rng.standard_normal(shape or b.shape)
+                           .astype(np.float32)) for b in params]
+    _blocks_match_stage_plain(fn, xs)
+
+
+@pytest.mark.parametrize("case", sorted(cases.NOT_SPREAD))
+def test_nests_that_must_not_spread(case):
+    """A reduction or a matmul carried across iterations, scratch read
+    before the iteration writes it, an HBM tile every iteration writes,
+    a tile another iteration writes, a scan along the loop: the loop is
+    not spread, and the nest runs as one block."""
+    fn = backend_cuda.emit_general(ir_text.parse_ir(cases.NOT_SPREAD[case]),
+                                   device="cpu")
+    (st,) = fn.stages
+    assert backend_cuda._spread_reason(st.inner[0]) is not None
+    assert (st.spread_vars, st.parts, st.programs) == ([], 1, 1)
+
+
+@pytest.mark.parametrize("case", sorted(cases.ROW_SPLIT))
+def test_row_split_only_where_every_statement_is_row_local(case):
+    """Fill, reduce along the columns, a (rows, 1) column operand and a
+    matmul by its rows split a 16-row nest into two blocks of 8 rows; an
+    operand broadcast along the rows, a scan down the rows or a matmul
+    whose right operand the nest writes do not."""
+    text, parts = cases.ROW_SPLIT[case]
+    fn = backend_cuda.emit_general(ir_text.parse_ir(text), device="cpu")
+    (st,) = fn.stages
+    assert (st.parts, st.programs) == (parts, parts)
+    if parts > 1:
+        assert st.threads == 256 and st.rows == 16
+        # the block's accumulator holds its own 8 rows only
+        assert [b.shape for b in st.block_scratch] == [(8, 1)]
+        assert "row split 16 rows in 2 parts: 2 blocks" in fn.source
+
+
+def test_fills_only_where_the_caller_could_see_them():
+    """Fresh outputs start as NaN only where a block may read or leave an
+    element unwritten: in ``partial`` the half-written output and the
+    buffer read before its write keep the fill on the kernels' path, the
+    wholly written temporary does not; and the environment holds zeros
+    only for what a stage reads before any stage writes it."""
+    fn = backend_cuda.emit(ir_text.parse_ir(cases.PARTIAL), device="cpu")
+    assert [st.covered for st in fn.stages] == [{"t"}, set()]
+    fresh = backend_cuda._fresh(fn.stages[1], torch.device("cpu"),
+                                fill=False)
+    assert all(bool(t.isnan().all()) for t in fresh.values())
+    env = fn.environment(np.ones((8, 8), np.float32))
+    assert sorted(env) == ["arg0"]
+    ck = compile_traced(fe.flash_attention_graph(8, 16, 4),
+                        pipeline=_pipe(ATTN_PIPES[3], (4, 4, 4)),
+                        device="cpu", want_torch=False)
+    inputs, _ = _flash_case(8, 16, 4)
+    assert sorted(ck.run_cuda.environment(*inputs)) == [
+        "arg0", "arg1", "arg2", "arg3"]
+    # with the mask not passed, the graph reads zeros for it
+    assert sorted(ck.run_cuda.environment(*inputs[:3])) == [
+        "arg0", "arg1", "arg2", "arg3"]

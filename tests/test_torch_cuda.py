@@ -573,3 +573,78 @@ def test_stage_kernels_refuse_what_they_do_not_take(cuda):
         ck.run_cuda(*xs, xs[0], xs[0], xs[0], xs[0], xs[0], xs[0], xs[0],
                     xs[0], xs[0])
     assert backend_cuda.emit_general.launches == before
+
+
+def test_spread_and_row_split_stages(cuda):
+    """flash 256 x 256 x 64 on 64-row tiles: the nests after the first
+    spread their row-tile loops over blocks, and every nest, the gridded
+    first too, cuts each tile's 64 rows over 8 blocks; within 1e-4 of
+    general_plain, the float64 oracle and flash_attention on the same
+    slice."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    ck = compile_traced(fe.flash_attention_graph(256, 256, 64),
+                        pipeline=ATTN_PIPES[3].format(
+                            t="tile_m=64,tile_n=64,tile_k=64"),
+                        want_torch=False)
+    fn = ck.run_cuda
+    assert [(st.spread_vars, st.parts) for st in fn.stages] == [
+        ([], 8), (["i7"], 8), (["e10", "e11"], 8), (["i14"], 8),
+        (["i17", "j18"], 8)]
+    (q, k, v), host = stage_cases.flash_inputs(256, 256, 64)
+    xs = [torch.from_numpy(x).to(cuda) for x in host]
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, backend_cuda.general_plain(fn, *xs),
+                               **STAGE_TOL)
+    qs, kt, vv, mask = (x.double() for x in xs)
+    s = qs @ kt + mask
+    p = torch.exp(s - s.amax(dim=1, keepdim=True))
+    torch.testing.assert_close(got, ((p @ vv) / p.sum(dim=1, keepdim=True))
+                               .float(), **STAGE_TOL)
+    hand = flash_attention(*(torch.from_numpy(x).to(cuda)
+                             for x in (q, k, v)), causal=True)[0]
+    torch.testing.assert_close(got, hand, **STAGE_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(stage_cases.NOT_SPREAD)
+                         + sorted(stage_cases.ROW_SPLIT))
+def test_nests_not_spread_or_split_match_the_plain_version(cuda, case):
+    """The hand-written nests that must not spread (a carried reduction or
+    matmul, scratch read first, a shared or another iteration's tile, a
+    scan along the loop) and those that must not split by rows, beside
+    one that does: one launch each, equal to general_plain, NaN where it
+    has NaN."""
+    text = (stage_cases.NOT_SPREAD.get(case)
+            or stage_cases.ROW_SPLIT[case][0])
+    fn = backend_cuda.emit(ir_text.parse_ir(text))
+    rng = np.random.default_rng(2)
+    xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          .to(cuda) for s in ((16, 8), (8, 8))]
+    before = backend_cuda.emit_general.launches
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    assert backend_cuda.emit_general.launches == before + 1
+    want = backend_cuda.general_plain(fn, *xs)
+    torch.testing.assert_close(got, want, equal_nan=True, **STAGE_TOL)
+
+
+def test_flash_kernel_at_65536_heads(cuda):
+    """BH = 65536, past the 65535 blocks of a grid's second axis."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, torch.float32, 65536, 64, 64, 32, seed=11)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_ssd_kernel_at_65536_sequences(cuda):
+    """A batch of 65536 sequences, past the 65535 blocks of a grid's
+    second axis."""
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, A, B, C, D = _ssd(cuda, torch.float32, 65536, 16, 1, 4, 4,
+                             seed=12)
+    got = ss.ssd_scan(x, dt, A, B, C, D, chunk=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ss.ssd_scan_plain(x, dt, A, B, C, D,
+                                                      chunk=16), **SSD_TOL)
