@@ -10,9 +10,10 @@ Phases, each printing its own lines; any failure exits nonzero:
   2. compile qwen2-7b's MLP products (repro_torch.core.compile_gemm) and
      the four serving-kernel graphs of phase 11 through the compiler stack,
      then build every CUDA kernel, one nvcc per source, all at once:
-     decode_attention, flash_attention and ssd_scan from
-     src/repro_torch/kernels/csrc/, the emitted GEMMs and the general
-     emitter's four sources;
+     decode_attention, flash_attention, flash_attention_sm90 and ssd_scan
+     from src/repro_torch/kernels/csrc/, the emitted GEMMs and the general
+     emitter's four sources; print the tensor-core kernels' registers,
+     shared memory and spills (ptxas);
   3. decode_attention against its plain PyTorch version at the serving
      path's shapes, in float32 and bfloat16;
   4. serve qwen2-7b at full width (random weights from a seed) through
@@ -23,12 +24,14 @@ Phases, each printing its own lines; any failure exits nonzero:
   7. decode_attention's time per launch beside its bound, its plain
      version's time and one PyTorch library call's time;
   8. the compiled-GEMM path: the MLP products through the emitted kernels
-     and a gemm_op forward and backward, counting the launches; each
-     against its plain version, then timed like phase 7;
+     and a gemm_op forward and backward, counting the launches and those on
+     the tensor-core route (every bf16 product); each against its plain
+     version and the bracket of its roundings, then timed like phase 7;
   9. blocked attention through repro_torch.kernels.ops.attention (backend
-     "cuda", the flash_attention kernel) at qwen2-7b's widths (causal) and
-     gemma3-4b's (causal, local window 1024), f32 and bf16, counting the
-     launches; each against its plain version and SDPA, then timed;
+     "cuda": flash_attention_sm90 for bf16, flash_attention for f32) at
+     qwen2-7b's widths (causal) and gemma3-4b's (causal, local window
+     1024), f32 and bf16, counting the launches per kernel; each against
+     its plain version and SDPA, then timed;
  10. the Mamba-2 SSD scan through ops.ssd (backend "cuda", the ssd_scan
      kernel) at mamba2-130m's widths, f32 and bf16, likewise, and against
      ops.ssd's "torch" backend;
@@ -43,10 +46,18 @@ Phases, each printing its own lines; any failure exits nonzero:
  12. a JSON line with the rows of phases 7-11.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
+
+    python3 chip_smoke.py --gemm-seeds N
+
+instead runs only the bf16 products of phase 8 on the inputs of seeds
+0..N-1 (seed 0 is phase 8's draw) and prints each variant's worst share of
+its gates over the seeds: how much room the gates leave.  It exits
+nonzero if any gate fails, and prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import json
 import math
@@ -81,8 +92,9 @@ TOL_LIBRARY = 1e-4   # a library's f32 attention, another sum order
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-# the peak of the inputs' type: the attention and SSD kernels compute in
-# f32 whatever their inputs, but a bound holds bf16 work to the bf16 rate
+# the peak of the inputs' type: a bound holds bf16 work to the bf16 rate,
+# whether the kernel runs it on the tensor cores (the bf16 GEMM and
+# attention) or in f32 (the SSD scan)
 PEAK = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
 
 # qwen2-7b's MLP products for the serving phase's 4 x 128 prefill tokens:
@@ -110,7 +122,8 @@ ATTN = (("qwen2_7b", 2048), ("gemma3_4b", 4096))      # (config, Sq = Sk)
 # ssd_scan.bracket: one f32 bound on y, then the plain version's roundings.
 SSD_BATCH, SSD_SEQ = 4, 4096
 SSD_F32 = (1e-3, 1e-4)
-HAND_KERNELS = ("decode_attention", "flash_attention", "ssd_scan")
+HAND_KERNELS = ("decode_attention", "flash_attention",
+                "flash_attention_sm90", "ssd_scan")
 # The compiled serving kernels (phase 11), one (batch, head) slice each,
 # at the schedules whose every stage traces at most 4096 statements:
 # (label, graph kind, dims, window / valid, pipeline).  grid{vars=N} maps
@@ -296,26 +309,35 @@ def attention_phase(dev, flush, smi):
         del q, kv
 
     # the path: one ops.attention call per case
-    fa.flash_attention.launches = 0
-    outs, counts = [], []
+    fa.flash_attention.launches = fa.flash_attention.wgmma_launches = 0
+    outs, counts, routes = [], [], []
     for cfg, seq, window, dtype, (q, k, v) in cases:
-        before = fa.flash_attention.launches
+        before = fa.flash_attention.wgmma_launches
+        base = fa.flash_attention.launches
         outs.append(ops.attention(q, k, v, causal=True, window=window,
                                   backend="cuda"))
-        counts.append(fa.flash_attention.launches - before)
+        counts.append(fa.flash_attention.launches - base)
+        routes.append("wgmma" if fa.flash_attention.wgmma_launches > before
+                      else "simt")
     torch.cuda.synchronize()
     total = fa.flash_attention.launches
+    wgmma = fa.flash_attention.wgmma_launches
+    bf16 = sum(c[3] == torch.bfloat16 for c in cases)
     print(f"[attention] flash_attention launches {total} = {len(cases)} "
-          f"ops.attention calls")
+          f"ops.attention calls, {wgmma} of them on the tensor-core kernel "
+          f"(flash_attention_sm90.cu) = the {bf16} bf16 calls")
     check(counts == [1] * len(cases) and total == len(cases),
           f"flash_attention launched {counts} per call, {total} in all")
+    check(wgmma == bf16 and routes == [
+        "wgmma" if c[3] == torch.bfloat16 else "simt" for c in cases],
+        f"flash_attention routes {routes}")
 
     rows = []
-    for (cfg, seq, window, dtype, (q, k, v)), got, count in zip(
-            cases, outs, counts):
+    for (cfg, seq, window, dtype, (q, k, v)), got, count, path in zip(
+            cases, outs, counts, routes):
         B, H, _, hd = q.shape
         name = (f"flash_attention {cfg.name} B={B} H={H} S={seq} hd={hd} "
-                f"causal window={window} {str(dtype)[6:]}")
+                f"causal window={window} {str(dtype)[6:]} [{path}]")
         kw = dict(causal=True, window=window)
         want = fa.flash_attention_plain(q, k, v, **kw)
         check(got.shape == want.shape and got.dtype == dtype,
@@ -350,8 +372,10 @@ def attention_phase(dev, flush, smi):
         print(line + f"; SDPA vs kernel {lib_err:.1e}")
         nbytes, flops = flash_work(q, k, True, window)
         bound, bound_by = roofline(nbytes, flops, PEAK[dtype])
+        source = ("flash_attention_sm90.cu" if path == "wgmma"
+                  else "flash_attention.cu")
         row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
                "replaces": "src/repro/kernels/flash_attention.py:34",
                "launches": count, "max_abs_err": err,
                "ms": time_ms(lambda: ops.attention(
@@ -364,8 +388,8 @@ def attention_phase(dev, flush, smi):
         print(f"[timing] {name}, cold L2: kernel {row['ms']:.3f} ms, bound "
               f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP of unmasked pairs; at the f32 "
-              f"CUDA-core rate the kernel computes in, "
-              f"{flops / F32_FLOP_PER_S * 1e3:.3f} ms), plain "
+              f"CUDA-core rate, {flops / F32_FLOP_PER_S * 1e3:.3f} ms; the "
+              f"tensor-core kernel's split P makes P V twice the work), plain "
               f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms; "
               f"card {smi}")
     return rows
@@ -731,83 +755,120 @@ def gemm_bound(plan, m, n, k):
     return roofline(nbytes, 2 * m * n * k, peak)
 
 
+def gemm_args(gemms, gen):
+    """Each variant's inputs: per product, A, B and the bias drawn from
+    N(0, 1) with ``gen`` and cast to each buffer's type."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    data = {prod: [torch.randn(s, generator=gen, device=gen.device)
+                   for s in ((m, k), (k, n), (n,))]
+            for prod, (m, n, k) in MLP.items()}
+    return [[x.to(dtypes[ck.run_cuda.plan.dtypes[b]]) for b, x in
+             zip(ck.run_cuda.plan.in_buffers, data[prod])]
+            for prod, _, ck in gemms]
+
+
+def gemm_gates(name, plan, a, got):
+    """Hold one emitted GEMM's result to gemm_plain on the same inputs:
+    the bound of its input type, the bracket of its roundings, the f32
+    bound for bf16 inputs with an f32 output, and no moved element where
+    a bf16 output can round only one way.  Returns (max_abs_err, the
+    line to print, the gates as (ok, what), the worst shares by name)."""
+    from repro_torch.core import backend_cuda
+    want = backend_cuda.gemm_plain(plan, *a)
+    lo, hi = backend_cuda.bracket(plan, *a)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype}")
+    got32, want32 = got.float(), want.float()
+    check(bool(torch.isfinite(got32).all()), f"{name}: non-finite")
+    diff = (got32 - want32).abs()
+    err = diff.max().item()
+    outside = ((got32 < lo) | (got32 > hi)).sum().item()
+    excess = torch.maximum(lo - got32, got32 - hi).max().item()
+    bf16_in = plan.dtypes[plan.matmul.lhs.buffer.name] == "bfloat16"
+    rtol, atol = GEMM_BF16 if bf16_in else GEMM_F32
+    shares = {"bound": (diff / (atol + rtol * want32.abs())).max().item()}
+    gates = [(shares["bound"] <= 1 and outside == 0,
+              f"{name}: off its bounds")]
+    line = (f"[gemm] {name}: max_abs_err {err:.3e} vs gemm_plain, worst "
+            f"element at {shares['bound']:.3g} of rtol {rtol:g} atol "
+            f"{atol:g}; {outside} elements outside the bracket of its "
+            f"roundings (worst excess {max(excess, 0.0):.3g})")
+    if plan.dtypes[plan.out_buffer] == "bfloat16":
+        exact = lo == hi
+        moved = (got32[exact] != want32[exact]).sum().item()
+        wide = torch.maximum(hi - want32, want32 - lo)
+        shares["bracket"] = torch.where(diff > 0, diff / wide,
+                                        0.0).max().item()
+        line += (f"; bf16 output: {1 - exact.float().mean().item():.3%} of "
+                 f"elements may round either way, {moved} of the others "
+                 f"differ, worst element at {shares['bracket']:.3g} of its "
+                 f"bracket")
+        gates.append((moved == 0, f"{name}: {moved} elements rounded "
+                                  f"elsewhere"))
+    elif bf16_in:
+        shares["f32"] = (diff / (GEMM_F32[1] + GEMM_F32[0] * want32.abs())
+                         ).max().item()
+        line += (f"; f32 output, so no bf16 rounding after the inputs: worst"
+                 f" element at {shares['f32']:.3g} of the f32 bound")
+        gates.append((shares["f32"] <= 1, f"{name}: off the f32 bound"))
+    return err, line, gates, shares
+
+
 def gemm_phase(gemms, dev, flush, smi):
     """Phase 8: drive the compiled-GEMM path with the launch count reset,
     then hold each result to its plain version and time it.  Returns the
     JSON rows."""
     from repro_torch.core import backend_cuda, compile_gemm, integrate
     from repro_torch.kernels import gemm
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device=dev).manual_seed(0)
-    data = {prod: [torch.randn(s, generator=gen, device=dev)
-                   for s in ((m, k), (k, n), (n,))]
-            for prod, (m, n, k) in MLP.items()}
-    args = [[x.to(dtypes[ck.run_cuda.plan.dtypes[b]]) for b, x in
-             zip(ck.run_cuda.plan.in_buffers, data[prod])]
-            for prod, _, ck in gemms]
+    args = gemm_args(gemms, gen)
     m, n, k = GEMM_OP
     x, y, w = (torch.randn(s, generator=gen, device=dev)
                for s in ((m, k), (k, n), (m, n)))
     xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
 
     # the path: every product once, then gemm_op forward and backward
-    gemm.cuda_gemm.launches = 0
-    outs, counts = [], []
+    gemm.cuda_gemm.launches = gemm.cuda_gemm.wgmma_launches = 0
+    outs, counts, routes = [], [], []
     for (_, _, ck), a in zip(gemms, args):
-        before = gemm.cuda_gemm.launches
+        before = (gemm.cuda_gemm.launches, gemm.cuda_gemm.wgmma_launches)
         outs.append(ck.run_cuda(*a))
-        counts.append(gemm.cuda_gemm.launches - before)
+        counts.append(gemm.cuda_gemm.launches - before[0])
+        routes.append("wgmma" if gemm.cuda_gemm.wgmma_launches > before[1]
+                      else "simt")
+    wgmma = gemm.cuda_gemm.wgmma_launches
     op = integrate.gemm_op(m, n, k, backend="cuda")
     (op(xg, yg) * w).sum().backward()
     torch.cuda.synchronize()
     total = gemm.cuda_gemm.launches
+    bf16 = [ck.run_cuda.plan.dtypes[ck.run_cuda.plan.matmul.lhs.buffer.name]
+            == "bfloat16" for _, _, ck in gemms]
     print(f"[gemm] cuda_gemm launches {total} = {len(gemms)} products + "
-          f"gemm_op {m}x{n}x{k} forward 1 and backward 2")
+          f"gemm_op {m}x{n}x{k} (f32) forward 1 and backward 2; "
+          f"wgmma_launches {gemm.cuda_gemm.wgmma_launches} = the "
+          f"{sum(bf16)} bf16 products")
     check(counts == [1] * len(gemms) and total == len(gemms) + 3,
           f"cuda_gemm launched {counts} per product, {total} in all")
+    check(routes == ["wgmma" if b else "simt" for b in bf16]
+          and wgmma == gemm.cuda_gemm.wgmma_launches == sum(bf16),
+          f"cuda_gemm routes {routes}, {gemm.cuda_gemm.wgmma_launches} "
+          f"wgmma launches")
 
     rows = []
-    for (prod, name, ck), a, got, count in zip(gemms, args, outs, counts):
+    for (prod, name, ck), a, got, count, path in zip(gemms, args, outs,
+                                                     counts, routes):
         plan = ck.run_cuda.plan
-        want = backend_cuda.gemm_plain(plan, *a)
-        lo, hi = backend_cuda.bracket(plan, *a)
-        check(got.shape == want.shape and got.dtype == want.dtype,
-              f"{name}: {tuple(got.shape)} {got.dtype}")
-        got32, want32 = got.float(), want.float()
-        check(bool(torch.isfinite(got32).all()), f"{name}: non-finite")
-        diff = (got32 - want32).abs()
-        err = diff.max().item()
-        outside = ((got32 < lo) | (got32 > hi)).sum().item()
-        bf16_in = plan.dtypes[plan.matmul.lhs.buffer.name] == "bfloat16"
-        rtol, atol = GEMM_BF16 if bf16_in else GEMM_F32
-        share = (diff / (atol + rtol * want32.abs())).max().item()
-        line = (f"[gemm] {name}: max_abs_err {err:.3e} vs gemm_plain, "
-                f"worst element at {share:.3g} of rtol {rtol:g} atol "
-                f"{atol:g}; {outside} elements outside the bracket of "
-                f"its roundings")
-        check(share <= 1 and outside == 0, f"{name}: off its bounds")
-        if plan.dtypes[plan.out_buffer] == "bfloat16":
-            exact = lo == hi
-            moved = (got32[exact] != want32[exact]).sum().item()
-            wide = torch.maximum(hi - want32, want32 - lo)
-            worst = torch.where(diff > 0, diff / wide, 0.0).max().item()
-            line += (f"; bf16 output: {1 - exact.float().mean().item():.3%}"
-                     f" of elements may round either way, {moved} of the "
-                     f"others differ, worst element at {worst:.3g} of its "
-                     f"bracket")
-            check(moved == 0, f"{name}: {moved} elements rounded elsewhere")
-        elif bf16_in:
-            f32 = (diff / (GEMM_F32[1] + GEMM_F32[0] * want32.abs())
-                   ).max().item()
-            line += (f"; f32 output, so no bf16 rounding after the inputs:"
-                     f" worst element at {f32:.3g} of the f32 bound")
-            check(f32 <= 1, f"{name}: off the f32 bound")
+        name = f"{name} [{path}]"
+        err, line, gates, _ = gemm_gates(name, plan, a, got)
         print(line)
-        del want, lo, hi, diff, got32, want32
+        for ok, what in gates:
+            check(ok, what)
         bound, bound_by = gemm_bound(plan, *MLP[prod])
         rows.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/stagecc_gemm.cuh",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "stagecc_gemm_sm90.cuh" if path == "wgmma"
+                else "stagecc_gemm.cuh"),
             "replaces": "src/repro/core/backend_pallas.py:229",
             "launches": count, "max_abs_err": err,
             "ms": time_ms(lambda: ck.run_cuda(*a), flush, iters=20),
@@ -835,7 +896,68 @@ def gemm_phase(gemms, dev, flush, smi):
     return rows
 
 
+def gemm_margin(gemms, dev, seeds: int) -> int:
+    """The bf16 products of phase 8 on the inputs of seeds 0..seeds-1:
+    each variant's gates per seed, then its worst share of each over the
+    seeds.  Returns the count of failed gates."""
+    from repro_torch.kernels import _build
+    bf16 = [(i, name, ck) for i, (_, name, ck) in enumerate(gemms)
+            if ck.run_cuda.plan.dtypes[
+                ck.run_cuda.plan.matmul.lhs.buffer.name] == "bfloat16"]
+    sources = sorted({ck.run_cuda.source for _, _, ck in bf16})
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.load_source, sources))
+    worst, failed = {}, 0
+    for seed in range(seeds):
+        args = gemm_args(gemms, torch.Generator(device=dev).manual_seed(seed))
+        for i, name, ck in bf16:
+            got = ck.run_cuda(*args[i])
+            _, line, gates, shares = gemm_gates(name, ck.run_cuda.plan,
+                                                args[i], got)
+            print(f"{line} [seed {seed}]")
+            failed += sum(not ok for ok, _ in gates)
+            for key, v in shares.items():
+                worst[name, key] = max(worst.get((name, key), 0.0), v)
+        del args
+        torch.cuda.empty_cache()
+    for (name, key), v in worst.items():
+        print(f"[margin] {name}: worst share of the {key} gate over seeds "
+              f"0..{seeds - 1}: {v!r}")
+    return failed
+
+
+def ptxas_rows(lib):
+    """(kernel, registers, spill stores, spill loads) of each tensor-core
+    kernel in ``lib``'s build log (``nvcc -Xptxas -v``)."""
+    import re
+    from repro_torch.kernels import _build
+    rows, name = [], None
+    for line in _build.ptxas_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            g = re.search(r"gemm_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                          m.group(1))
+            f = re.search(r"flash_sm90_kernelILi(\d+)E", m.group(1))
+            name = (f"gemm_wgmma_kernel tk={g[1]} kgrid={g[2]} "
+                    f"A {'MK'[g[3] == '0']}-major B {'NK'[g[4] == '0']}-major"
+                    if g else f"flash_sm90_kernel D<={f[1]}" if f else None)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if name and spill:
+            stores, loads = int(spill[1]), int(spill[2])
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and regs:
+            rows.append((name, int(regs[1]), stores, loads))
+            name = None
+    return rows
+
+
 def main() -> int:
+    cli = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    cli.add_argument("--gemm-seeds", type=int, default=0,
+                     help="run only the bf16 GEMM gates over this many "
+                          "seeds")
+    opts = cli.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -862,6 +984,10 @@ def main() -> int:
     # 2. compile the GEMMs and the graphs; build every kernel, one nvcc per
     # source at once
     gemms = compile_gemms(dev)
+    if opts.gemm_seeds:
+        failed = gemm_margin(gemms, dev, opts.gemm_seeds)
+        print(f"[margin] {failed} gates failed")
+        return 1 if failed else 0
     compiled = compile_graphs(dev)
     sources = sorted({ck.run_cuda.source for _, _, ck in gemms})
     general = [ck.run_cuda.source for *_, ck in compiled]
@@ -873,6 +999,24 @@ def main() -> int:
                  for src in sources + general]
         for job in jobs:
             job.result()
+    # the tensor-core kernels' resources, from the build's ptxas output
+    libs = [_build.library_path("flash_attention_sm90")]
+    libs += [_build.source_library(src) for src in sources
+             if "stagecc_gemm_sm90.cuh" in src]
+    smem = _build.load_source(next(src for src in sources if
+                                   "stagecc_gemm_sm90.cuh" in src)
+                              ).stagecc_gemm_wgmma_smem()
+    fa_smem = _build.load("flash_attention_sm90").flash_attention_sm90_smem
+    for lib in libs:
+        for name, regs, stores, loads in ptxas_rows(lib):
+            gemm_kernel = name.startswith("gemm")
+            dyn = smem if gemm_kernel else fa_smem(int(name.split("<=")[1]))
+            print(f"[resources] {lib.name} {name}: {regs} registers a "
+                  f"thread at launch, then by setmaxnreg "
+                  f"{'40' if gemm_kernel else '24'} for the producer and "
+                  f"{'232' if gemm_kernel else '240'} for the consumers; "
+                  f"{dyn} bytes of dynamic shared memory; spills "
+                  f"{stores}/{loads} bytes stored/loaded")
     print(f"[build] {', '.join(HAND_KERNELS)}, {len(sources)} emitted "
           f"GEMM sources and {len(general)} general-emitter sources, one "
           f"nvcc each, in parallel: {time.perf_counter() - t0:.1f}s")

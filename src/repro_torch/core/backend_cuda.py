@@ -323,6 +323,56 @@ def _promote(*dtypes: str) -> str:
     return "float32" if "float32" in dtypes else "bfloat16"
 
 
+def _plan_route(plan: _Plan) -> Optional[str]:
+    """Why the plan's source cannot hold the tensor-core (``wgmma``) kernel
+    of ``stagecc_gemm_sm90.cuh``, or None when it holds it: both operands
+    bf16 (the tensor cores' bf16 products are exact; f32 stays on the CUDA
+    cores, since TF32 would break the f32 bounds) and tk a multiple of 16
+    (one wgmma takes 16 of K, and tk fixes where the sums round)."""
+    for name in (plan.matmul.lhs.buffer.name, plan.matmul.rhs.buffer.name):
+        if plan.dtypes[name] != "bfloat16":
+            return f"operand {name} is {plan.dtypes[name]}, not bfloat16"
+    tk = plan.tiles[2]
+    if tk % 16:
+        return f"tk {tk} is not a multiple of 16"
+    return None
+
+
+def _operand_route(what: str, strides: Sequence[int], k_axis: int,
+                   ptr: int) -> Optional[str]:
+    """Why TMA cannot read a bf16 operand with these element strides
+    (``k_axis`` the index of K's), or None: one unit stride (along K, else
+    along M or N), the other a multiple of 16 bytes, a 16-byte-aligned
+    base.  The launcher takes the major from the same test."""
+    unit = k_axis if strides[k_axis] == 1 else 1 - k_axis
+    if strides[unit] != 1:
+        return f"{what} has no unit stride {tuple(strides)}"
+    if strides[1 - unit] <= 0 or strides[1 - unit] * 2 % 16:
+        return f"{what}'s stride {strides[1 - unit]} is not 16 bytes apart"
+    if ptr % 16:
+        return f"{what}'s base is not 16-byte aligned"
+    return None
+
+
+def _gemm_route(plan: _Plan, a_strides: Sequence[int],
+                b_strides: Sequence[int], a_ptr: int = 0,
+                b_ptr: int = 0) -> Tuple[str, str]:
+    """The emitted GEMM's kernel for operands A (M, K) and B (K, N) with
+    these element strides and data pointers: ``("wgmma", reason)`` for the
+    tensor-core template, ``("simt", reason)`` for the CUDA-core one.  A
+    pure function of its arguments, decided before the launch; both are
+    kernels of this repository, so this is a dispatch, not a fallback."""
+    why = (_plan_route(plan)
+           or _operand_route("A", a_strides, 1, a_ptr)
+           or _operand_route("B", b_strides, 0, b_ptr))
+    if why:
+        return "simt", why
+    majors = ("K" if a_strides[1] == 1 else "M",
+              "K" if b_strides[0] == 1 else "N")
+    return "wgmma", f"bf16, tk % 16 == 0, A {majors[0]}-major, " \
+                    f"B {majors[1]}-major"
+
+
 def _render(kernel: Kernel, plan: _Plan, index: Dict[str, str]) -> str:
     """The CUDA source of the plan's kernel.  It names no buffer and no
     problem size, so contractions with equal tiles, types and epilogue
@@ -370,10 +420,24 @@ def _render(kernel: Kernel, plan: _Plan, index: Dict[str, str]) -> str:
                 "each" if kgrid else "K inside the block, summed in f32")
     ta, tb = (_CTYPE[plan.dtypes[plan.matmul.lhs.buffer.name]],
               _CTYPE[plan.dtypes[plan.matmul.rhs.buffer.name]])
+    sm90 = _plan_route(plan) is None
+    signature = f"""(const void* a, const void* b, {params}void* out,
+    int m, int n, int k, long long sam, long long sak, long long sbk,
+    long long sbn, void* stream)"""
+    wgmma = "" if not sm90 else f"""
+// the tensor-core route (backend_cuda._gemm_route)
+extern "C" int stagecc_gemm_wgmma_launch{signature} {{
+  return stagecc::launch_wgmma<{tk}, {str(kgrid).lower()}, {_CTYPE[out_t]}>(
+      a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
+}}
+
+// the dynamic shared memory a tensor-core launch asks for, in bytes
+extern "C" int stagecc_gemm_wgmma_smem() {{ return stagecc::wg::kSmem; }}
+"""
     return f"""\
 // Emitted by repro_torch.core.backend_cuda from a scheduled contraction:
 // tiles {tm} x {tn} x {tk}, {schedule}.
-#include "stagecc_gemm.cuh"
+#include "{'stagecc_gemm_sm90.cuh' if sm90 else 'stagecc_gemm.cuh'}"
 
 namespace {{
 
@@ -387,14 +451,12 @@ struct Epilogue {{
 
 }}  // namespace
 
-extern "C" int stagecc_gemm_launch(const void* a, const void* b, {params}void* out,
-                                   int m, int n, int k, long long sam,
-                                   long long sak, long long sbk, long long sbn,
-                                   void* stream) {{
+// the CUDA-core route
+extern "C" int stagecc_gemm_launch{signature} {{
   return stagecc::launch<{tm}, {tn}, {tk}, {str(kgrid).lower()}, {ta}, {tb}, {_CTYPE[out_t]}>(
       a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
 }}
-"""
+{wgmma}"""
 
 
 def _emit_gemm(kernel: Kernel, device="cuda",
@@ -410,10 +472,9 @@ def _emit_gemm(kernel: Kernel, device="cuda",
     if m % tm or n % tn or kdim % tk or (m // tm) * (n // tn) >= 2 ** 31:
         raise EmitError(f"{kernel.name}: tiles {plan.tiles} do not fit "
                         f"({m}, {n}, {kdim})")
-    launcher = None         # the built kernel's entry, at the first launch
+    launchers = {}          # route -> the built kernel's entry, at first use
 
-    def fn(*inputs):
-        nonlocal launcher
+    def _args(inputs) -> Dict[str, torch.Tensor]:
         if len(inputs) != len(plan.in_buffers):
             raise ValueError(f"{kernel.name}: expected "
                              f"{len(plan.in_buffers)} inputs, got "
@@ -425,6 +486,15 @@ def _emit_gemm(kernel: Kernel, device="cuda",
             if tuple(t.shape) != shapes[name]:
                 raise ValueError(f"{kernel.name}: {name} has shape "
                                  f"{tuple(t.shape)}, expected {shapes[name]}")
+        return args
+
+    def _route(args) -> Tuple[str, str]:
+        a, b = args[lhs], args[rhs]
+        return _gemm_route(plan, a.stride(), b.stride(), a.data_ptr(),
+                           b.data_ptr())
+
+    def fn(*inputs):
+        args = _args(inputs)
         devices = {t.device for t in args.values()}
         if len(devices) != 1:
             raise ValueError(f"{kernel.name}: inputs on several devices: "
@@ -435,35 +505,46 @@ def _emit_gemm(kernel: Kernel, device="cuda",
             return gemm_plain(plan, args[lhs], args[rhs], *epi)
         if dev.type != "cuda":
             raise ValueError(f"{kernel.name}: runs on cuda or cpu, not {dev}")
-        if launcher is None:
-            launcher = _build.load_source(source).stagecc_gemm_launch
-            launcher.argtypes = ([ctypes.c_void_p] * (3 + len(epi))
-                                 + [ctypes.c_int] * 3
-                                 + [ctypes.c_longlong] * 4
-                                 + [ctypes.c_void_p])
-            launcher.restype = ctypes.c_int
         a, b = args[lhs], args[rhs]
+        route, why = _route(args)
+        if route not in launchers:
+            lib = _build.load_source(source)
+            launchers[route] = f = getattr(lib, _LAUNCHER[route])
+            f.argtypes = ([ctypes.c_void_p] * (3 + len(epi))
+                          + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4
+                          + [ctypes.c_void_p])
+            f.restype = ctypes.c_int
         out = torch.empty((m, n), dtype=_TORCH_DTYPE[plan.dtypes[
             plan.out_buffer]], device=dev)
         # A and B are read through their strides (the backward passes
         # transposed views); the small epilogue inputs are made contiguous
         epi = [t.contiguous() for t in epi]
         with torch.cuda.device(dev):
-            err = launcher(
+            err = launchers[route](
                 a.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in epi),
                 out.data_ptr(), m, n, kdim, *a.stride(), *b.stride(),
                 torch.cuda.current_stream(dev).cuda_stream)
         if err:
-            raise RuntimeError(f"{kernel.name}: CUDA GEMM launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"{kernel.name}: CUDA GEMM launch ({route}: "
+                               f"{why}) failed: error {err} (a cudaError, "
+                               f"or 1000 + a CUresult from the tensor maps)")
         from repro_torch.kernels import gemm
         gemm.cuda_gemm.launches += 1
+        if route == "wgmma":
+            gemm.cuda_gemm.wgmma_launches += 1
         return out
 
     fn.__name__ = f"stagecc_cuda_{kernel.name}"
     fn.plan = plan          # exposed for tests / resource introspection
     fn.source = source      # the CUDA text built at the first launch
+    # (route, reason) a launch on these inputs would take; launches nothing
+    fn.route = lambda *inputs: _route(_args(inputs))
     return fn
+
+
+# each route's entry point in an emitted source
+_LAUNCHER = {"simt": "stagecc_gemm_launch",
+             "wgmma": "stagecc_gemm_wgmma_launch"}
 
 
 def _apply_epilogue(plan: _Plan, acc: torch.Tensor,

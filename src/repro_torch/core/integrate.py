@@ -26,11 +26,12 @@ BACKENDS = ("torch", "cuda")
 
 
 @functools.lru_cache(maxsize=64)
-def _compiled(m: int, n: int, k: int, schedule: str, backend: str):
+def _compiled(m: int, n: int, k: int, schedule: str, backend: str,
+              dtype: str = "float32"):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from "
                          f"{BACKENDS}")
-    ck = compile_gemm(m, n, k, schedule=schedule,
+    ck = compile_gemm(m, n, k, schedule=schedule, dtype=dtype,
                       want_torch=(backend == "torch"),
                       want_cuda=(backend == "cuda"))
     if backend == "torch":
@@ -41,12 +42,20 @@ def _compiled(m: int, n: int, k: int, schedule: str, backend: str):
     return ck.run_cuda
 
 
+def _dtype(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The plan's operand type for these operands: bf16 when both are bf16
+    (their products are exact in the f32 sum, so the arithmetic is that of
+    the f32 plan on the widened operands), else f32."""
+    bf16 = a.dtype == b.dtype == torch.bfloat16
+    return "bfloat16" if bf16 else "float32"
+
+
 class _GemmFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, m, n, k, schedule, backend):
         ctx.save_for_backward(a, b)
         ctx.key = (m, n, k, schedule, backend)
-        return _compiled(m, n, k, schedule, backend)(a, b)
+        return _compiled(m, n, k, schedule, backend, _dtype(a, b))(a, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -54,8 +63,9 @@ class _GemmFn(torch.autograd.Function):
         m, n, k, schedule, backend = ctx.key
         # the gradients are stagecc-compiled GEMMs too; the transposes are
         # views, which the kernel reads through their strides
-        da = _compiled(m, k, n, schedule, backend)(g.to(a.dtype), b.t())
-        db = _compiled(k, n, m, schedule, backend)(a.t(), g.to(b.dtype))
+        ga, gb = g.to(a.dtype), g.to(b.dtype)
+        da = _compiled(m, k, n, schedule, backend, _dtype(ga, b))(ga, b.t())
+        db = _compiled(k, n, m, schedule, backend, _dtype(a, gb))(a.t(), gb)
         return da.to(a.dtype), db.to(b.dtype), None, None, None, None, None
 
 
@@ -64,7 +74,10 @@ def gemm_op(m: int, n: int, k: int, schedule: str = "tpu_mxu",
     """Differentiable (m,k)x(k,n) GEMM generated by the stagecc pipeline.
 
     backend: "torch" (the eager interpreter, runs anywhere) | "cuda" (the
-    emitted CUDA kernel; its plain version on CPU tensors).
+    emitted CUDA kernel; its plain version on CPU tensors).  Each product
+    is compiled for its operands' type (bf16 when both are bf16, else f32);
+    the products have an f32 output, and the gradients are cast back to
+    each operand's type.
     """
     _compiled(m, n, k, schedule, backend)       # refuse a bad pair early
 

@@ -5,7 +5,11 @@ Hopper (``sm_90a``) by ``nvcc`` into ``build/lib<name>-<hash>.so`` beside
 ``csrc/`` (the hash is of the source, so an edited source rebuilds) and
 loaded with ``ctypes``.  Source text that the compiler generates (the
 emitted GEMMs of ``core/backend_cuda.py``) is built the same way by
-``load_source``.  Nothing is built at import: the first launch builds.
+``load_source``.  Both keys also hash the ``csrc/*.cuh`` headers, so an
+edited header rebuilds.  ``nvcc`` runs with ``-Xptxas -v``; what it prints
+(each kernel's registers, shared memory and spills) is kept beside the
+library as ``<library>.ptxas.txt`` (``ptxas_log``).  Nothing is built at
+import: the first launch builds.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = CSRC.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-I{CSRC}")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -36,8 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    digest = _source_digest((CSRC / f"{name}.cu").read_text())
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def ptxas_log(lib: pathlib.Path) -> str:
+    """What ``nvcc -Xptxas -v`` printed when ``lib`` was built."""
+    return lib.with_suffix(".ptxas.txt").read_text()
 
 
 def _compile(src: pathlib.Path, lib: pathlib.Path) -> None:
@@ -51,6 +61,7 @@ def _compile(src: pathlib.Path, lib: pathlib.Path) -> None:
     if proc.returncode:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}")
+    lib.with_suffix(".ptxas.txt").write_text(proc.stdout)
     os.replace(tmp, lib)                # atomic: never a half-written .so
 
 
@@ -68,12 +79,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _source_digest(text: str) -> str:
-    """Key of a generated source: its text and the ``csrc/*.cuh`` headers
-    it may include, so an edited header rebuilds too."""
+    """Key of a source: its text and the ``csrc/*.cuh`` headers it may
+    include, so an edited header rebuilds too."""
     h = hashlib.sha256(text.encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return h.hexdigest()[:12]
+
+
+def source_library(text: str) -> pathlib.Path:
+    """Where ``load_source`` builds the library of ``text``."""
+    return BUILD / f"libgen-{_source_digest(text)}.so"
 
 
 def load_source(text: str) -> ctypes.CDLL:
@@ -81,10 +97,10 @@ def load_source(text: str) -> ctypes.CDLL:
     ``_source_digest``: written to ``build/gen-<digest>.cu``, compiled by
     one synchronous nvcc unless built already, and loaded once per
     process.  Raises with the compiler's output if the build fails."""
-    key = f"gen-{_source_digest(text)}"
+    lib = source_library(text)
+    key = lib.stem[3:]
     if key in _LOADED:
         return _LOADED[key]
-    lib = BUILD / f"lib{key}.so"
     if not lib.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         src = BUILD / f"{key}.cu"

@@ -10,7 +10,16 @@
 // acc / max(l, 1e-30) in the input type.
 //
 // Arithmetic: IEEE f32 on the CUDA cores, products and statistics alike
-// (bf16 inputs are widened on load).  No TF32, no tensor cores.
+// (bf16 inputs are widened on load).  No TF32, no tensor cores.  This file
+// takes f32 at every head dim and bf16 where flash_attention_sm90.cu (the
+// tensor-core kernel) does not: a head dim that is not a multiple of 16,
+// or above 256.
+//
+// Head dims above 256: Q, K and V tiles of the whole width would not fit
+// in shared memory, so the launcher runs the output in column slices of
+// at most 256 (kSliced): each block computes S over all of D, 256 columns
+// of Q and K at a time, and accumulates only its slice of V and the
+// output.  Each slice redoes S; its sums are those of the unsliced kernel.
 //
 // What bounds it: at qwen2-7b's widths (Sq = Sk = 2048, D = 128, causal)
 // the function does 120 GFLOP on 470 MB, ~250 flops per byte of HBM, far
@@ -98,39 +107,50 @@ __device__ __forceinline__ bool allowed(long long qpos, long long kpos,
          (!mk.has_window || kpos > qpos - mk.window);
 }
 
-// Copy `rows` rows of d elements from src (row stride d) to dst (row
+// Copy `rows` rows of d elements from src (row stride sld) to dst (row
 // stride ld, d rounded up to 4), zero past `valid` rows and past d.
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int rows, int valid, int d,
+                                          int sld, int rows, int valid, int d,
                                           int d4) {
   for (int e = threadIdx.x; e < rows * d4; e += kThreads) {
     const int r = e / d4, c = e - r * d4;
     dst[r * ld + c] =
-        (r < valid && c < d) ? to_f32(src[(long long)r * d + c]) : 0.f;
+        (r < valid && c < d) ? to_f32(src[(long long)r * sld + c]) : 0.f;
   }
 }
 
-template <typename T, int kDMax>
+// kSliced: the head dim d may exceed kDMax.  Q and K rows have stride
+// ld_arg (= d); the block computes S over all of d, kDMax columns at a
+// time, Q's chunk loaded again for each key tile, and P V over the dv_arg
+// (at most kDMax) columns of V and the output that `v` and `out` point at
+// (row stride ld_arg).  Without it, ld = dv = d and Q stays in shared
+// memory for the whole key loop.
+template <typename T, int kDMax, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int sq, int sk, int d, float scale, Mask mk) {
+                           int sq, int sk, int d, int ld_arg, int dv_arg,
+                           float scale, Mask mk) {
   constexpr int kG = kDMax / 64;  // float4 column groups per thread
   extern __shared__ float4 smem4[];
-  const int d4 = (d + 3) / 4 * 4;
+  const int ld = kSliced ? ld_arg : d;     // row stride of q, k, v, out
+  const int dv = kSliced ? dv_arg : d;     // columns of V and out
+  const int d4 = kSliced ? kDMax : (d + 3) / 4 * 4;  // Q / K columns held
+  const int dv4 = (dv + 3) / 4 * 4;
   const int dp = d4 + 4;  // padded row stride of Q and K
   float* q_s = reinterpret_cast<float*>(smem4);  // [kBQ][dp]
   float* k_s = q_s + kBQ * dp;                   // [kBK][dp]
-  float* v_s = k_s + kBK * dp;                   // [kBK][d4]
-  float* p_s = v_s + kBK * d4;                   // [kBQ][kBK + 1]
+  float* v_s = k_s + kBK * dp;                   // [kBK][dv4]
+  float* p_s = v_s + kBK * dv4;                  // [kBQ][kBK + 1]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
-  load_tile(q_s, dp, q + (bh * sq + q0) * d, kBQ, sq - q0, d, d4);
+  const T* qb = q + (bh * sq + q0) * ld;
+  const T* kb = k + bh * sk * ld;
+  const T* vb = v + bh * sk * ld;
+  if (!kSliced) load_tile(q_s, dp, qb, ld, kBQ, sq - q0, d, d4);
 
   // The key tiles to walk: all of them if a row of the block is masked
   // everywhere, else those meeting [lo of the first row, hi of the last]
@@ -162,30 +182,47 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the last tile's K, V and P are no longer read
-    load_tile(k_s, dp, kb + (long long)k0 * d, kBK, sk - k0, d, d4);
-    load_tile(v_s, d4, vb + (long long)k0 * d, kBK, sk - k0, d, d4);
+    if (!kSliced)
+      load_tile(k_s, dp, kb + (long long)k0 * ld, ld, kBK, sk - k0, d, d4);
+    load_tile(v_s, dv4, vb + (long long)k0 * ld, ld, kBK, sk - k0, dv, dv4);
     __syncthreads();
 
-    // (1) scores of rows ty + 16i, keys tx + 16j
+    // (1) scores of rows ty + 16i, keys tx + 16j, over the w4 columns
+    // of Q and K held
     float s[4][2] = {};
-    for (int c = 0; c < d4; c += 4) {
-      float4 kv[2];
+    auto scores = [&](int w4) {
+      for (int c = 0; c < w4; c += 4) {
+        float4 kv[2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * dp +
-                                                 c);
+        for (int j = 0; j < 2; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * dp +
+                                                   c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * dp + c);
+        for (int i = 0; i < 4; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * dp + c);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+          for (int j = 0; j < 2; ++j) {
+            s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+          }
         }
       }
+    };
+    if constexpr (kSliced) {
+      for (int c0 = 0; c0 < d; c0 += d4) {
+        const int w = min(d4, d - c0), w4 = (w + 3) / 4 * 4;
+        __syncthreads();  // the last chunk's Q and K are no longer read
+        load_tile(q_s, dp, qb + c0, ld, kBQ, sq - q0, w, w4);
+        load_tile(k_s, dp, kb + (long long)k0 * ld + c0, ld, kBK, sk - k0, w,
+                  w4);
+        __syncthreads();
+        scores(w4);
+      }
+    } else {
+      scores(d4);
     }
 
     // (2) mask and the online-softmax update
@@ -226,9 +263,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         const int col = 4 * tx + 64 * g;
-        if (col < d4) {
+        if (col < dv4) {
           const float4 vv =
-              *reinterpret_cast<const float4*>(v_s + j * d4 + col);
+              *reinterpret_cast<const float4*>(v_s + j * dv4 + col);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             pv[i][4 * g + 0] = fmaf(p[i], vv.x, pv[i][4 * g + 0]);
@@ -246,7 +283,7 @@ __global__ void __launch_bounds__(kThreads)
         acc[i][c] = acc[i][c] * corr[i] + pv[i][c];
   }
 
-  T* ob = out + (bh * sq + q0) * d;
+  T* ob = out + (bh * sq + q0) * ld;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -257,21 +294,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 4 * tx + 64 * g + e;
-        if (col < d)
-          store(ob + (long long)r * d + col, acc[i][4 * g + e] / denom);
+        if (col < dv)
+          store(ob + (long long)r * ld + col, acc[i][4 * g + e] / denom);
       }
   }
 }
 
-template <typename T, int kDMax>
+// One launch per slice of at most 65535 heads; with kSliced, one per
+// slice of heads and of at most kDMax output columns.
+template <typename T, int kDMax, bool kSliced = false>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int d, float scale, Mask mk, cudaStream_t stream) {
-  const int d4 = (d + 3) / 4 * 4;
+  const int d4 = kSliced ? kDMax : (d + 3) / 4 * 4;
   const size_t smem =
       sizeof(float) * ((kBQ + kBK) * (d4 + 4) + kBK * d4 + kBQ * (kBK + 1));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, kDMax>,
+        flash_attention_kernel<T, kDMax, kSliced>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -279,12 +318,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
     const int n = bh - b0 < kMaxGridY ? bh - b0 : kMaxGridY;
     const dim3 grid((sq + kBQ - 1) / kBQ, n);
     const long long oq = (long long)b0 * sq * d, ok = (long long)b0 * sk * d;
-    flash_attention_kernel<T, kDMax><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q) + oq, static_cast<const T*>(k) + ok,
-        static_cast<const T*>(v) + ok, static_cast<T*>(out) + oq, sq, sk, d,
-        scale, mk);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    for (int c0 = 0; c0 < d; c0 += kSliced ? kDMax : d) {
+      const int dv = d - c0 < kDMax ? d - c0 : kDMax;
+      flash_attention_kernel<T, kDMax, kSliced>
+          <<<grid, kThreads, smem, stream>>>(
+              static_cast<const T*>(q) + oq, static_cast<const T*>(k) + ok,
+              static_cast<const T*>(v) + ok + c0,
+              static_cast<T*>(out) + oq + c0, sq, sk, d, d, dv, scale, mk);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return 0;
 }
@@ -299,7 +342,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int bh,
     return launch<T, 128>(q, k, v, out, bh, sq, sk, d, scale, mk, stream);
   if (d <= 256)
     return launch<T, 256>(q, k, v, out, bh, sq, sk, d, scale, mk, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch<T, 256, true>(q, k, v, out, bh, sq, sk, d, scale, mk, stream);
 }
 
 }  // namespace

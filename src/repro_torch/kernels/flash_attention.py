@@ -6,8 +6,12 @@ dtype, with the softmax statistics in f32.  Causal and local-window masks
 place query row i at position i + (Sk - Sq); masked logits are -1e30, not
 -inf, so a row that is masked everywhere returns the mean of V.
 
-On a CUDA tensor ``flash_attention`` launches the hand-written kernel in
-``csrc/flash_attention.cu`` (built at first use); on a CPU tensor it runs
+On a CUDA tensor ``flash_attention`` launches one of two hand-written
+kernels (built at first use), as ``route`` decides: bf16 with a head dim
+that is a multiple of 16 up to 256 goes to the tensor-core kernel in
+``csrc/flash_attention_sm90.cu`` (``wgmma`` fed by TMA), everything else
+to ``csrc/flash_attention.cu`` (f32 on the CUDA cores; head dims above 256
+in column slices of the output).  On a CPU tensor it runs
 ``flash_attention_plain``, the plain PyTorch version of the same function.
 """
 
@@ -21,21 +25,38 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256      # the kernel keeps a 64-row query tile in shared memory
-_LIB = None
+_LIBS = {}
 
 
-def _kernel():
-    global _LIB
-    if _LIB is None:
-        fn = _build.load("flash_attention").flash_attention_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 6
+def _kernel(route: str):
+    """The launcher of ``route``'s kernel, built at first use."""
+    if route not in _LIBS:
+        if route == "wgmma":
+            fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
+            head = []
+        else:
+            fn = _build.load("flash_attention").flash_attention_launch
+            head = [ctypes.c_int]
+        fn.argtypes = (head + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _LIB = fn
-    return _LIB
+        _LIBS[route] = fn
+    return _LIBS[route]
+
+
+def route(dtype: torch.dtype, d: int, *ptrs: int):
+    """The kernel for inputs of ``dtype`` and head dim ``d`` at data
+    pointers ``ptrs``: ``("wgmma", reason)`` for the tensor-core kernel
+    (bf16, ``d`` a multiple of 16 up to 256, 16-byte-aligned data, as TMA
+    and the kernel's register tiles need), else ``("simt", reason)``."""
+    if dtype != torch.bfloat16:
+        return "simt", f"{dtype} is not bfloat16"
+    if d % 16 or d > 256:
+        return "simt", f"head dim {d} is not a multiple of 16 up to 256"
+    if any(p % 16 for p in ptrs):
+        return "simt", "data not 16-byte aligned"
+    return "wgmma", "bfloat16, head dim a multiple of 16 up to 256"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -45,8 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (BH, Sq, D); k, v: (BH, Sk, D) -> (BH, Sq, D).
 
     ``block_q`` / ``block_k`` are the reference's tiles and must divide
-    the lengths, as there.  The CUDA kernel picks its own tile (64 query
-    rows by 32 keys), and the result does not depend on them."""
+    the lengths, as there.  The CUDA kernels pick their own tiles (64
+    query rows by 32 keys; 128 by 64 on the tensor cores), and the result
+    does not depend on them."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or (
             k.shape[0], k.shape[2]) != (q.shape[0], q.shape[2]):
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -72,25 +94,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one dtype of {list(_DTYPES)}; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q/k/v must be contiguous")
     out = torch.empty_like(q)
+    path, why = route(q.dtype, d, *(t.data_ptr() for t in (q, k, v, out)))
+    head = [] if path == "wgmma" else [_DTYPES[q.dtype]]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = _kernel()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), out.data_ptr(), bh, sq, sk, d,
-                        int(causal), int(window is not None),
-                        int(window or 0), scale, stream)
+        err = _kernel(path)(*head, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), bh, sq, sk, d, int(causal),
+                            int(window is not None), int(window or 0), scale,
+                            stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel ({path}: {why}) launch "
+                           f"failed: error {err} (a cudaError, or 1000 + a "
+                           f"CUresult from the tensor maps)")
     flash_attention.launches += 1
+    if path == "wgmma":
+        flash_attention.wgmma_launches += 1
     return out
 
 
 flash_attention.launches = 0     # kernel launches (CUDA tensors only)
+flash_attention.wgmma_launches = 0   # of those, on the tensor-core kernel
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):

@@ -12,7 +12,9 @@ sits on the hot path.  Both block schedules exist:
 
 ``cuda_gemm.launches`` counts the launches of every emitted GEMM kernel,
 whichever entry point (``cuda_gemm``, ``CompiledKernel.run_cuda``,
-``integrate.gemm_op``) made them.
+``integrate.gemm_op``) made them; ``cuda_gemm.wgmma_launches`` those of
+them on the tensor-core route (``backend_cuda._gemm_route``: bf16
+operands, tk a multiple of 16, operands TMA can read).
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ def cuda_gemm(a: torch.Tensor, b: torch.Tensor, *,
 
 
 cuda_gemm.launches = 0      # emitted-GEMM kernel launches (CUDA tensors)
+cuda_gemm.wgmma_launches = 0    # of those, on the tensor-core route
 
 
 def gemm_cost(m: int, n: int, k: int, schedule: str = "tpu_mxu_kgrid",

@@ -133,6 +133,7 @@ def test_engine_serves_past_one_tile(cuda):
 # have an f32 output (TensorIR's matmul accumulates in f32), so after the
 # bf16 inputs nothing rounds coarser than f32 and the same bound holds.
 GEMM_RTOL, GEMM_ATOL = 1e-4, 1e-3
+GEMM_BF16 = (5e-2, 5e-1)        # and its bf16 bound (rtol, atol)
 
 
 def _gemm_inputs(dev, m, n, k, epilogue, seed=0):
@@ -348,9 +349,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
                            v)
+    # a head dim above 256 is no longer refused: it runs in column slices
     wide = _qkv(cuda, torch.float32, 1, 32, 32, 264)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(*wide)
+    torch.testing.assert_close(fa.flash_attention(*wide),
+                               fa.flash_attention_plain(*wide),
+                               rtol=0, atol=TOL)
 
 
 def test_ops_attention_one_launch(cuda):
@@ -365,6 +368,215 @@ def test_ops_attention_one_launch(cuda):
     want = ops.attention(q, k, v, window=24, backend="torch")
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= TOL
+
+
+# ---- the tensor-core (wgmma) routes -------------------------------------------
+
+
+def _bf16_gemm(schedule, epilogue, tk, m=256, n=384, k=640, tm=128, tn=128):
+    return compile_gemm(m, n, k, schedule=schedule, dtype="bfloat16",
+                        epilogue=epilogue, tile={"m": tm, "n": tn, "k": tk},
+                        want_torch=False).run_cuda
+
+
+def _check_wgmma(fn, xs, exact=False):
+    """_check_gemm, and the launch went down the tensor-core route."""
+    before = gemm.cuda_gemm.wgmma_launches
+    got = _check_gemm(fn, xs, exact)
+    assert fn.route(*xs)[0] == "wgmma"
+    assert gemm.cuda_gemm.wgmma_launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("tk", [16, 64, 128])
+@pytest.mark.parametrize("epilogue", ["none", "bias_relu"])
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_wgmma_gemm_matches_plain(cuda, schedule, epilogue, tk):
+    """bf16 operands, tk 16 / 64 / 128: the tensor-core kernel inside the
+    bracket of the plan's roundings and within the f32 bound of
+    gemm_plain."""
+    fn = _bf16_gemm(schedule, epilogue, tk)
+    _check_wgmma(fn, _gemm_inputs(cuda, 256, 384, 640, epilogue, seed=tk))
+
+
+@pytest.mark.parametrize("tk,k", [(48, 480), (112, 448), (256, 1024),
+                                  (512, 1024)])
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_wgmma_gemm_k_tiles_across_stages(cuda, schedule, tk, k):
+    """k tiles that end inside a 64-wide ring stage (48, 112) or span
+    several stages (256, 512): part starts afresh at every tile's first
+    k16 step wherever it falls."""
+    fn = _bf16_gemm(schedule, "none", tk, m=256, n=384, k=k)
+    _check_wgmma(fn, _gemm_inputs(cuda, 256, 384, k, "none", seed=tk))
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_wgmma_gemm_ragged_edges(cuda, schedule):
+    """131 x 200 outputs (tiles 131 x 200 x 64): the kernel's 128 x 128
+    blocks overhang M and N; TMA fills the overhang with zeros and the
+    epilogue stores none of it."""
+    fn = _bf16_gemm(schedule, "bias_relu", 64, m=131, n=200, k=256, tm=131,
+                    tn=200)
+    _check_wgmma(fn, _gemm_inputs(cuda, 131, 200, 256, "bias_relu", seed=5))
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_wgmma_gemm_reads_transposed_views(cuda, schedule):
+    """A and B K-major or MN-major (transposed views, read through the
+    transpose bits): every combination gives the same bits."""
+    fn = _bf16_gemm(schedule, "none", 64, m=192, n=320, k=256)
+    rng = np.random.default_rng(3)
+    at, bt = (torch.from_numpy(rng.standard_normal(s)).to(
+        cuda, torch.bfloat16).t() for s in ((256, 192), (320, 256)))
+    a, b = at.contiguous(), bt.contiguous()
+    want = fn(a, b)
+    for x, y in ((at, bt), (at, b), (a, bt)):
+        got = _check_wgmma(fn, [x, y])
+        assert torch.equal(got, want.float())
+
+
+@pytest.mark.parametrize("epilogue", ["none", "bias_relu"])
+def test_wgmma_gemm_bf16_output(cuda, epilogue):
+    """A matmul that accumulates in bf16 on the tensor cores: each k tile's
+    f32 sum rounded to bf16 and added to the bf16 running sum, equal to
+    gemm_plain wherever only one value can be."""
+    m, n, k = 128, 256, 1024
+
+    def f(a, b, *bias):
+        y = a._emit("matmul", [b], acc_dtype="bfloat16")
+        return fe.relu(y + bias[0]) if bias else y
+    specs = [fe.spec((m, k), "bfloat16"), fe.spec((k, n), "bfloat16")]
+    specs += [fe.spec((n,), "float32")] if epilogue == "bias_relu" else []
+    ck = compile_traced(fe.trace(f, specs, name="g"),
+                        schedule="tpu_mxu_kgrid",
+                        tile={"m": 128, "n": 128, "k": 64}, want_torch=False)
+    _check_wgmma(ck.run_cuda, _gemm_inputs(cuda, m, n, k, epilogue, seed=8),
+                 exact=True)
+
+
+@pytest.mark.parametrize("case", ["f32", "tk1", "unaligned", "stride"])
+def test_gemm_route_stays_simt(cuda, case):
+    """f32 operands, tk = 1 (a prime K), an operand at an odd address and
+    one whose row stride is not 16 bytes run the CUDA-core kernel, and it
+    matches the plain version."""
+    rng = np.random.default_rng(4)
+    if case == "f32":
+        fn = compile_gemm(128, 128, 128, want_torch=False).run_cuda
+        xs = _gemm_inputs(cuda, 128, 128, 128, "none")
+    elif case == "tk1":
+        fn = gemm._build(64, 96, 131, "tpu_mxu_kgrid", "bfloat16", 64, 96,
+                         1).run_cuda
+        xs = [x.bfloat16() for x in _gemm_inputs(cuda, 64, 96, 131, "none")]
+    else:
+        fn = _bf16_gemm("tpu_mxu", "none", 64, m=64, n=128, k=128)
+        wide = torch.from_numpy(rng.standard_normal((64, 129 if case ==
+                                                     "stride" else 136)))
+        wide = wide.to(cuda, torch.bfloat16)
+        a = wide[:, 1:129] if case == "unaligned" else wide[:, :128]
+        xs = [a, torch.from_numpy(rng.standard_normal((128, 128))).to(
+            cuda, torch.bfloat16)]
+    before = gemm.cuda_gemm.wgmma_launches
+    _check_gemm(fn, xs)
+    assert fn.route(*xs)[0] == "simt"
+    assert gemm.cuda_gemm.wgmma_launches == before
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_gemm_op_bf16_on_the_tensor_cores(cuda, schedule):
+    """gemm_op in bf16: forward and backward are three tensor-core
+    launches (the backward reads b.t() K-major and a.t() M-major); the
+    gradients match autograd through the plain version within
+    tests/test_kernels.py's bf16 bound."""
+    m, n, k = 128, 192, 256
+    a, b = (x.bfloat16() for x in _gemm_inputs(cuda, m, n, k, "none",
+                                               seed=9))
+    w = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (m, n))).to(cuda, torch.float32)
+    op = integrate.gemm_op(m, n, k, schedule=schedule, backend="cuda")
+    plan = compile_gemm(m, n, k, schedule=schedule,
+                        dtype="bfloat16").run_cuda.plan
+    grads = []
+    for fn in (op, lambda x, y: backend_cuda.gemm_plain(plan, x, y)):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        before = (gemm.cuda_gemm.launches, gemm.cuda_gemm.wgmma_launches)
+        (fn(x, y) * w).sum().backward()
+        grads.append((x.grad, y.grad,
+                      gemm.cuda_gemm.launches - before[0],
+                      gemm.cuda_gemm.wgmma_launches - before[1]))
+    (ga, gb, *n_op), (pa, pb, *n_plain) = grads
+    assert (n_op, n_plain) == ([3, 3], [0, 0])
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    rtol, atol = GEMM_BF16
+    torch.testing.assert_close(ga.float(), pa.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(gb.float(), pb.float(), rtol=rtol, atol=atol)
+
+
+def _flash_bf16(cuda, bh, sq, sk, d, causal, window, seed=0, path="wgmma"):
+    """One bf16 flash_attention call against the plain version at the
+    smoke's two gates; asserts which kernel ran."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, torch.bfloat16, bh, sq, sk, d, seed=seed)
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention.launches, fa.flash_attention.wgmma_launches)
+    got = fa.flash_attention(q, k, v, block_q=sq, block_k=sk, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.wgmma_launches - before[1]) == (
+        1, int(path == "wgmma"))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= TOL_BF16
+    want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert ((got.float() - want32).abs()
+            <= BF16_ROUND * want32.abs() + TOL).all()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, None)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_wgmma_flash_matches_plain(cuda, d, causal, window):
+    """The tensor-core kernel at head dims 64, 128 and 256, Sq != Sk (a
+    ragged last query tile of 192 rows against 320 keys)."""
+    _flash_bf16(cuda, 3, 192, 320, d, causal, window, seed=d)
+
+
+@pytest.mark.parametrize("shape,causal,window,path", [
+    ((2, 128, 64, 64), True, None, "wgmma"),    # rows masked everywhere
+    ((2, 64, 64, 64), True, 0, "wgmma"),        # every row masked
+    ((2, 128, 128, 80), True, None, "wgmma"),   # zero-filled to 128 columns
+    ((2, 128, 128, 72), True, None, "simt"),    # not a multiple of 16
+    ((2, 100, 70, 16), True, 24, "wgmma"),      # ragged, no divisible tiles
+])
+def test_wgmma_flash_edges(cuda, shape, causal, window, path):
+    _flash_bf16(cuda, *shape, causal, window, seed=sum(shape), path=path)
+
+
+def test_wgmma_flash_at_65536_heads(cuda):
+    """BH = 65536 on the tensor-core kernel, past the 65535 blocks of a
+    grid's second axis."""
+    _flash_bf16(cuda, 65536, 64, 64, 32, True, None, seed=11)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 512])
+def test_flash_head_dims_above_256(cuda, dtype, d):
+    """Head dims above 256 run flash_attention.cu in column slices of the
+    output, each computing S over all of D."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, dtype, 2, 128, 192, d, seed=d)
+    before = (fa.flash_attention.launches, fa.flash_attention.wgmma_launches)
+    got = fa.flash_attention(q, k, v, causal=True, window=100, block_k=64)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.wgmma_launches - before[1]) == (1, 0)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=100)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:     # and _flash_bf16's gate in f32
+        want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          causal=True, window=100)
+        assert ((got.float() - want32).abs()
+                <= BF16_ROUND * want32.abs() + TOL).all()
 
 
 # ---- SSD scan ----------------------------------------------------------------
