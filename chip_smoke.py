@@ -10,10 +10,11 @@ Phases, each printing its own lines; any failure exits nonzero:
   2. compile qwen2-7b's MLP products (repro_torch.core.compile_gemm) and
      the four serving-kernel graphs of phase 11 through the compiler stack,
      then build every CUDA kernel, one nvcc per source, all at once:
-     decode_attention, flash_attention, flash_attention_sm90 and ssd_scan
-     from src/repro_torch/kernels/csrc/, the emitted GEMMs and the general
-     emitter's four sources; print the tensor-core kernels' registers,
-     shared memory and spills (ptxas);
+     decode_attention, flash_attention, flash_attention_sm90,
+     flash_attention_ffma and ssd_scan from src/repro_torch/kernels/csrc/,
+     the emitted GEMMs and the general emitter's four sources; print the
+     tensor-core and register-tiled (ffma) kernels' registers, shared
+     memory and spills (ptxas);
   3. decode_attention against its plain PyTorch version at the serving
      path's shapes, in float32 and bfloat16;
   4. serve qwen2-7b at full width (random weights from a seed) through
@@ -25,13 +26,19 @@ Phases, each printing its own lines; any failure exits nonzero:
      version's time and one PyTorch library call's time;
   8. the compiled-GEMM path: the MLP products through the emitted kernels
      and a gemm_op forward and backward, counting the launches and those on
-     the tensor-core route (every bf16 product); each against its plain
-     version and the bracket of its roundings, then timed like phase 7;
+     the tensor-core route (every bf16 product) and the register-tiled
+     CUDA-core route (every f32 product and gemm_op's three); then, with
+     the counts reset, one f32 product on operands that start 4 bytes past
+     a 16-byte boundary, which only the plain CUDA-core route (simt,
+     stagecc_gemm.cuh) reads; each against its plain version and the
+     bracket of its roundings, then timed like phase 7;
   9. blocked attention through repro_torch.kernels.ops.attention (backend
-     "cuda": flash_attention_sm90 for bf16, flash_attention for f32) at
+     "cuda": flash_attention_sm90 for bf16, flash_attention_ffma for f32) at
      qwen2-7b's widths (causal) and gemma3-4b's (causal, local window
-     1024), f32 and bf16, counting the launches per kernel; each against
-     its plain version and SDPA, then timed;
+     1024), f32 and bf16, counting the launches per kernel; then, with the
+     counts reset, qwen2-7b's f32 call on inputs 4 bytes past a 16-byte
+     boundary, which only flash_attention.cu (simt) reads; each against its
+     plain version and SDPA, then timed;
  10. the Mamba-2 SSD scan through ops.ssd (backend "cuda", the ssd_scan
      kernel) at mamba2-130m's widths, f32 and bf16, likewise, and against
      ops.ssd's "torch" backend;
@@ -109,6 +116,9 @@ GEMMS = ([(p, s, d, "none") for p in MLP for s in ("tpu_mxu",
          + [("up", "tpu_mxu", "float32", "bias_relu"),
             ("up", "tpu_mxu_kgrid", "bf16-acc", "none")])
 GEMM_OP = (512, 1024, 768)      # gemm_op forward + backward, (M, N, K)
+SIMT_GEMM = ("up", "tpu_mxu", "float32", "none")   # run again unaligned
+GEMM_SOURCE = {"wgmma": "stagecc_gemm_sm90.cuh",
+               "ffma": "stagecc_gemm_ffma.cuh", "simt": "stagecc_gemm.cuh"}
 # Emitted GEMM vs gemm_plain: tests/test_kernels.py's bounds, f32 (rtol,
 # atol) and bf16.  compile_gemm's bf16 products have an f32 output
 # (TensorIR's matmul accumulates in f32), so after the bf16 inputs nothing
@@ -123,7 +133,7 @@ ATTN = (("qwen2_7b", 2048), ("gemma3_4b", 4096))      # (config, Sq = Sk)
 SSD_BATCH, SSD_SEQ = 4, 4096
 SSD_F32 = (1e-3, 1e-4)
 HAND_KERNELS = ("decode_attention", "flash_attention",
-                "flash_attention_sm90", "ssd_scan")
+                "flash_attention_sm90", "flash_attention_ffma", "ssd_scan")
 # The compiled serving kernels (phase 11), one (batch, head) slice each,
 # at the schedules whose every stage traces at most 4096 statements:
 # (label, graph kind, dims, window / valid, pipeline).  grid{vars=N} maps
@@ -286,13 +296,32 @@ def share_of(got, want, rtol, atol):
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
+def shifted(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary, as a view into a packed buffer may: the 16-byte
+    copies of the ffma and wgmma kernels cannot read it, the simt
+    kernels' element loads can."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def route_of(wrapper, before) -> str:
+    """The route a launch took, from its wrapper's counters against their
+    values (wgmma_launches, ffma_launches) before it."""
+    if wrapper.wgmma_launches > before[0]:
+        return "wgmma"
+    return "ffma" if wrapper.ffma_launches > before[1] else "simt"
+
+
 def attention_phase(dev, flush, smi):
     """Phase 9: drive ops.attention (backend "cuda") once per case with the
     launch count reset, then hold each result to the plain version and to
     SDPA, and time it.  Returns the JSON rows."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     cases = []
     for arch, seq in ATTN:
         cfg = get_config(arch)
@@ -309,90 +338,127 @@ def attention_phase(dev, flush, smi):
         del q, kv
 
     # the path: one ops.attention call per case
-    fa.flash_attention.launches = fa.flash_attention.wgmma_launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention.wgmma_launches = fa.flash_attention.ffma_launches = 0
     outs, counts, routes = [], [], []
     for cfg, seq, window, dtype, (q, k, v) in cases:
-        before = fa.flash_attention.wgmma_launches
-        base = fa.flash_attention.launches
+        before = (fa.flash_attention.launches,
+                  fa.flash_attention.wgmma_launches,
+                  fa.flash_attention.ffma_launches)
         outs.append(ops.attention(q, k, v, causal=True, window=window,
                                   backend="cuda"))
-        counts.append(fa.flash_attention.launches - base)
-        routes.append("wgmma" if fa.flash_attention.wgmma_launches > before
-                      else "simt")
+        counts.append(fa.flash_attention.launches - before[0])
+        routes.append(route_of(fa.flash_attention, before[1:]))
     torch.cuda.synchronize()
     total = fa.flash_attention.launches
     wgmma = fa.flash_attention.wgmma_launches
+    ffma = fa.flash_attention.ffma_launches
     bf16 = sum(c[3] == torch.bfloat16 for c in cases)
     print(f"[attention] flash_attention launches {total} = {len(cases)} "
           f"ops.attention calls, {wgmma} of them on the tensor-core kernel "
-          f"(flash_attention_sm90.cu) = the {bf16} bf16 calls")
+          f"(flash_attention_sm90.cu) = the {bf16} bf16 calls, {ffma} on "
+          f"the register-tiled one (flash_attention_ffma.cu) = the "
+          f"{len(cases) - bf16} f32 calls")
     check(counts == [1] * len(cases) and total == len(cases),
           f"flash_attention launched {counts} per call, {total} in all")
-    check(wgmma == bf16 and routes == [
-        "wgmma" if c[3] == torch.bfloat16 else "simt" for c in cases],
+    check(wgmma == bf16 and ffma == len(cases) - bf16 and routes == [
+        "wgmma" if c[3] == torch.bfloat16 else "ffma" for c in cases],
         f"flash_attention routes {routes}")
 
-    rows = []
-    for (cfg, seq, window, dtype, (q, k, v)), got, count, path in zip(
-            cases, outs, counts, routes):
-        B, H, _, hd = q.shape
-        name = (f"flash_attention {cfg.name} B={B} H={H} S={seq} hd={hd} "
-                f"causal window={window} {str(dtype)[6:]} [{path}]")
-        kw = dict(causal=True, window=window)
-        want = fa.flash_attention_plain(q, k, v, **kw)
-        check(got.shape == want.shape and got.dtype == dtype,
-              f"{name}: {tuple(got.shape)} {got.dtype}")
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
-        err = (got.float() - want.float()).abs().max().item()
-        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-        line = (f"[attention] {name}: max_abs_err {err:.3e} vs the plain "
-                f"version (limit {tol:g})")
-        check(err <= tol, f"{name}: error {err} > {tol}")
-        if dtype == torch.bfloat16:
-            want32 = fa.flash_attention_plain(q.float(), k.float(),
-                                              v.float(), **kw)
-            ratio = ((got.float() - want32).abs()
-                     / (BF16_ROUND * want32.abs() + TOL_F32)).max().item()
-            line += (f"; vs the plain version in f32 on the same inputs, "
-                     f"max |err| / (2^-8 |want| + {TOL_F32:g}) = {ratio:.3f}"
-                     f" (limit 1)")
-            check(ratio <= 1.0, f"{name}: off its output-rounding bound")
-            del want32
-        del want
-        mask = (None if window is None else
-                ref.attention_mask(seq, seq, True, window, dev))
+    rows = [attention_row(c, got, count, path, flush, smi) for c, got,
+            count, path in zip(cases, outs, counts, routes)]
+    del outs
 
-        def library(q=q, k=k, v=v, mask=mask):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None)
-
-        lib_err = (library().float() - got.float()).abs().max().item()
-        # the same function: a wrong mask or scale moves outputs by O(0.1)
-        check(lib_err <= TOL_BF16, f"{name}: SDPA differs by {lib_err}")
-        print(line + f"; SDPA vs kernel {lib_err:.1e}")
-        nbytes, flops = flash_work(q, k, True, window)
-        bound, bound_by = roofline(nbytes, flops, PEAK[dtype])
-        source = ("flash_attention_sm90.cu" if path == "wgmma"
-                  else "flash_attention.cu")
-        row = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{source}",
-               "replaces": "src/repro/kernels/flash_attention.py:34",
-               "launches": count, "max_abs_err": err,
-               "ms": time_ms(lambda: ops.attention(
-                   q, k, v, backend="cuda", **kw), flush, iters=10),
-               "plain_ms": time_ms(lambda: fa.flash_attention_plain(
-                   q, k, v, **kw), flush, iters=10),
-               "bound_ms": bound, "bound_by": bound_by,
-               "library_ms": time_ms(library, flush, iters=10)}
-        rows.append(row)
-        print(f"[timing] {name}, cold L2: kernel {row['ms']:.3f} ms, bound "
-              f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP of unmasked pairs; at the f32 "
-              f"CUDA-core rate, {flops / F32_FLOP_PER_S * 1e3:.3f} ms; the "
-              f"tensor-core kernel's split P makes P V twice the work), plain "
-              f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms; "
-              f"card {smi}")
+    # the simt path: qwen2-7b's f32 call again, on q, k and v that start 4
+    # bytes past a 16-byte boundary, which only flash_attention.cu reads
+    cfg, seq, window, dtype, qkv = cases[0]
+    case = (cfg, seq, window, dtype, [shifted(t) for t in qkv])
+    fa.flash_attention.launches = 0
+    fa.flash_attention.wgmma_launches = fa.flash_attention.ffma_launches = 0
+    got = ops.attention(*case[4], causal=True, window=window, backend="cuda")
+    torch.cuda.synchronize()
+    launched = (fa.flash_attention.launches,
+                fa.flash_attention.wgmma_launches,
+                fa.flash_attention.ffma_launches)
+    print(f"[attention] {cfg.name} {str(dtype)[6:]} on inputs 4 bytes past "
+          f"a 16-byte boundary: flash_attention launches {launched[0]}, "
+          f"wgmma_launches {launched[1]}, ffma_launches {launched[2]}")
+    check(launched == (1, 0, 0), f"unaligned attention launched {launched}")
+    # SDPA's fused kernels fault on such inputs (misaligned address), so
+    # it reads the aligned originals
+    rows.append(attention_row(case, got, 1, "simt", flush, smi,
+                              note=" unaligned", sdpa_qkv=qkv))
     return rows
+
+
+def attention_row(case, got, count, path, flush, smi, note="",
+                  sdpa_qkv=None):
+    """Phase 9's JSON row of one ops.attention call ``case`` = (config,
+    length, window, dtype, (q, k, v)) that ran on ``path`` with result
+    ``got``: held to the plain version and SDPA, then timed.  SDPA reads
+    ``sdpa_qkv`` where given: the same values, 16-byte aligned."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    cfg, seq, window, dtype, (q, k, v) = case
+    B, H, _, hd = q.shape
+    name = (f"flash_attention {cfg.name} B={B} H={H} S={seq} hd={hd} "
+            f"causal window={window} {str(dtype)[6:]}{note} [{path}]")
+    kw = dict(causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    check(got.shape == want.shape and got.dtype == dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    line = (f"[attention] {name}: max_abs_err {err:.3e} vs the plain "
+            f"version (limit {tol:g})")
+    check(err <= tol, f"{name}: error {err} > {tol}")
+    if dtype == torch.bfloat16:
+        want32 = fa.flash_attention_plain(q.float(), k.float(),
+                                          v.float(), **kw)
+        ratio = ((got.float() - want32).abs()
+                 / (BF16_ROUND * want32.abs() + TOL_F32)).max().item()
+        line += (f"; vs the plain version in f32 on the same inputs, "
+                 f"max |err| / (2^-8 |want| + {TOL_F32:g}) = {ratio:.3f}"
+                 f" (limit 1)")
+        check(ratio <= 1.0, f"{name}: off its output-rounding bound")
+        del want32
+    del want
+    mask = (None if window is None else
+            ref.attention_mask(seq, seq, True, window, q.device))
+
+    def library(qkv=sdpa_qkv or (q, k, v), mask=mask):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *qkv, attn_mask=mask, is_causal=mask is None)
+
+    lib_err = (library().float() - got.float()).abs().max().item()
+    # the same function: a wrong mask or scale moves outputs by O(0.1)
+    check(lib_err <= TOL_BF16, f"{name}: SDPA differs by {lib_err}")
+    print(line + f"; SDPA{' (on aligned copies)' if sdpa_qkv else ''} vs "
+          f"kernel {lib_err:.1e}")
+    nbytes, flops = flash_work(q, k, True, window)
+    bound, bound_by = roofline(nbytes, flops, PEAK[dtype])
+    source = {"wgmma": "flash_attention_sm90.cu",
+              "ffma": "flash_attention_ffma.cu",
+              "simt": "flash_attention.cu"}[path]
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{source}",
+           "replaces": "src/repro/kernels/flash_attention.py:34",
+           "launches": count, "max_abs_err": err,
+           "ms": time_ms(lambda: ops.attention(
+               q, k, v, backend="cuda", **kw), flush, iters=10),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+               q, k, v, **kw), flush, iters=10),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": time_ms(library, flush, iters=10)}
+    print(f"[timing] {name}, cold L2: kernel {row['ms']:.3f} ms, bound "
+          f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP of unmasked pairs; at the f32 "
+          f"CUDA-core rate, {flops / F32_FLOP_PER_S * 1e3:.3f} ms; the "
+          f"tensor-core kernel's split P makes P V twice the work), plain "
+          f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.3f} ms; "
+          f"card {smi}")
+    return row
 
 
 def ssd_phase(dev, flush, smi):
@@ -814,6 +880,35 @@ def gemm_gates(name, plan, a, got):
     return err, line, gates, shares
 
 
+def gemm_row(g, a, got, count, path, flush, smi):
+    """Phase 8's JSON row of one product ``g`` = (MLP product, name,
+    compiled kernel) that ran on ``path``, on inputs ``a`` with result
+    ``got``: held to its gates, then timed."""
+    from repro_torch.core import backend_cuda
+    prod, name, ck = g
+    plan = ck.run_cuda.plan
+    name = f"{name} [{path}]"
+    err, line, gates, _ = gemm_gates(name, plan, a, got)
+    print(line)
+    for ok, what in gates:
+        check(ok, what)
+    bound, bound_by = gemm_bound(plan, *MLP[prod])
+    r = {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/" + GEMM_SOURCE[path],
+         "replaces": "src/repro/core/backend_pallas.py:229",
+         "launches": count, "max_abs_err": err,
+         "ms": time_ms(lambda: ck.run_cuda(*a), flush, iters=20),
+         "plain_ms": time_ms(
+             lambda: backend_cuda.gemm_plain(plan, *a), flush, iters=20),
+         "bound_ms": bound, "bound_by": bound_by,
+         "library_ms": time_ms(lambda: torch.matmul(a[0], a[1]), flush,
+                               iters=20)}
+    print(f"[timing] {name}, cold L2: kernel {r['ms']:.3f} ms, bound "
+          f"{bound:.3f} ms ({bound_by}), gemm_plain {r['plain_ms']:.3f} ms, "
+          f"torch.matmul {r['library_ms']:.3f} ms; card {smi}")
+    return r
+
+
 def gemm_phase(gemms, dev, flush, smi):
     """Phase 8: drive the compiled-GEMM path with the launch count reset,
     then hold each result to its plain version and time it.  Returns the
@@ -828,60 +923,54 @@ def gemm_phase(gemms, dev, flush, smi):
     xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
 
     # the path: every product once, then gemm_op forward and backward
-    gemm.cuda_gemm.launches = gemm.cuda_gemm.wgmma_launches = 0
+    cg = gemm.cuda_gemm
+    cg.launches = cg.wgmma_launches = cg.ffma_launches = 0
     outs, counts, routes = [], [], []
     for (_, _, ck), a in zip(gemms, args):
-        before = (gemm.cuda_gemm.launches, gemm.cuda_gemm.wgmma_launches)
+        before = (cg.launches, cg.wgmma_launches, cg.ffma_launches)
         outs.append(ck.run_cuda(*a))
-        counts.append(gemm.cuda_gemm.launches - before[0])
-        routes.append("wgmma" if gemm.cuda_gemm.wgmma_launches > before[1]
-                      else "simt")
-    wgmma = gemm.cuda_gemm.wgmma_launches
+        counts.append(cg.launches - before[0])
+        routes.append(route_of(cg, before[1:]))
+    wgmma, ffma = cg.wgmma_launches, cg.ffma_launches
     op = integrate.gemm_op(m, n, k, backend="cuda")
     (op(xg, yg) * w).sum().backward()
     torch.cuda.synchronize()
-    total = gemm.cuda_gemm.launches
+    total = cg.launches
     bf16 = [ck.run_cuda.plan.dtypes[ck.run_cuda.plan.matmul.lhs.buffer.name]
             == "bfloat16" for _, _, ck in gemms]
+    f32 = len(gemms) - sum(bf16)
     print(f"[gemm] cuda_gemm launches {total} = {len(gemms)} products + "
           f"gemm_op {m}x{n}x{k} (f32) forward 1 and backward 2; "
-          f"wgmma_launches {gemm.cuda_gemm.wgmma_launches} = the "
-          f"{sum(bf16)} bf16 products")
+          f"wgmma_launches {cg.wgmma_launches} = the {sum(bf16)} bf16 "
+          f"products; ffma_launches {cg.ffma_launches} = the {f32} f32 "
+          f"products + gemm_op's 3")
     check(counts == [1] * len(gemms) and total == len(gemms) + 3,
           f"cuda_gemm launched {counts} per product, {total} in all")
-    check(routes == ["wgmma" if b else "simt" for b in bf16]
-          and wgmma == gemm.cuda_gemm.wgmma_launches == sum(bf16),
-          f"cuda_gemm routes {routes}, {gemm.cuda_gemm.wgmma_launches} "
-          f"wgmma launches")
+    check(routes == ["wgmma" if b else "ffma" for b in bf16]
+          and wgmma == cg.wgmma_launches == sum(bf16)
+          and ffma == f32 and cg.ffma_launches == f32 + 3,
+          f"cuda_gemm routes {routes}, {cg.wgmma_launches} wgmma and "
+          f"{cg.ffma_launches} ffma launches")
 
-    rows = []
-    for (prod, name, ck), a, got, count, path in zip(gemms, args, outs,
-                                                     counts, routes):
-        plan = ck.run_cuda.plan
-        name = f"{name} [{path}]"
-        err, line, gates, _ = gemm_gates(name, plan, a, got)
-        print(line)
-        for ok, what in gates:
-            check(ok, what)
-        bound, bound_by = gemm_bound(plan, *MLP[prod])
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/" + (
-                "stagecc_gemm_sm90.cuh" if path == "wgmma"
-                else "stagecc_gemm.cuh"),
-            "replaces": "src/repro/core/backend_pallas.py:229",
-            "launches": count, "max_abs_err": err,
-            "ms": time_ms(lambda: ck.run_cuda(*a), flush, iters=20),
-            "plain_ms": time_ms(
-                lambda: backend_cuda.gemm_plain(plan, *a), flush, iters=20),
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": time_ms(lambda: torch.matmul(a[0], a[1]), flush,
-                                  iters=20)})
-        r = rows[-1]
-        print(f"[timing] {name}, cold L2: kernel {r['ms']:.3f} ms, bound "
-              f"{bound:.3f} ms ({bound_by}), gemm_plain "
-              f"{r['plain_ms']:.3f} ms, torch.matmul {r['library_ms']:.3f}"
-              f" ms; card {smi}")
+    rows = [gemm_row(g, a, got, count, path, flush, smi) for g, a, got,
+            count, path in zip(gemms, args, outs, counts, routes)]
+    del outs
+
+    # the simt path: one f32 product again, on operands 4 bytes past a
+    # 16-byte boundary, which only stagecc_gemm.cuh reads
+    i = GEMMS.index(SIMT_GEMM)
+    a = [shifted(t) for t in args[i]]
+    cg.launches = cg.wgmma_launches = cg.ffma_launches = 0
+    got = gemms[i][2].run_cuda(*a)
+    torch.cuda.synchronize()
+    launched = (cg.launches, cg.wgmma_launches, cg.ffma_launches)
+    print(f"[gemm] {gemms[i][1]} on operands 4 bytes past a 16-byte "
+          f"boundary: cuda_gemm launches {launched[0]}, wgmma_launches "
+          f"{launched[1]}, ffma_launches {launched[2]}")
+    check(launched == (1, 0, 0), f"unaligned product launched {launched}")
+    rows.append(gemm_row((gemms[i][0], gemms[i][1] + " unaligned",
+                          gemms[i][2]), a, got, 1, "simt", flush, smi))
+    del a, got
 
     plan = compile_gemm(m, n, k).run_cuda.plan
     xp, yp = x.clone().requires_grad_(), y.clone().requires_grad_()
@@ -926,30 +1015,73 @@ def gemm_margin(gemms, dev, seeds: int) -> int:
     return failed
 
 
+# the kernels whose resources phase 2 prints: (mangled name, kind)
+PTXAS_KERNELS = (
+    (r"gemm_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", "gemm_wgmma"),
+    (r"flash_sm90_kernelILi(\d+)E", "flash_sm90"),
+    (r"gemm_ffma_kernelILi(\d+)ELb(\d)E", "gemm_ffma"),
+    (r"flash_ffma_kernelILi(\d+)E", "flash_ffma"))
+
+
 def ptxas_rows(lib):
-    """(kernel, registers, spill stores, spill loads) of each tensor-core
-    kernel in ``lib``'s build log (``nvcc -Xptxas -v``)."""
+    """(kind, template arguments, registers, spill stores, spill loads) of
+    each tensor-core and register-tiled kernel in ``lib``'s build log
+    (``nvcc -Xptxas -v``)."""
     import re
     from repro_torch.kernels import _build
-    rows, name = [], None
+    rows, kind = [], None
     for line in _build.ptxas_log(lib).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            g = re.search(r"gemm_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
-                          m.group(1))
-            f = re.search(r"flash_sm90_kernelILi(\d+)E", m.group(1))
-            name = (f"gemm_wgmma_kernel tk={g[1]} kgrid={g[2]} "
-                    f"A {'MK'[g[3] == '0']}-major B {'NK'[g[4] == '0']}-major"
-                    if g else f"flash_sm90_kernel D<={f[1]}" if f else None)
+            kind = None
+            for pattern, k in PTXAS_KERNELS:
+                g = re.search(pattern, m.group(1))
+                if g:
+                    kind, targs = k, tuple(int(x) for x in g.groups())
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
-        if name and spill:
+        if kind and spill:
             stores, loads = int(spill[1]), int(spill[2])
         regs = re.search(r"Used (\d+) registers", line)
-        if name and regs:
-            rows.append((name, int(regs[1]), stores, loads))
-            name = None
+        if kind and regs:
+            rows.append((kind, targs, int(regs[1]), stores, loads))
+            kind = None
     return rows
+
+
+def print_resources(sources):
+    """Phase 2's [resources] lines: registers, dynamic shared memory and
+    spills of the tensor-core and register-tiled kernels built."""
+    from repro_torch.kernels import _build
+    built = [(_build.library_path(n), _build.load(n)) for n in (
+        "flash_attention_sm90", "flash_attention_ffma")]
+    built += [(_build.source_library(s), _build.load_source(s))
+              for s in sources if "stagecc_gemm_sm90.cuh" in s
+              or "stagecc_gemm_ffma.cuh" in s]
+    for path, lib in built:
+        for kind, t, regs, stores, loads in ptxas_rows(path):
+            if kind == "gemm_wgmma":
+                name = (f"gemm_wgmma_kernel tk={t[0]} kgrid={t[1]} A "
+                        f"{'MK'[t[2] == 0]}-major B {'NK'[t[3] == 0]}-major")
+                smem = lib.stagecc_gemm_wgmma_smem()
+                how = ("at launch, then by setmaxnreg 40 for the producer and "
+                       "232 for the consumers")
+            elif kind == "flash_sm90":
+                name, smem = (f"flash_sm90_kernel D<={t[0]}",
+                              lib.flash_attention_sm90_smem(t[0]))
+                how = ("at launch, then by setmaxnreg 24 for the producer and "
+                       "240 for the consumers")
+            elif kind == "gemm_ffma":
+                name = f"gemm_ffma_kernel 64x64 tk={t[0]} kgrid={t[1]}"
+                smem, how = lib.stagecc_gemm_ffma_smem(), ""
+            else:
+                name, smem = (f"flash_ffma_kernel D<={t[0]}",
+                              lib.flash_attention_ffma_smem(t[0]))
+                how = ""
+            print(f"[resources] {path.name} {name}: {regs} registers a "
+                  f"thread{' ' + how if how else ''}; {smem} bytes of dynamic "
+                  f"shared memory; spills {stores}/{loads} bytes "
+                  f"stored/loaded")
 
 
 def main() -> int:
@@ -999,24 +1131,9 @@ def main() -> int:
                  for src in sources + general]
         for job in jobs:
             job.result()
-    # the tensor-core kernels' resources, from the build's ptxas output
-    libs = [_build.library_path("flash_attention_sm90")]
-    libs += [_build.source_library(src) for src in sources
-             if "stagecc_gemm_sm90.cuh" in src]
-    smem = _build.load_source(next(src for src in sources if
-                                   "stagecc_gemm_sm90.cuh" in src)
-                              ).stagecc_gemm_wgmma_smem()
-    fa_smem = _build.load("flash_attention_sm90").flash_attention_sm90_smem
-    for lib in libs:
-        for name, regs, stores, loads in ptxas_rows(lib):
-            gemm_kernel = name.startswith("gemm")
-            dyn = smem if gemm_kernel else fa_smem(int(name.split("<=")[1]))
-            print(f"[resources] {lib.name} {name}: {regs} registers a "
-                  f"thread at launch, then by setmaxnreg "
-                  f"{'40' if gemm_kernel else '24'} for the producer and "
-                  f"{'232' if gemm_kernel else '240'} for the consumers; "
-                  f"{dyn} bytes of dynamic shared memory; spills "
-                  f"{stores}/{loads} bytes stored/loaded")
+    # the tensor-core and ffma kernels' resources, from the build's ptxas
+    # output
+    print_resources(sources)
     print(f"[build] {', '.join(HAND_KERNELS)}, {len(sources)} emitted "
           f"GEMM sources and {len(general)} general-emitter sources, one "
           f"nvcc each, in parallel: {time.perf_counter() - t0:.1f}s")

@@ -14,8 +14,10 @@ through to the general multi-nest emitter ``emit_general`` only when
         [EwiseTile epilogue ...]*
     }}}
 
-and renders it as CUDA C++ source on the template
-``kernels/csrc/stagecc_gemm.cuh``: the tiles (tm, tn, tk) as constants,
+and renders it as CUDA C++ source on the templates in ``kernels/csrc/``
+(``stagecc_gemm.cuh``, and ``stagecc_gemm_ffma.cuh`` /
+``stagecc_gemm_sm90.cuh`` where the plan's tiles and types allow; the
+pure ``_gemm_route`` picks one per call): the tiles (tm, tn, tk) as constants,
 whether the k tiles' f32 products are summed in f32 (``tpu_mxu``: K
 inside the block) or rounded to the output dtype after each tile
 (``tpu_mxu_kgrid``: the reference revisits its output block along a k
@@ -339,19 +341,40 @@ def _plan_route(plan: _Plan) -> Optional[str]:
 
 
 def _operand_route(what: str, strides: Sequence[int], k_axis: int,
-                   ptr: int) -> Optional[str]:
-    """Why TMA cannot read a bf16 operand with these element strides
-    (``k_axis`` the index of K's), or None: one unit stride (along K, else
-    along M or N), the other a multiple of 16 bytes, a 16-byte-aligned
-    base.  The launcher takes the major from the same test."""
+                   ptr: int, itemsize: int = 2) -> Optional[str]:
+    """Why TMA (``wgmma``) or the 16-byte loads of the ``ffma`` kernel
+    cannot read an operand of ``itemsize``-byte elements with these element
+    strides (``k_axis`` the index of K's), or None: one unit stride (along
+    K, else along M or N), the other a multiple of 16 bytes, a
+    16-byte-aligned base.  The launchers take the major from the same
+    test."""
     unit = k_axis if strides[k_axis] == 1 else 1 - k_axis
     if strides[unit] != 1:
         return f"{what} has no unit stride {tuple(strides)}"
-    if strides[1 - unit] <= 0 or strides[1 - unit] * 2 % 16:
+    if strides[1 - unit] <= 0 or strides[1 - unit] * itemsize % 16:
         return f"{what}'s stride {strides[1 - unit]} is not 16 bytes apart"
     if ptr % 16:
         return f"{what}'s base is not 16-byte aligned"
     return None
+
+
+def _ffma_plan_route(plan: _Plan) -> Optional[str]:
+    """Why the plan's source cannot hold the register-tiled CUDA-core
+    (``ffma``) kernel of ``stagecc_gemm_ffma.cuh``, or None when it holds
+    it: tm and tn multiples of 64 (so its 64 x 64 blocks divide M and N)
+    and tk a multiple of 8 (K is staged 8 or 16 columns at a time, and tk fixes
+    where the sums round)."""
+    tm, tn, tk = plan.tiles
+    if tm % 64 or tn % 64:
+        return f"tiles {tm} x {tn} are not multiples of 64"
+    if tk % 8:
+        return f"tk {tk} is not a multiple of 8"
+    return None
+
+
+def _majors(a_strides: Sequence[int], b_strides: Sequence[int]) -> str:
+    return (f"A {'K' if a_strides[1] == 1 else 'M'}-major, "
+            f"B {'K' if b_strides[0] == 1 else 'N'}-major")
 
 
 def _gemm_route(plan: _Plan, a_strides: Sequence[int],
@@ -359,18 +382,26 @@ def _gemm_route(plan: _Plan, a_strides: Sequence[int],
                 b_ptr: int = 0) -> Tuple[str, str]:
     """The emitted GEMM's kernel for operands A (M, K) and B (K, N) with
     these element strides and data pointers: ``("wgmma", reason)`` for the
-    tensor-core template, ``("simt", reason)`` for the CUDA-core one.  A
-    pure function of its arguments, decided before the launch; both are
+    tensor-core template, else ``("ffma", reason)`` for the register-tiled
+    CUDA-core one, else ``("simt", reason)`` for the plain CUDA-core one
+    (odd tiles such as 96 or 1, operands neither can read).  A pure
+    function of its arguments, decided before the launch; all three are
     kernels of this repository, so this is a dispatch, not a fallback."""
     why = (_plan_route(plan)
            or _operand_route("A", a_strides, 1, a_ptr)
            or _operand_route("B", b_strides, 0, b_ptr))
-    if why:
-        return "simt", why
-    majors = ("K" if a_strides[1] == 1 else "M",
-              "K" if b_strides[0] == 1 else "N")
-    return "wgmma", f"bf16, tk % 16 == 0, A {majors[0]}-major, " \
-                    f"B {majors[1]}-major"
+    if not why:
+        return "wgmma", f"bf16, tk % 16 == 0, {_majors(a_strides, b_strides)}"
+    size = {"float32": 4, "bfloat16": 2}
+    why_ffma = (_ffma_plan_route(plan)
+                or _operand_route("A", a_strides, 1, a_ptr, size[
+                    plan.dtypes[plan.matmul.lhs.buffer.name]])
+                or _operand_route("B", b_strides, 0, b_ptr, size[
+                    plan.dtypes[plan.matmul.rhs.buffer.name]]))
+    if not why_ffma:
+        return "ffma", (f"not wgmma ({why}); tiles multiples of 64, "
+                        f"tk % 8 == 0, {_majors(a_strides, b_strides)}")
+    return "simt", why if why == why_ffma else f"{why}; {why_ffma}"
 
 
 def _render(kernel: Kernel, plan: _Plan, index: Dict[str, str]) -> str:
@@ -421,6 +452,7 @@ def _render(kernel: Kernel, plan: _Plan, index: Dict[str, str]) -> str:
     ta, tb = (_CTYPE[plan.dtypes[plan.matmul.lhs.buffer.name]],
               _CTYPE[plan.dtypes[plan.matmul.rhs.buffer.name]])
     sm90 = _plan_route(plan) is None
+    ffma = _ffma_plan_route(plan) is None
     signature = f"""(const void* a, const void* b, {params}void* out,
     int m, int n, int k, long long sam, long long sak, long long sbk,
     long long sbn, void* stream)"""
@@ -434,11 +466,25 @@ extern "C" int stagecc_gemm_wgmma_launch{signature} {{
 // the dynamic shared memory a tensor-core launch asks for, in bytes
 extern "C" int stagecc_gemm_wgmma_smem() {{ return stagecc::wg::kSmem; }}
 """
+    ffma_launch = "" if not ffma else f"""
+// the register-tiled CUDA-core route (ffma): blocks of 64 x 64 outputs
+extern "C" int stagecc_gemm_ffma_launch{signature} {{
+  return stagecc::launch_ffma<{tk}, {str(kgrid).lower()}, {ta}, {tb}, {_CTYPE[out_t]}>(
+      a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
+}}
+
+// the dynamic shared memory an ffma launch asks for, in bytes
+extern "C" int stagecc_gemm_ffma_smem() {{
+  return stagecc::ffma::smem_bytes<{tk}>();
+}}
+"""
+    includes = "".join(f'#include "{h}"\n' for h, on in (
+        ("stagecc_gemm.cuh", True), ("stagecc_gemm_ffma.cuh", ffma),
+        ("stagecc_gemm_sm90.cuh", sm90)) if on)
     return f"""\
 // Emitted by repro_torch.core.backend_cuda from a scheduled contraction:
 // tiles {tm} x {tn} x {tk}, {schedule}.
-#include "{'stagecc_gemm_sm90.cuh' if sm90 else 'stagecc_gemm.cuh'}"
-
+{includes}
 namespace {{
 
 struct Epilogue {{
@@ -451,12 +497,12 @@ struct Epilogue {{
 
 }}  // namespace
 
-// the CUDA-core route
+// the plain CUDA-core route (simt)
 extern "C" int stagecc_gemm_launch{signature} {{
   return stagecc::launch<{tm}, {tn}, {tk}, {str(kgrid).lower()}, {ta}, {tb}, {_CTYPE[out_t]}>(
       a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
 }}
-{wgmma}"""
+{ffma_launch}{wgmma}"""
 
 
 def _emit_gemm(kernel: Kernel, device="cuda",
@@ -532,6 +578,8 @@ def _emit_gemm(kernel: Kernel, device="cuda",
         gemm.cuda_gemm.launches += 1
         if route == "wgmma":
             gemm.cuda_gemm.wgmma_launches += 1
+        elif route == "ffma":
+            gemm.cuda_gemm.ffma_launches += 1
         return out
 
     fn.__name__ = f"stagecc_cuda_{kernel.name}"
@@ -544,6 +592,7 @@ def _emit_gemm(kernel: Kernel, device="cuda",
 
 # each route's entry point in an emitted source
 _LAUNCHER = {"simt": "stagecc_gemm_launch",
+             "ffma": "stagecc_gemm_ffma_launch",
              "wgmma": "stagecc_gemm_wgmma_launch"}
 
 

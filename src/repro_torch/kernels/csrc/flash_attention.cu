@@ -11,9 +11,11 @@
 //
 // Arithmetic: IEEE f32 on the CUDA cores, products and statistics alike
 // (bf16 inputs are widened on load).  No TF32, no tensor cores.  This file
-// takes f32 at every head dim and bf16 where flash_attention_sm90.cu (the
-// tensor-core kernel) does not: a head dim that is not a multiple of 16,
-// or above 256.
+// takes what flash_attention.route sends neither to flash_attention_sm90.cu
+// (bf16 on the tensor cores) nor to flash_attention_ffma.cu (f32 with a
+// head dim that is a multiple of 4 up to 256): head dims above 256, f32
+// head dims that are not a multiple of 4, bf16 head dims that are not a
+// multiple of 16, and data that is not 16-byte aligned.
 //
 // Head dims above 256: Q, K and V tiles of the whole width would not fit
 // in shared memory, so the launcher runs the output in column slices of
@@ -45,26 +47,23 @@
 // lying in the 16 lanes of one half-warp; (3) acc = acc * corr + P V, the
 // tile's P V summed on its own first, as the reference does.
 //
-// Tiles masked for every row of the block are skipped, but only where that
-// leaves the result exactly as it is: when every row of the block has an
-// unmasked key somewhere, a masked tile's weights are exp(-1e30 - m) = 0
-// (after the row's first unmasked key) or are wiped by corr = exp(-1e30 -
-// m) = 0 (before it).  A block holding a row masked everywhere walks every
-// tile, since that row averages all of V.  The block index runs over the
-// query tiles from the last (the longest under a causal mask) to the
-// first, to even out the tail.
+// Tiles masked for every row of the block are skipped where that leaves
+// the result exactly as it is (attention_mask.cuh, shared with the other
+// two attention kernels).  The block index runs over the query tiles from
+// the last (the longest under a causal mask) to the first, to even out the
+// tail.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_mask.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;  // query rows per block: 16 thread rows x 4
 constexpr int kBK = 32;  // keys per tile: 16 thread columns x 2
-constexpr float kNeg = -1e30f;
-constexpr int kMaxGridY = 65535;  // blocks a grid's y axis can hold
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -86,26 +85,9 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-struct Mask {
-  int causal, has_window;
-  long long window, offset;  // offset = Sk - Sq
-};
-
-// The keys a query at position qpos may attend: [lo, hi], empty if lo > hi.
-__device__ __forceinline__ void key_range(long long qpos, int sk,
-                                          const Mask& mk, long long& lo,
-                                          long long& hi) {
-  lo = 0;
-  hi = sk - 1;
-  if (mk.causal) hi = min(hi, qpos);
-  if (mk.has_window) lo = max(lo, qpos - mk.window + 1);
-}
-
-__device__ __forceinline__ bool allowed(long long qpos, long long kpos,
-                                        const Mask& mk) {
-  return (!mk.causal || kpos <= qpos) &&
-         (!mk.has_window || kpos > qpos - mk.window);
-}
+using attn::allowed;
+using attn::kNeg;
+using attn::Mask;
 
 // Copy `rows` rows of d elements from src (row stride sld) to dst (row
 // stride ld, d rounded up to 4), zero past `valid` rows and past d.
@@ -152,24 +134,9 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + bh * sk * ld;
   if (!kSliced) load_tile(q_s, dp, qb, ld, kBQ, sq - q0, d, d4);
 
-  // The key tiles to walk: all of them if a row of the block is masked
-  // everywhere, else those meeting [lo of the first row, hi of the last]
-  // (both ends grow with the row).
   const int rows = min(kBQ, sq - q0);
-  long long lo, hi;
-  int empty = 0;
-  if (tid < rows) {
-    key_range(q0 + tid + mk.offset, sk, mk, lo, hi);
-    empty = lo > hi;
-  }
-  empty = __syncthreads_or(empty);
-  int k_begin = 0, k_end = sk;
-  if (!empty) {
-    key_range(q0 + mk.offset, sk, mk, lo, hi);
-    k_begin = (int)(lo / kBK) * kBK;
-    key_range(q0 + rows - 1 + mk.offset, sk, mk, lo, hi);
-    k_end = (int)hi + 1;
-  }
+  int k_begin, k_end;
+  attn::key_tiles<kBK>(q0, rows, sk, mk, k_begin, k_end);
 
   float m[4], l[4], acc[4][4 * kG];
 #pragma unroll
@@ -314,8 +281,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  for (int b0 = 0; b0 < bh; b0 += kMaxGridY) {
-    const int n = bh - b0 < kMaxGridY ? bh - b0 : kMaxGridY;
+  return attn::bh_slices(bh, [&](int b0, int n) {
     const dim3 grid((sq + kBQ - 1) / kBQ, n);
     const long long oq = (long long)b0 * sq * d, ok = (long long)b0 * sk * d;
     for (int c0 = 0; c0 < d; c0 += kSliced ? kDMax : d) {
@@ -328,8 +294,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-  }
-  return 0;
+    return 0;
+  });
 }
 
 template <typename T>

@@ -38,15 +38,16 @@
 // tensor cores busy meanwhile.  (Issuing the next tile's S before the
 // softmax, into a second register set, ran slower on an H100.)
 //
-// Kept from flash_attention.cu: key tiles masked for every row of the
-// block are skipped only when every row has an unmasked key (a row masked
-// everywhere averages all of V, so then every tile is walked); the bh axis
-// runs in launches of at most 65535 blocks.
+// Kept from flash_attention.cu (attention_mask.cuh): the masks, the exact
+// whole-tile skips (a row masked everywhere averages all of V, so then
+// every tile is walked), and the bh axis in launches of at most 65535
+// blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mask.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -58,28 +59,10 @@ constexpr int kStages = 2;             // K / V ring stages
 constexpr int kThreads = 128 * (kWG + 1);
 constexpr int kQChunk = kBQ * 128;     // bytes of 64 columns of Q
 constexpr int kKVChunk = kBK * 128;    // bytes of 64 columns of a K / V tile
-constexpr float kNeg = -1e30f;
-constexpr int kMaxGridY = 65535;
 
-struct Mask {
-  int causal, has_window;
-  long long window, offset;  // offset = Sk - Sq
-};
-
-__device__ __forceinline__ void key_range(long long qpos, int sk,
-                                          const Mask& mk, long long& lo,
-                                          long long& hi) {
-  lo = 0;
-  hi = sk - 1;
-  if (mk.causal) hi = min(hi, qpos);
-  if (mk.has_window) lo = max(lo, qpos - mk.window + 1);
-}
-
-__device__ __forceinline__ bool allowed(long long qpos, long long kpos,
-                                        const Mask& mk) {
-  return (!mk.causal || kpos <= qpos) &&
-         (!mk.has_window || kpos > qpos - mk.window);
-}
+using attn::allowed;
+using attn::kNeg;
+using attn::Mask;
 
 // the score of key `key` for the query at `qpos`, scaled and masked
 __device__ __forceinline__ float masked(float s, long long qpos,
@@ -140,22 +123,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int nch = (d + 63) / 64;
 
-  // the key tiles to walk (flash_attention.cu's rule)
+  // the key tiles to walk (attention_mask.cuh)
   const int rows = min(kBQ, sq - q0);
-  long long lo, hi;
-  int none = 0;
-  if (threadIdx.x < rows) {
-    key_range(q0 + threadIdx.x + mk.offset, sk, mk, lo, hi);
-    none = lo > hi;
-  }
-  none = __syncthreads_or(none);
-  int k_begin = 0, k_end = sk;
-  if (!none) {
-    key_range(q0 + mk.offset, sk, mk, lo, hi);
-    k_begin = (int)(lo / kBK) * kBK;
-    key_range(q0 + rows - 1 + mk.offset, sk, mk, lo, hi);
-    k_end = (int)hi + 1;
-  }
+  int k_begin, k_end;
+  attn::key_tiles<kBK>(q0, rows, sk, mk, k_begin, k_end);
   const int tiles = (k_end - k_begin + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -359,16 +330,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
       flash_sm90_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  for (int b0 = 0; b0 < bh; b0 += kMaxGridY) {
-    const int n = bh - b0 < kMaxGridY ? bh - b0 : kMaxGridY;
-    const dim3 grid((sq + kBQ - 1) / kBQ, n);
-    flash_sm90_kernel<DP><<<grid, kThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(out), b0, sq, sk, d, scale,
-        mk);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  return attn::bh_slices(bh, [&](int b0, int n) {
+    flash_sm90_kernel<DP><<<dim3((sq + kBQ - 1) / kBQ, n), kThreads, smem,
+                            stream>>>(tq, tk, tv,
+                                      static_cast<__nv_bfloat16*>(out), b0,
+                                      sq, sk, d, scale, mk);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

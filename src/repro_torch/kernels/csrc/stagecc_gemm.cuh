@@ -32,8 +32,13 @@
 // form: a TM x TN tile per block, a 16 x 16 thread grid, each thread a
 // strided ceil(TM/16) x ceil(TN/16) register tile, K staged through shared
 // memory kChunk columns at a time.  It has no tensor cores, no
-// asynchronous copies and no double buffering; wgmma fed by TMA is the
-// next step.
+// asynchronous copies and no double buffering.  backend_cuda._gemm_route
+// sends what the faster templates take elsewhere (bf16 with tk a multiple
+// of 16 to stagecc_gemm_sm90.cuh; tiles that are multiples of 64 with tk a
+// multiple of 8 to stagecc_gemm_ffma.cuh, both for operands with a unit
+// stride, the other 16 bytes apart, and 16-byte-aligned bases), so this
+// file takes the rest: tiles such as 96 or 1 (a prime dimension), tk not a
+// multiple of 8, and operands those two cannot read.
 
 #pragma once
 

@@ -6,13 +6,17 @@ dtype, with the softmax statistics in f32.  Causal and local-window masks
 place query row i at position i + (Sk - Sq); masked logits are -1e30, not
 -inf, so a row that is masked everywhere returns the mean of V.
 
-On a CUDA tensor ``flash_attention`` launches one of two hand-written
+On a CUDA tensor ``flash_attention`` launches one of three hand-written
 kernels (built at first use), as ``route`` decides: bf16 with a head dim
 that is a multiple of 16 up to 256 goes to the tensor-core kernel in
-``csrc/flash_attention_sm90.cu`` (``wgmma`` fed by TMA), everything else
-to ``csrc/flash_attention.cu`` (f32 on the CUDA cores; head dims above 256
-in column slices of the output).  On a CPU tensor it runs
-``flash_attention_plain``, the plain PyTorch version of the same function.
+``csrc/flash_attention_sm90.cu`` (``wgmma`` fed by TMA); f32 with a head
+dim that is a multiple of 4 up to 256 to the register-tiled CUDA-core
+kernel in ``csrc/flash_attention_ffma.cu`` (``ffma``, K and V by
+cp.async); everything else to ``csrc/flash_attention.cu`` (``simt``, on
+the CUDA cores; head dims above 256 in column slices of the output).  On a
+CPU tensor it runs ``flash_attention_plain``, the plain PyTorch version of
+the same function.  ``flash_attention.launches`` counts the launches,
+``.wgmma_launches`` and ``.ffma_launches`` those on the two newer kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ def _kernel(route: str):
         if route == "wgmma":
             fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
             head = []
+        elif route == "ffma":
+            fn = _build.load("flash_attention_ffma").flash_attention_ffma_launch
+            head = []
         else:
             fn = _build.load("flash_attention").flash_attention_launch
             head = [ctypes.c_int]
@@ -47,16 +54,25 @@ def _kernel(route: str):
 
 def route(dtype: torch.dtype, d: int, *ptrs: int):
     """The kernel for inputs of ``dtype`` and head dim ``d`` at data
-    pointers ``ptrs``: ``("wgmma", reason)`` for the tensor-core kernel
-    (bf16, ``d`` a multiple of 16 up to 256, 16-byte-aligned data, as TMA
-    and the kernel's register tiles need), else ``("simt", reason)``."""
-    if dtype != torch.bfloat16:
-        return "simt", f"{dtype} is not bfloat16"
-    if d % 16 or d > 256:
-        return "simt", f"head dim {d} is not a multiple of 16 up to 256"
+    pointers ``ptrs`` (all 16-byte aligned, as TMA and the 16-byte copies
+    need): ``("wgmma", reason)`` for the tensor-core kernel (bf16, ``d`` a
+    multiple of 16 up to 256), ``("ffma", reason)`` for the register-tiled
+    CUDA-core one (f32, ``d`` a multiple of 4 up to 256), else ``("simt",
+    reason)``: odd head dims, ``d`` above 256 (column slices), and bf16
+    off the tensor cores.  A pure function, decided before the launch."""
     if any(p % 16 for p in ptrs):
         return "simt", "data not 16-byte aligned"
-    return "wgmma", "bfloat16, head dim a multiple of 16 up to 256"
+    if d > 256:
+        return "simt", f"head dim {d} is above 256"
+    if dtype == torch.bfloat16:
+        if d % 16:
+            return "simt", f"bfloat16, head dim {d} not a multiple of 16"
+        return "wgmma", "bfloat16, head dim a multiple of 16 up to 256"
+    if dtype != torch.float32:
+        return "simt", f"{dtype} is neither bfloat16 nor float32"
+    if d % 4:
+        return "simt", f"float32, head dim {d} not a multiple of 4"
+    return "ffma", "float32, head dim a multiple of 4 up to 256"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,8 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``block_q`` / ``block_k`` are the reference's tiles and must divide
     the lengths, as there.  The CUDA kernels pick their own tiles (64
-    query rows by 32 keys; 128 by 64 on the tensor cores), and the result
-    does not depend on them."""
+    query rows by 32 keys; 128 by 64 on the tensor cores and on ``ffma``,
+    64 by 64 there at head dims above 128), and the result does not depend
+    on them."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or (
             k.shape[0], k.shape[2]) != (q.shape[0], q.shape[2]):
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -98,7 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q/k/v must be contiguous")
     out = torch.empty_like(q)
     path, why = route(q.dtype, d, *(t.data_ptr() for t in (q, k, v, out)))
-    head = [] if path == "wgmma" else [_DTYPES[q.dtype]]
+    head = [_DTYPES[q.dtype]] if path == "simt" else []
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _kernel(path)(*head, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -112,11 +129,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.launches += 1
     if path == "wgmma":
         flash_attention.wgmma_launches += 1
+    elif path == "ffma":
+        flash_attention.ffma_launches += 1
     return out
 
 
 flash_attention.launches = 0     # kernel launches (CUDA tensors only)
 flash_attention.wgmma_launches = 0   # of those, on the tensor-core kernel
+flash_attention.ffma_launches = 0    # of those, on the register-tiled one
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):

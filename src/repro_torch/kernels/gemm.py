@@ -14,7 +14,10 @@ sits on the hot path.  Both block schedules exist:
 whichever entry point (``cuda_gemm``, ``CompiledKernel.run_cuda``,
 ``integrate.gemm_op``) made them; ``cuda_gemm.wgmma_launches`` those of
 them on the tensor-core route (``backend_cuda._gemm_route``: bf16
-operands, tk a multiple of 16, operands TMA can read).
+operands, tk a multiple of 16, operands TMA can read) and
+``cuda_gemm.ffma_launches`` those on the register-tiled CUDA-core route
+(``csrc/stagecc_gemm_ffma.cuh``: tiles multiples of 64, tk of 8, operands
+it can read 16 bytes at a time).  The rest run ``csrc/stagecc_gemm.cuh``.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ def cuda_gemm(a: torch.Tensor, b: torch.Tensor, *,
 
 cuda_gemm.launches = 0      # emitted-GEMM kernel launches (CUDA tensors)
 cuda_gemm.wgmma_launches = 0    # of those, on the tensor-core route
+cuda_gemm.ffma_launches = 0     # of those, on the register-tiled route
 
 
 def gemm_cost(m: int, n: int, k: int, schedule: str = "tpu_mxu_kgrid",

@@ -144,6 +144,15 @@ def _gemm_inputs(dev, m, n, k, epilogue, seed=0):
     return [torch.from_numpy(x).to(dev, torch.float32) for x in xs]
 
 
+def _shifted(x):
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary: only the simt kernels read it."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def _check_gemm(fn, xs, exact=False):
     """Launch ``fn`` once on ``xs``; hold it to gemm_plain and to the
     bracket of its roundings."""
@@ -170,9 +179,31 @@ def _check_gemm(fn, xs, exact=False):
     ("tpu_mxu", "tpu_mxu_kgrid"), ("float32", "bfloat16"),
     ("none", "relu", "bias_relu"))))
 def test_gemm_kernel_matches_plain(cuda, schedule, dtype, epilogue):
+    """Tiles 128: f32 on the register-tiled route, bf16 on the tensor
+    cores."""
     ck = compile_gemm(256, 384, 640, schedule=schedule, dtype=dtype,
                       epilogue=epilogue, want_torch=False)
+    before = (gemm.cuda_gemm.wgmma_launches, gemm.cuda_gemm.ffma_launches)
     _check_gemm(ck.run_cuda, _gemm_inputs(cuda, 256, 384, 640, epilogue))
+    assert (gemm.cuda_gemm.wgmma_launches - before[0],
+            gemm.cuda_gemm.ffma_launches - before[1]) == (
+        (1, 0) if dtype == "bfloat16" else (0, 1))
+
+
+@pytest.mark.parametrize("schedule,epilogue", list(itertools.product(
+    ("tpu_mxu", "tpu_mxu_kgrid"), ("none", "relu", "bias_relu"))))
+def test_simt_gemm_kernel_matches_plain(cuda, schedule, epilogue):
+    """test_gemm_kernel_matches_plain's f32 products on operands 4 bytes
+    past a 16-byte boundary: the plain CUDA-core template
+    (stagecc_gemm.cuh) at tiles 128."""
+    fn = compile_gemm(256, 384, 640, schedule=schedule, epilogue=epilogue,
+                      want_torch=False).run_cuda
+    xs = [_shifted(x) for x in _gemm_inputs(cuda, 256, 384, 640, epilogue)]
+    assert fn.route(*xs)[0] == "simt"
+    before = (gemm.cuda_gemm.wgmma_launches, gemm.cuda_gemm.ffma_launches)
+    _check_gemm(fn, xs)
+    assert (gemm.cuda_gemm.wgmma_launches,
+            gemm.cuda_gemm.ffma_launches) == before
 
 
 @pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
@@ -187,6 +218,11 @@ def test_gemm_kernel_odd_tiles(cuda, schedule, shape):
         ck = gemm._build(m, n, k, schedule, str(dtype)[6:],
                          gemm._pick_tile(m), gemm._pick_tile(n),
                          gemm._pick_tile(k))
+        # f32 on the plain CUDA-core template (stagecc_gemm.cuh); bf16
+        # where tk is a multiple of 16 on the tensor cores, else there too
+        route = ck.run_cuda.route(a, b)[0]
+        assert route == ("wgmma" if dtype == torch.bfloat16
+                         and ck.run_cuda.plan.tiles[2] % 16 == 0 else "simt")
         got = _check_gemm(ck.run_cuda, [a, b])
         assert torch.equal(got, gemm.cuda_gemm(a, b, schedule=schedule))
 
@@ -196,6 +232,7 @@ def test_gemm_kernel_reads_transposed_views(cuda, schedule):
     """The backward of gemm_op passes transposed views; the kernel reads
     them through their strides."""
     ck = compile_gemm(192, 320, 256, schedule=schedule, want_torch=False)
+    assert ck.run_cuda.plan.tiles[:2] == (96, 80)      # the simt template
     rng = np.random.default_rng(3)
     at, bt = (torch.from_numpy(rng.standard_normal(s)).to(cuda,
                                                           torch.float32).t()
@@ -299,9 +336,7 @@ def _qkv(dev, dtype, bh, sq, sk, d, seed=0):
             for s in ((bh, sq, d), (bh, sk, d), (bh, sk, d))]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
-                                       (torch.bfloat16, TOL_BF16)])
-@pytest.mark.parametrize("shape,causal,window", [
+FLASH_CASES = [
     ((3, 128, 128, 64), True, None),
     ((3, 128, 128, 64), False, None),
     ((2, 64, 128, 32), True, 32),            # Sk > Sq, a window
@@ -312,14 +347,22 @@ def _qkv(dev, dtype, bh, sq, sk, d, seed=0):
     ((1, 100, 70, 20), True, None),          # ragged tiles, hd not 4k
     ((2, 96, 96, 130), False, 16),           # a window without causal
     ((1, 64, 64, 16), True, 0),              # every row masked
-])
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
+                                       (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("shape,causal,window", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal, window):
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _qkv(cuda, dtype, *shape)
-    before = fa.flash_attention.launches
+    before = (fa.flash_attention.launches, fa.flash_attention.ffma_launches)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches == before[0] + 1
+    # f32 at a head dim that is a multiple of 4 runs flash_attention_ffma.cu
+    ffma = dtype == torch.float32 and shape[3] % 4 == 0
+    assert fa.flash_attention.ffma_launches == before[1] + ffma
     assert got.dtype == dtype and got.shape == q.shape
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert (got.float() - want.float()).abs().max().item() <= tol
@@ -328,6 +371,25 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal, window):
                                           causal=causal, window=window)
         assert ((got.float() - want32).abs()
                 <= BF16_ROUND * want32.abs() + TOL).all()
+
+
+@pytest.mark.parametrize("shape,causal,window", FLASH_CASES)
+def test_simt_flash_kernel_matches_plain(cuda, shape, causal, window):
+    """test_flash_kernel_matches_plain's f32 cases on q, k and v 4 bytes
+    past a 16-byte boundary: the simt kernel (flash_attention.cu) at every
+    head dim, with its masks, skipped tiles and ragged tiles."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (_shifted(t) for t in _qkv(cuda, torch.float32, *shape))
+    assert fa.route(q.dtype, q.shape[2], q.data_ptr())[0] == "simt"
+    before = (fa.flash_attention.launches, fa.flash_attention.wgmma_launches,
+              fa.flash_attention.ffma_launches)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.wgmma_launches - before[1],
+            fa.flash_attention.ffma_launches - before[2]) == (1, 0, 0)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert (got - want).abs().max().item() <= TOL
 
 
 def test_flash_kernel_ignores_the_reference_blocks(cuda):
@@ -456,13 +518,13 @@ def test_wgmma_gemm_bf16_output(cuda, epilogue):
 
 @pytest.mark.parametrize("case", ["f32", "tk1", "unaligned", "stride"])
 def test_gemm_route_stays_simt(cuda, case):
-    """f32 operands, tk = 1 (a prime K), an operand at an odd address and
-    one whose row stride is not 16 bytes run the CUDA-core kernel, and it
-    matches the plain version."""
+    """f32 operands on tiles of 96, tk = 1 (a prime K), an operand at an
+    odd address and one whose row stride is not 16 bytes run the plain
+    CUDA-core kernel (stagecc_gemm.cuh), and it matches the plain version."""
     rng = np.random.default_rng(4)
     if case == "f32":
-        fn = compile_gemm(128, 128, 128, want_torch=False).run_cuda
-        xs = _gemm_inputs(cuda, 128, 128, 128, "none")
+        fn = compile_gemm(96, 96, 96, want_torch=False).run_cuda
+        xs = _gemm_inputs(cuda, 96, 96, 96, "none")
     elif case == "tk1":
         fn = gemm._build(64, 96, 131, "tpu_mxu_kgrid", "bfloat16", 64, 96,
                          1).run_cuda
@@ -475,10 +537,11 @@ def test_gemm_route_stays_simt(cuda, case):
         a = wide[:, 1:129] if case == "unaligned" else wide[:, :128]
         xs = [a, torch.from_numpy(rng.standard_normal((128, 128))).to(
             cuda, torch.bfloat16)]
-    before = gemm.cuda_gemm.wgmma_launches
+    before = (gemm.cuda_gemm.wgmma_launches, gemm.cuda_gemm.ffma_launches)
     _check_gemm(fn, xs)
     assert fn.route(*xs)[0] == "simt"
-    assert gemm.cuda_gemm.wgmma_launches == before
+    assert (gemm.cuda_gemm.wgmma_launches,
+            gemm.cuda_gemm.ffma_launches) == before
 
 
 @pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
@@ -564,11 +627,13 @@ def test_flash_head_dims_above_256(cuda, dtype, d):
     output, each computing S over all of D."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _qkv(cuda, dtype, 2, 128, 192, d, seed=d)
-    before = (fa.flash_attention.launches, fa.flash_attention.wgmma_launches)
+    before = (fa.flash_attention.launches, fa.flash_attention.wgmma_launches,
+              fa.flash_attention.ffma_launches)
     got = fa.flash_attention(q, k, v, causal=True, window=100, block_k=64)
     torch.cuda.synchronize()
     assert (fa.flash_attention.launches - before[0],
-            fa.flash_attention.wgmma_launches - before[1]) == (1, 0)
+            fa.flash_attention.wgmma_launches - before[1],
+            fa.flash_attention.ffma_launches - before[2]) == (1, 0, 0)
     want = fa.flash_attention_plain(q, k, v, causal=True, window=100)
     tol = TOL if dtype == torch.float32 else TOL_BF16
     assert (got.float() - want.float()).abs().max().item() <= tol
@@ -577,6 +642,134 @@ def test_flash_head_dims_above_256(cuda, dtype, d):
                                           causal=True, window=100)
         assert ((got.float() - want32).abs()
                 <= BF16_ROUND * want32.abs() + TOL).all()
+
+
+# ---- the register-tiled CUDA-core (ffma) routes ----------------------------
+
+
+def _check_ffma(fn, xs, exact=False):
+    """_check_gemm, and the launch went down the ffma route."""
+    before = gemm.cuda_gemm.ffma_launches
+    got = _check_gemm(fn, xs, exact=exact)
+    assert fn.route(*xs)[0] == "ffma"
+    assert gemm.cuda_gemm.ffma_launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("epilogue", ["none", "bias_relu"])
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+@pytest.mark.parametrize("mnk", [(256, 384, 640), (2048, 2176, 256)])
+def test_ffma_gemm_matches_plain(cuda, schedule, epilogue, mnk):
+    """f32 at tiles 128: 6 and 272 plan tiles (24 and 1088 blocks of
+    64 x 64), inside the bracket and the f32 bound."""
+    fn = compile_gemm(*mnk, schedule=schedule, epilogue=epilogue,
+                      want_torch=False).run_cuda
+    _check_ffma(fn, _gemm_inputs(cuda, *mnk, epilogue, seed=mnk[0]))
+
+
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_ffma_gemm_operand_majors(cuda, schedule):
+    """A and B K-major or MN-major (gemm_op's backward passes a.t() and
+    b.t()): every major gives the same bits."""
+    m, n, k = 256, 384, 512
+    fn = compile_gemm(m, n, k, schedule=schedule, want_torch=False).run_cuda
+    a, b = _gemm_inputs(cuda, m, n, k, "none", seed=21)
+    at, bt = a.t().contiguous().t(), b.t().contiguous().t()
+    want = _check_ffma(fn, [a, b])
+    for x, y in ((at, b), (a, bt), (at, bt)):
+        assert torch.equal(_check_ffma(fn, [x, y]), want)
+
+
+@pytest.mark.parametrize("tk", [8, 24])
+@pytest.mark.parametrize("schedule", ["tpu_mxu", "tpu_mxu_kgrid"])
+def test_ffma_gemm_bf16_operands(cuda, schedule, tk):
+    """bf16 operands that the tensor cores do not take (tk not a multiple
+    of 16) run on ffma, widened on load; f32 output, every major."""
+    m, n, k = 128, 192, 384
+    fn = _bf16_gemm(schedule, "none", tk, m=m, n=n, k=k, tm=64, tn=64)
+    a, b = (x.bfloat16() for x in _gemm_inputs(cuda, m, n, k, "none",
+                                               seed=tk))
+    want = _check_ffma(fn, [a, b])
+    for x, y in ((a.t().contiguous().t(), b), (a, b.t().contiguous().t())):
+        assert torch.equal(_check_ffma(fn, [x, y]), want)
+
+
+def test_ffma_gemm_bf16_output(cuda):
+    """A matmul that accumulates in bf16, tk 8 (off the tensor cores): the
+    k-grid kernel rounds its running sum after every k tile, equal to the
+    plain version wherever only one value can be."""
+    m, n, k = 128, 256, 512
+    specs = [fe.spec((m, k), "bfloat16"), fe.spec((k, n), "bfloat16")]
+    ck = compile_traced(fe.trace(
+        lambda a, b: a._emit("matmul", [b], acc_dtype="bfloat16"), specs,
+        name="g"), schedule="tpu_mxu_kgrid",
+        tile={"m": 64, "n": 128, "k": 8}, want_torch=False)
+    xs = [x.bfloat16() for x in _gemm_inputs(cuda, m, n, k, "none", seed=23)]
+    _check_ffma(ck.run_cuda, xs, exact=True)
+
+
+def test_ffma_gemm_op_on_the_register_tiles(cuda):
+    """gemm_op at the smoke's 512 x 1024 x 768 (tiles 128): forward and
+    backward are three ffma launches, the gradients as autograd through
+    the plain version gives them."""
+    m, n, k = 512, 1024, 768
+    a, b = _gemm_inputs(cuda, m, n, k, "none", seed=24)
+    w = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        (m, n))).to(cuda, torch.float32)
+    op = integrate.gemm_op(m, n, k, backend="cuda")
+    plan = compile_gemm(m, n, k).run_cuda.plan
+    grads = []
+    for fn in (op, lambda x, y: backend_cuda.gemm_plain(plan, x, y)):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        before = gemm.cuda_gemm.ffma_launches
+        (fn(x, y) * w).sum().backward()
+        grads.append((x.grad, y.grad, gemm.cuda_gemm.ffma_launches - before))
+    (ga, gb, n_op), (pa, pb, n_plain) = grads
+    assert (n_op, n_plain) == (3, 0)
+    torch.testing.assert_close(ga, pa, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+    torch.testing.assert_close(gb, pb, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+
+
+def _flash_ffma(cuda, bh, sq, sk, d, causal, window, seed=0):
+    """One f32 flash_attention call on the ffma kernel against the plain
+    version, within tests/test_kernels.py's 2e-5."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, torch.float32, bh, sq, sk, d, seed=seed)
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention.launches, fa.flash_attention.ffma_launches)
+    got = fa.flash_attention(q, k, v, block_q=sq, block_k=sk, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.ffma_launches - before[1]) == (1, 1)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, None)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_ffma_flash_matches_plain(cuda, d, causal, window):
+    """Head dims 64, 128 and 256 (tiles 128 x 64, and 64 x 64), Sq and Sk
+    not multiples of the tiles, Sk > Sq."""
+    _flash_ffma(cuda, 3, 200, 330, d, causal, window, seed=d)
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 128, 64, 64), True, None),     # rows masked everywhere
+    ((2, 64, 64, 64), True, 0),         # every row masked: mean of V
+    ((2, 130, 130, 20), True, None),    # zero-filled to 64 columns
+    ((2, 96, 96, 132), False, 16),      # 132 columns on the D = 256 tiles
+    ((1, 100, 70, 16), True, 24),       # ragged, Sk < Sq
+])
+def test_ffma_flash_edges(cuda, shape, causal, window):
+    _flash_ffma(cuda, *shape, causal, window, seed=sum(shape))
+
+
+def test_ffma_flash_at_65536_heads(cuda):
+    """BH = 65536 at D = 128, past the 65535 blocks of a grid's second
+    axis."""
+    _flash_ffma(cuda, 65536, 64, 64, 128, True, None, seed=12)
 
 
 # ---- SSD scan ----------------------------------------------------------------
@@ -841,11 +1034,18 @@ def test_nests_not_spread_or_split_match_the_plain_version(cuda, case):
 
 
 def test_flash_kernel_at_65536_heads(cuda):
-    """BH = 65536, past the 65535 blocks of a grid's second axis."""
+    """BH = 65536, past the 65535 blocks of a grid's second axis, on
+    flash_attention.cu (f32 at a head dim that is not a multiple of 4)."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = _qkv(cuda, torch.float32, 65536, 64, 64, 32, seed=11)
+    q, k, v = _qkv(cuda, torch.float32, 65536, 64, 64, 30, seed=11)
+    assert fa.route(q.dtype, 30, q.data_ptr())[0] == "simt"
+    before = (fa.flash_attention.launches, fa.flash_attention.wgmma_launches,
+              fa.flash_attention.ffma_launches)
     got = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.wgmma_launches - before[1],
+            fa.flash_attention.ffma_launches - before[2]) == (1, 0, 0)
     want = fa.flash_attention_plain(q, k, v, causal=True)
     assert (got - want).abs().max().item() <= TOL
 

@@ -49,16 +49,18 @@ def _bf16_in(ck):
                          ids=[" ".join(g) for g in smoke.GEMMS])
 def test_route_of_each_smoke_gemm(smoke_gemms, i):
     """Every bf16 product of the smoke takes the tensor-core route at tiles
-    128, on contiguous operands; every f32 one the CUDA-core route."""
+    128, on contiguous operands; every f32 one the register-tiled CUDA-core
+    (ffma) route, whose launcher every source holds."""
     prod, _, ck = smoke_gemms[i]
     m, n, k = smoke.MLP[prod]
     plan = ck.run_cuda.plan
     route, why = backend_cuda._gemm_route(plan, (k, 1), (n, 1), 256, 512)
-    want = "wgmma" if _bf16_in(ck) else "simt"
+    want = "wgmma" if _bf16_in(ck) else "ffma"
     assert route == want, why
     assert ("stagecc_gemm_sm90.cuh" in ck.run_cuda.source) == (want == "wgmma")
     assert ("stagecc_gemm_wgmma_launch" in ck.run_cuda.source) == (
         want == "wgmma")
+    assert "stagecc_gemm_ffma_launch" in ck.run_cuda.source
 
 
 def test_smoke_gemms_share_sources(smoke_gemms):
@@ -99,9 +101,11 @@ def test_route_bf16_tiles(tk, schedule):
     ("bfloat16", 8, "tk 8 is not a multiple of 16"),
 ])
 def test_route_plan_refusals(dtype, tk, reason):
+    """Plans the tensor cores refuse; at tiles 128 and tk a multiple of 8
+    they take the register-tiled CUDA-core route instead."""
     fn = _plan(dtype=dtype, tk=tk)
     route, why = _route(fn, getattr(torch, dtype))
-    assert route == "simt" and reason in why
+    assert route == "ffma" and reason in why
     assert backend_cuda._gemm_route(fn.plan, (640, 1), (384, 1)) == (
         route, why)
     assert "stagecc_gemm_sm90.cuh" not in fn.source
@@ -192,7 +196,7 @@ def test_gemm_op_compiles_for_the_operands_type(schedule, a_dtype, b_dtype,
     (torch.bfloat16, 72, 0, "simt"),        # not a multiple of 16
     (torch.bfloat16, 320, 0, "simt"),       # above 256: column slices
     (torch.bfloat16, 128, 8, "simt"),       # not 16-byte aligned
-    (torch.float32, 128, 0, "simt"),
+    (torch.float32, 128, 0, "ffma"),        # the register-tiled kernel
 ])
 def test_flash_route(dtype, d, ptr, want):
     assert fa.route(dtype, d, 0, ptr, 256)[0] == want
