@@ -13,17 +13,22 @@ Phases, each printing its own lines; any failure exits nonzero:
      decode_attention, flash_attention, flash_attention_sm90,
      flash_attention_ffma and ssd_scan from src/repro_torch/kernels/csrc/,
      the emitted GEMMs and the general emitter's four sources; print the
-     tensor-core and register-tiled (ffma) kernels' registers, shared
-     memory and spills (ptxas);
+     tensor-core, register-tiled (ffma), decode attention and SSD kernels'
+     registers, shared memory and spills (ptxas);
   3. decode_attention against its plain PyTorch version at the serving
-     path's shapes, in float32 and bfloat16;
+     path's shapes, in float32 and bfloat16, with its launch plan (splits,
+     blocks, kernels a call);
   4. serve qwen2-7b at full width (random weights from a seed) through
      repro_torch.launch.serve.main, counting the kernel's launches, then
      profile a few decode steps for the device's busy time;
   5. the full-width decode step with the kernels against the plain versions;
   6. full-width prefill + decode against one full forward (teacher forcing);
   7. decode_attention's time per launch beside its bound, its plain
-     version's time and one PyTorch library call's time;
+     version's time and one PyTorch library call's time, with its launch
+     plan; then, each with the counts reset, one call at a prime cache
+     depth (547, block_k 1) and one on K/V that start 4 bytes past a
+     16-byte boundary (the element-copy instantiation), checked and timed
+     likewise;
   8. the compiled-GEMM path: the MLP products through the emitted kernels
      and a gemm_op forward and backward, counting the launches and those on
      the tensor-core route (every bf16 product) and the register-tiled
@@ -40,8 +45,11 @@ Phases, each printing its own lines; any failure exits nonzero:
      boundary, which only flash_attention.cu (simt) reads; each against its
      plain version and SDPA, then timed;
  10. the Mamba-2 SSD scan through ops.ssd (backend "cuda", the ssd_scan
-     kernel) at mamba2-130m's widths, f32 and bf16, likewise, and against
-     ops.ssd's "torch" backend;
+     kernels' three passes) at mamba2-130m's widths, f32 and bf16,
+     likewise, and against ops.ssd's "torch" backend; each pass's device
+     time from torch.profiler; then, with the count reset, one f32 call at
+     chunk 256, P 128 and N 256 (past 64, 64 and 128), held to the plain
+     version and timed;
  11. the compiled serving kernels: the flash graph at qwen2-7b's (causal)
      and gemma3-4b's (window 1024) widths, the decode graph at the serving
      shapes and the SSD graph at mamba2-130m's, compiled through
@@ -66,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import importlib.util
 import json
 import math
 import pathlib
@@ -132,6 +141,15 @@ ATTN = (("qwen2_7b", 2048), ("gemma3_4b", 4096))      # (config, Sq = Sk)
 # ssd_scan.bracket: one f32 bound on y, then the plain version's roundings.
 SSD_BATCH, SSD_SEQ = 4, 4096
 SSD_F32 = (1e-3, 1e-4)
+# ssd_scan's three kernels: (pass, kernel name in a profile)
+SSD_PASSES = (("chunk states", "ssd_states_kernel"),
+              ("state passing", "ssd_passing_kernel"),
+              ("chunk outputs", "ssd_outputs_kernel"))
+# one call at a chunk, P and N past 64, 64 and 128: (batch, S, H, P, N,
+# chunk)
+SSD_WIDE = (1, 1024, 2, 128, 256, 256)
+# decode_attention at a prime cache depth (no tile divides it but 1)
+PRIME_DEPTH, PRIME_VALID = 547, [0, 1, 273, 547]
 HAND_KERNELS = ("decode_attention", "flash_attention",
                 "flash_attention_sm90", "flash_attention_ffma", "ssd_scan")
 # The compiled serving kernels (phase 11), one (batch, head) slice each,
@@ -159,11 +177,18 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
+# cycles of the spin kernel before each timed call (~0.6 ms at the H100's
+# clock): the host enqueues the call while the card spins, so the time
+# between the events is the card's, not the host's launch latency
+LEAD_CYCLES = 1_000_000
+
+
 def time_ms(fn, flush: torch.Tensor, iters: int = 50, warm: int = 3) -> float:
     """Mean device time of one call with the L2 cache cold, as a decode
     step finds it (each layer's MLP weights stream through L2 between two
     attention calls).  CUDA events around each call; a 256 MiB write
-    before each evicts the 50 MB L2."""
+    before each evicts the 50 MB L2, then a spin kernel that touches no
+    memory keeps the card busy while the host enqueues the call."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -171,6 +196,7 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 50, warm: int = 3) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for start, end in ev:
         flush.zero_()
+        torch.cuda._sleep(LEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -256,6 +282,101 @@ def decode_attention_bound(q, k, valid):
     flops = sum(KV * rep * hd * (Smax if n <= 0 else 4 * min(n, Smax))
                 for n in valid.tolist())
     return roofline(nbytes, flops, F32_FLOP_PER_S)
+
+
+def plan_text(q, k, v) -> str:
+    """decode_attention's launch plan for these inputs: the ranges per
+    (b, group), the blocks and the kernels a call launches."""
+    from repro_torch.kernels import decode_attention as da
+    B, KV = q.shape[:2]
+    splits, length = da.split_plan(k.shape[2], B * KV)
+    copies = "16-byte" if da.wide(k, v) else "element"
+    return (f"{splits} splits of {length} positions, {B * KV * splits} "
+            f"blocks of 128 threads, {da.kernels_per_call(splits)} kernels "
+            f"a call, {copies} copies")
+
+
+def decode_phase(dev, flush, smi, launches, err32):
+    """Phase 7: decode_attention's rows.  The serving shapes (the main
+    path's ``launches``, error ``err32`` from phase 3); then, each with the
+    counts reset just before and read just after its one call, a prime
+    depth (Smax 547, block_k 1) and the element-copy instantiation (K and
+    V one element past a 16-byte boundary): each held to the plain
+    version and SDPA, then timed beside its bound."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, valid = attention_inputs(torch.float32, dev)
+    rows = [decode_row("decode_attention", (q, k, v, valid), 256, launches,
+                       err32, flush, smi)]
+
+    B, KV, rep, hd = q.shape
+    rng = np.random.default_rng(2)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, B, PRIME_DEPTH, KV, hd), dtype=np.float32)).to(dev)
+    deep = (q, cache[0].transpose(1, 2), cache[1].transpose(1, 2),
+            torch.tensor(PRIME_VALID, dtype=torch.int32, device=dev))
+    narrow = (q, shifted(k), shifted(v), valid)
+    for name, inputs, block_k, wide in (
+            (f"decode_attention Smax={PRIME_DEPTH} block_k=1", deep, 1, True),
+            ("decode_attention K/V 4 bytes off 16 [element copies]", narrow,
+             256, False)):
+        check(da.wide(*inputs[1:3]) == wide, f"{name}: copies")
+        da.decode_attention.launches = da.decode_attention.narrow_launches = 0
+        got = da.decode_attention(*inputs, block_k=block_k)
+        torch.cuda.synchronize()
+        counts = (da.decode_attention.launches,
+                  da.decode_attention.narrow_launches)
+        print(f"[kernel] {name}: launches {counts[0]}, element-copy launches"
+              f" {counts[1]}; {plan_text(*inputs[:3])}")
+        check(counts == (1, 0 if wide else 1), f"{name} launched {counts}")
+        err = (got - da.decode_attention_ref(*inputs)).abs().max().item()
+        check(err <= TOL_F32, f"{name}: error {err} > {TOL_F32}")
+        # SDPA's fused kernels may fault on misaligned inputs: it reads the
+        # aligned originals
+        rows.append(decode_row(name, inputs, block_k, counts[0], err, flush,
+                               smi,
+                               sdpa_kv=(k, v) if not wide else None))
+    return rows
+
+
+def decode_row(name, inputs, block_k, launches, err, flush, smi,
+               sdpa_kv=None):
+    """A JSON row of decode_attention on ``inputs`` (f32): held to SDPA,
+    then timed beside its bound, its plain version and SDPA."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, valid = inputs
+    B, KV, rep, hd = q.shape
+    addmask = torch.where(
+        torch.arange(k.shape[2], device=q.device)[None, :] < valid[:, None],
+        0.0, NEG).to(q.dtype)[:, None, None, :]
+    qh = q.reshape(B, KV * rep, 1, hd)
+    sk, sv = sdpa_kv or (k, v)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, sk, sv, attn_mask=addmask, enable_gqa=True)
+
+    def kernel():
+        return da.decode_attention(q, k, v, valid, block_k=block_k)
+
+    lib_err = (library().reshape(q.shape) - kernel()).abs().max().item()
+    check(lib_err <= TOL_LIBRARY, f"{name}: SDPA differs by {lib_err}")
+    bound, bound_by = decode_attention_bound(q, k, valid)
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:33",
+           "launches": launches, "max_abs_err": err,
+           "ms": time_ms(kernel, flush),
+           "plain_ms": time_ms(
+               lambda: da.decode_attention_ref(q, k, v, valid), flush),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": time_ms(library, flush)}
+    print(f"[timing] {name} f32 B={B} KV={KV} rep={rep} hd={hd} "
+          f"Smax={k.shape[2]} valid={valid.tolist()}, cold L2: kernel "
+          f"{row['ms'] * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+          f"({bound_by}), plain {row['plain_ms'] * 1e3:.1f} us, SDPA "
+          f"{row['library_ms'] * 1e3:.1f} us (SDPA vs kernel {lib_err:.1e})"
+          f"; {plan_text(q, k, v)}; card {smi}")
+    return row
 
 
 def flash_work(q, k, causal, window):
@@ -550,7 +671,88 @@ def ssd_phase(dev, flush, smi):
               f"kernel computes in, {flops / F32_FLOP_PER_S * 1e3:.3f} ms), "
               f"plain {row['plain_ms']:.3f} ms, library: no single PyTorch "
               f"call; card {smi}")
+        ssd_pass_times(name, args, chunk, flush, smi)
+    del cases, outs
+    rows.append(ssd_wide_row(dev, flush, smi))
     return rows
+
+
+def ssd_pass_times(name, args, chunk, flush, smi, iters: int = 10):
+    """Device time of each of an ssd_scan call's three kernels (chunk
+    states, state passing, chunk outputs), from torch.profiler over
+    ``iters`` ordinary calls, each after an L2 flush."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ssd_scan as ss
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            ss.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(kernel for _, kernel in SSD_PASSES)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        for kernel in ms:
+            if kernel in e.key and e.self_device_time_total > 0:
+                ms[kernel] = ((ms[kernel] or 0.0)
+                              + e.self_device_time_total / 1e3 / iters)
+    print(f"[timing] {name} by pass (device time per call, cold L2): "
+          + ", ".join(f"{what} " + ("not measured (the profiler recorded no"
+                                    " device time)" if ms[kernel] is None
+                                    else f"{ms[kernel]:.3f} ms")
+                      for what, kernel in SSD_PASSES) + f"; card {smi}")
+
+
+def ssd_wide_row(dev, flush, smi):
+    """One f32 call at chunk 256, P 128 and N 256, with the count reset
+    just before and read just after, held to the plain version and
+    timed."""
+    from repro_torch.kernels import ssd_scan as ss
+    batch, S, H, P, N, chunk = SSD_WIDE
+    rng = np.random.default_rng(3)
+    f32 = np.float32
+    x, dt, B, C = (torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((batch, S, H, P), dtype=f32),
+        np.abs(rng.standard_normal((batch, S, H), dtype=f32)) * 0.1,
+        rng.standard_normal((batch, S, N), dtype=f32),
+        rng.standard_normal((batch, S, N), dtype=f32)))
+    A = torch.from_numpy(-np.abs(rng.standard_normal(H, dtype=f32))).to(dev)
+    D = torch.from_numpy(rng.standard_normal(H, dtype=f32)).to(dev)
+    args = (x, dt, A, B, C, D)
+    name = (f"ssd_scan batch={batch} S={S} H={H} P={P} N={N} chunk={chunk} "
+            f"float32 [wide]")
+    ss.ssd_scan.launches = 0
+    got = ss.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    count = ss.ssd_scan.launches
+    want = ss.ssd_scan_plain(*args, chunk=chunk)
+    rtol, atol = SSD_F32
+    share = share_of(got, want, rtol, atol)
+    err = (got - want).abs().max().item()
+    print(f"[ssd] {name}: launches {count}; max_abs_err {err:.3e} vs the "
+          f"plain version, worst element at {share:.3g} of rtol {rtol:g} "
+          f"atol {atol:g}")
+    check(count == 1 and share <= 1 and bool(torch.isfinite(got).all()),
+          f"{name}: {count} launches, {share} of its bound")
+    nbytes, flops = ssd_work(x, B, chunk)
+    bound, bound_by = roofline(nbytes, flops, PEAK[torch.float32])
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:35",
+           "launches": count, "max_abs_err": err,
+           "ms": time_ms(lambda: ss.ssd_scan(*args, chunk=chunk), flush,
+                         iters=10),
+           "plain_ms": time_ms(lambda: ss.ssd_scan_plain(*args, chunk=chunk),
+                               flush, iters=3),
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    print(f"[timing] {name}, cold L2: kernel {row['ms']:.3f} ms, bound "
+          f"{bound:.3f} ms ({bound_by}), plain {row['plain_ms']:.3f} ms; "
+          f"card {smi}")
+    ssd_pass_times(name, args, chunk, flush, smi)
+    return row
 
 
 def compile_graphs(dev):
@@ -1020,13 +1222,18 @@ PTXAS_KERNELS = (
     (r"gemm_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", "gemm_wgmma"),
     (r"flash_sm90_kernelILi(\d+)E", "flash_sm90"),
     (r"gemm_ffma_kernelILi(\d+)ELb(\d)E", "gemm_ffma"),
-    (r"flash_ffma_kernelILi(\d+)E", "flash_ffma"))
+    (r"flash_ffma_kernelILi(\d+)E", "flash_ffma"),
+    (r"decode_split_kernelI(f|13__nv_bfloat16)Lb([01])E", "decode_split"),
+    (r"decode_combine_kernelI(f|13__nv_bfloat16)E", "decode_combine"),
+    (r"ssd_states_kernelI(f|13__nv_bfloat16)E", "ssd_states"),
+    (r"ssd_passing_kernelILi(\d)E", "ssd_passing"),
+    (r"ssd_outputs_kernelI(f|13__nv_bfloat16)E", "ssd_outputs"))
 
 
 def ptxas_rows(lib):
     """(kind, template arguments, registers, spill stores, spill loads) of
-    each tensor-core and register-tiled kernel in ``lib``'s build log
-    (``nvcc -Xptxas -v``)."""
+    each tensor-core, register-tiled, decode and SSD kernel in ``lib``'s
+    build log (``nvcc -Xptxas -v``)."""
     import re
     from repro_torch.kernels import _build
     rows, kind = [], None
@@ -1037,7 +1244,9 @@ def ptxas_rows(lib):
             for pattern, k in PTXAS_KERNELS:
                 g = re.search(pattern, m.group(1))
                 if g:
-                    kind, targs = k, tuple(int(x) for x in g.groups())
+                    kind, targs = k, tuple(
+                        int(x) if x.isdigit() else
+                        ("f32" if x == "f" else "bf16") for x in g.groups())
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
         if kind and spill:
@@ -1051,10 +1260,12 @@ def ptxas_rows(lib):
 
 def print_resources(sources):
     """Phase 2's [resources] lines: registers, dynamic shared memory and
-    spills of the tensor-core and register-tiled kernels built."""
+    spills of the tensor-core, register-tiled, decode attention and SSD
+    kernels built."""
     from repro_torch.kernels import _build
     built = [(_build.library_path(n), _build.load(n)) for n in (
-        "flash_attention_sm90", "flash_attention_ffma")]
+        "flash_attention_sm90", "flash_attention_ffma", "decode_attention",
+        "ssd_scan")]
     built += [(_build.source_library(s), _build.load_source(s))
               for s in sources if "stagecc_gemm_sm90.cuh" in s
               or "stagecc_gemm_ffma.cuh" in s]
@@ -1074,12 +1285,18 @@ def print_resources(sources):
             elif kind == "gemm_ffma":
                 name = f"gemm_ffma_kernel 64x64 tk={t[0]} kgrid={t[1]}"
                 smem, how = lib.stagecc_gemm_ffma_smem(), ""
-            else:
+            elif kind == "flash_ffma":
                 name, smem = (f"flash_ffma_kernel D<={t[0]}",
                               lib.flash_attention_ffma_smem(t[0]))
                 how = ""
+            else:       # the hand kernels of decode attention and SSD
+                name = f"{kind}_kernel {' '.join(map(str, t))}"
+                if kind == "decode_split":
+                    name += " (1: 16-byte copies)"
+                smem, how = "", ""
+            smem = f"{smem} bytes of" if smem != "" else "sized per call,"
             print(f"[resources] {path.name} {name}: {regs} registers a "
-                  f"thread{' ' + how if how else ''}; {smem} bytes of dynamic "
+                  f"thread{' ' + how if how else ''}; {smem} dynamic "
                   f"shared memory; spills {stores}/{loads} bytes "
                   f"stored/loaded")
 
@@ -1089,7 +1306,19 @@ def main() -> int:
     cli.add_argument("--gemm-seeds", type=int, default=0,
                      help="run only the bf16 GEMM gates over this many "
                           "seeds")
+    cli.add_argument("--timing-of", metavar="DIR", type=pathlib.Path,
+                     help="run DIR/chip_smoke.py (another checkout's smoke, "
+                          "on its own code) with this script's time_ms, so "
+                          "that both checkouts' times share one method")
     opts = cli.parse_args()
+    if opts.timing_of:
+        spec = importlib.util.spec_from_file_location(
+            "other_chip_smoke", opts.timing_of.resolve() / "chip_smoke.py")
+        other = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(other)
+        other.time_ms = time_ms
+        sys.argv = sys.argv[:1]
+        return other.main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -1149,7 +1378,7 @@ def main() -> int:
         errs[dtype] = err
         print(f"[kernel] decode_attention {str(dtype)[6:]} "
               f"B=4 KV=4 rep=7 hd=128 Smax=161 valid=[0,1,129,161]: "
-              f"max_abs_err {err:.3e} (limit {tol:g})")
+              f"max_abs_err {err:.3e} (limit {tol:g}); {plan_text(q, k, v)}")
         check(err <= tol, f"decode_attention {dtype} error {err} > {tol}")
         if dtype == torch.bfloat16:
             want32 = da.decode_attention_ref(q.float(), k.float(), v.float(),
@@ -1211,6 +1440,14 @@ def main() -> int:
             for ms, n, name in rows[:8]:
                 print(f"[profile]   {ms:8.3f} ms/step  {n:4d} launches/step"
                       f"  {name[:90]}")
+            ours = [(ms, n, name) for ms, n, name in rows
+                    if "decode_split_kernel" in name
+                    or "decode_combine_kernel" in name]
+            print(f"[profile] decode_attention: "
+                  f"{sum(r[0] for r in ours):.3f} ms/step over "
+                  f"{sum(r[1] for r in ours)} kernel launches/step (" +
+                  ", ".join(f"{name[name.index('decode_'):].split('(')[0]}"
+                            f" {ms:.3f} ms" for ms, _, name in ours) + ")")
 
         # 5. decode logits, kernels vs plain versions, same params and cache
         cache = model.cache_init(BATCH, PROMPT + GEN + 1)
@@ -1244,39 +1481,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. time per launch beside the bound, the plain version and SDPA
-    q, k, v, valid = attention_inputs(torch.float32, dev)
-    B, KV, rep, hd = q.shape
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
-    addmask = torch.where(
-        torch.arange(k.shape[2], device=dev)[None, :] < valid[:, None],
-        0.0, -1e30).to(q.dtype)[:, None, None, :]
-    qh = q.reshape(B, KV * rep, 1, hd)
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qh, k, v, attn_mask=addmask, enable_gqa=True)
-
-    lib_err = (library().reshape(q.shape) - da.decode_attention(
-        q, k, v, valid)).abs().max().item()
-    check(lib_err <= TOL_LIBRARY, f"SDPA differs from the kernel by {lib_err}")
-    bound, bound_by = decode_attention_bound(q, k, valid)
-    row = {"name": "decode_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-           "replaces": "src/repro/kernels/decode_attention.py:33",
-           "launches": launches, "max_abs_err": errs[torch.float32],
-           "ms": time_ms(lambda: da.decode_attention(q, k, v, valid), flush),
-           "plain_ms": time_ms(
-               lambda: da.decode_attention_ref(q, k, v, valid), flush),
-           "bound_ms": bound, "bound_by": bound_by,
-           "library_ms": time_ms(library, flush)}
-    print(f"[timing] decode_attention f32 B=4 KV=4 rep=7 hd=128 Smax=161 "
-          f"valid=[0,1,129,161], cold L2: kernel {row['ms'] * 1e3:.1f} us, "
-          f"bound {bound * 1e3:.2f} us ({bound_by}), plain "
-          f"{row['plain_ms'] * 1e3:.1f} us, SDPA {row['library_ms'] * 1e3:.1f}"
-          f" us (SDPA vs kernel {lib_err:.1e}); card {smi}")
+    rows = decode_phase(dev, flush, smi, launches, errs[torch.float32])
+    torch.cuda.empty_cache()
 
     # 8. the compiled-GEMM path
-    rows = [row] + gemm_phase(gemms, dev, flush, smi)
+    rows += gemm_phase(gemms, dev, flush, smi)
 
     # 9. blocked attention; 10. the SSD scan
     rows += attention_phase(dev, flush, smi)

@@ -1,4 +1,4 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), in three passes.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py::_ssd_kernel
 // (wrapper `ssd_scan`, pallas_call at line 84) and computes its function,
@@ -13,41 +13,66 @@
 //   h_out = exp(s_L) h + ((exp(s_L - s) dt) o x)^T B
 // with the (P, N) f32 state h carried from chunk to chunk.
 //
-// Arithmetic: IEEE f32 on the CUDA cores; bf16 inputs are widened on load.
+// Arithmetic: IEEE f32 FFMA on the CUDA cores; bf16 inputs are widened on
+// load (the result must stay within ssd_scan.bracket, an f32 bound, so
+// neither the tensor cores' bf16 nor TF32 would do).
 //
 // What bounds it: at mamba2-130m's widths (P = 64, N = 128, L = 64, 24
 // heads) the function does 14.7 GFLOP on 220 MB at batch 4 x 4096 steps,
-// ~67 flops per byte, above the ~20 the f32 CUDA cores need per HBM byte
-// (B and C are read by all 24 heads, from L2): the least time is the
-// flops over the 67 TFLOP/s f32 rate (0.22 ms there).  The design keeps
-// everything of a chunk in shared memory (x, dt·x, B, C, G, s and the
-// state: 147 KB at those widths), and each thread a 4 x 4 tile of G or y,
-// or an 8 x 4 tile of the state, in registers, reading float4 rows.
+// ~67 flops per byte, above the ~20 the f32 CUDA cores need per HBM byte:
+// the least time is the flops over the 67 TFLOP/s f32 rate (0.22 ms).
 //
-// Design: the TPU grid is (H, S/L), and its chunk axis carries the state
-// in VMEM scratch.  That axis is sequential, so it becomes a loop over
-// chunks inside one block of 256 threads per (sequence, head; the sequence
-// is the grid's y axis, launched in slices of at most 65535), with the
-// state in shared memory, stored transposed (h_s[n][p]) so that a row of
-// the output reads 4 consecutive p as one float4.  Per chunk: (0) load x,
-// dt, B, C, zero-padded to multiples of 4; one thread takes the cumsum,
-// in order; (1) G; (2) y; (3) the state update, each thread updating the
-// elements it owns.  batch x H blocks (96 at 4 x 24) leave 36 of the 132
-// SMs idle and run one chunk after another: a three-pass design (chunk
-// states, state passing, outputs) that runs the chunks in parallel is the
-// next step.
+// Design: the TPU grid is (H, S/L), its chunk axis sequential, carrying
+// the state in VMEM.  Only the state recurrence h <- exp(s_L) h + S_c is
+// sequential; everything else of a chunk depends on the state entering it
+// and on the chunk's own inputs.  So three kernels, each over every chunk
+// of every head and sequence at once:
+//   1. chunk states (ssd_states_kernel, 128-thread blocks): one block per
+//      (sequence, chunk, head, 64 x 64 tile of the (P, N) state) writes the
+//      chunk's own state S_c = ((exp(s_L - s) dt) o x)^T B, transposed to
+//      (N, P), its decay exp(s_L), and s = cumsum(dt A) of every step (a
+//      warp scan over tiles of 32 steps, carried from tile to tile); blocks
+//      after those write each chunk's C B^T, which no head changes;
+//   2. state passing (ssd_passing_kernel): one thread per 4 state elements
+//      (1 when P N is not a multiple of 4) per (sequence, head) walks the
+//      chunks in order, h <- decay h + S, the reference's recurrence in
+//      its order, with four chunks' loads in flight, and writes in place
+//      the state that enters each chunk;
+//   3. chunk outputs (ssd_outputs_kernel, 256 threads, two blocks an SM):
+//      one block per (sequence, chunk, head, 64-row tile of the chunk,
+//      64-column tile of P): yi = G (dt o x), G = mask o exp(s_t - s_u) o
+//      C B^T from pass 1's C B^T and s, u in tiles of 64 up to the
+//      diagonal tile (so L x L never sits in shared memory at once, and
+//      chunk, P and N take any size); then y = exp(s) o (C h^T) + yi, h
+//      the state entering the chunk, N in tiles of 64.
+// Each block starts every load of a phase before it waits on any: f32
+// tiles go by cp.async, the rest through registers, into rows padded to 68
+// floats; the products run on register tiles read as float4 (4 x 8 a
+// thread in pass 1, 4 x 4 in pass 3; 12 LDS.128 per 128 and 8 per 64
+// FFMA, no bank conflicts), and in pass 3's diagonal tile a warp stops at
+// its last row.
+//
+// One state per chunk: the states cross device memory four times (written
+// by 1, read and written by 2, read by 3), at mamba2-130m 4 x 201 MB,
+// ~0.24 ms, more than the bound.  Keeping one state per segment of k
+// chunks divides that by k and pays in pass 3 for recomputing a segment's
+// earlier chunk states; on the H100 segments of 2 and 4 chunks were slower
+// than one state per chunk (PERF.md), so the kernels keep one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLMax = 64;   // chunk: 16 thread rows x 4
-constexpr int kPMax = 64;   // head dim: 16 thread columns x float4
-constexpr int kNMax = 128;  // state dim: 16 thread rows x 8
-constexpr int kMaxGridY = 65535;  // blocks a grid's y axis can hold
+constexpr int kT = 64;       // tile edge (rows, steps, columns of P or N)
+constexpr int kLd = kT + 4;  // padded row stride of a tile in shared memory
+constexpr int kTile = kT * kLd;  // floats of one tile buffer
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -58,197 +83,571 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ void fma4(float* acc, float a, const float4& b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
+// Four consecutive elements from device memory, widened to f32; those at
+// or past `avail` are 0.  `vec`: the four may be read as one 16-byte (f32)
+// or 8-byte (bf16) load.
+__device__ __forceinline__ float4 load4(const float* p, int avail, bool vec) {
+  if (vec && avail >= 4) return *reinterpret_cast<const float4*>(p);
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (avail > 0) r.x = p[0];
+  if (avail > 1) r.y = p[1];
+  if (avail > 2) r.z = p[2];
+  if (avail > 3) r.w = p[3];
+  return r;
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int avail,
+                                        bool vec) {
+  if (vec && avail >= 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (avail > 0) r.x = __bfloat162float(p[0]);
+  if (avail > 1) r.y = __bfloat162float(p[1]);
+  if (avail > 2) r.z = __bfloat162float(p[2]);
+  if (avail > 3) r.w = __bfloat162float(p[3]);
+  return r;
 }
 
-// Copy L rows of `width` elements, the row t at src + t * stride, to dst
-// (row stride ld), zero from `width` up to the next multiple of 4.
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float get(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// acc[i][e] += a[i].k b[k].e over k < 4: one step of a 4 x 4 register tile
+// whose A values come 4 along the reduction axis and B values 4 along the
+// output columns.
+__device__ __forceinline__ void fma_tile(float (&acc)[4][4],
+                                         const float4 (&a)[4],
+                                         const float4 (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float ak = get(a[i], k);
+      acc[i][0] = fmaf(ak, b[k].x, acc[i][0]);
+      acc[i][1] = fmaf(ak, b[k].y, acc[i][1]);
+      acc[i][2] = fmaf(ak, b[k].z, acc[i][2]);
+      acc[i][3] = fmaf(ak, b[k].w, acc[i][3]);
+    }
+}
+
+struct Dims {
+  int S, H, P, N, L;
+  int nc;              // chunks of a sequence
+  int ptiles, ttiles;  // 64-wide tiles of P and of a chunk's rows
+  bool xvec;  // x rows: P a multiple of 4, x aligned (16 bytes f32, 8 bf16)
+  bool bvec;  // B/C rows likewise, with N
+  bool svec;  // state rows (along P) 16-byte copies: P a multiple of 4
+};
+
+// Copy the 64 x 64 tile src[r * ld + c] (rows r < nr, columns c < nc; the
+// rest is zero) to dst[r * dld + c] in f32.  f32 rows that are 16-byte
+// aligned go by cp.async (the caller commits and waits); everything else
+// through registers.
 template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          long long stride, int L, int width,
-                                          int width4) {
-  for (int e = threadIdx.x; e < L * width4; e += kThreads) {
-    const int t = e / width4, c = e - t * width4;
-    dst[t * ld + c] = c < width ? to_f32(src[t * stride + c]) : 0.f;
+__device__ __forceinline__ void stage64(float* dst, int dld, const T* src,
+                                        long long ld, int nr, int nc,
+                                        bool vec) {
+  for (int e = threadIdx.x; e < kT * (kT / 4); e += blockDim.x) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec) {
+        const int n = r < nr ? max(0, min(4, nc - c)) : 0;
+        cpa::copy16(dst + r * dld + c, n ? src + r * ld + c : src, 4 * n);
+        continue;
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * dld + c) =
+        r < nr ? load4(src + r * ld + c, nc - c, vec)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
+// Warp 0 of a block: s for the chunk's rows [t0, t0 + 64) (those past n add
+// 0), given `carry` = s of row t0 - 1 (0 for the first).  Lane l takes rows
+// t0 + l and t0 + 32 + l; each half is an inclusive warp scan added to the
+// carry.  Writes s to s_out (if given) and returns the carry past the tile
+// on every lane.  Pass 1 is the only pass that scans a chunk for its
+// outputs; pass 3 reads the s it wrote.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ B,
-                    const T* __restrict__ C, T* __restrict__ y, int S, int H,
-                    int P, int N, int L) {
-  extern __shared__ float4 smem4[];
-  const int p4 = (P + 3) / 4 * 4, n4 = (N + 3) / 4 * 4, np = n4 + 4;
-  float* h_s = reinterpret_cast<float*>(smem4);  // [n4][p4] state h^T
-  float* b_s = h_s + n4 * p4;                    // [L][np]
-  float* c_s = b_s + L * np;                     // [L][np]
-  float* x_s = c_s + L * np;                     // [L][p4]
-  float* xw_s = x_s + L * p4;  // [L][p4] dt o x, then exp(s_L - s) dt o x
-  float* g_s = xw_s + L * p4;  // [L][L + 1] G
-  float* s_s = g_s + L * (L + 1);  // [L] cumsum
-  float* dt_s = s_s + L;           // [L]
+__device__ __forceinline__ float scan_tile(const T* dt0, long long stride,
+                                           float a, int n, float carry,
+                                           float* s_out) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int j = half * 32 + lane;
+    float v = j < n ? __fmul_rn(to_f32(dt0[j * stride]), a) : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float w = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v = __fadd_rn(v, w);
+    }
+    const float s = __fadd_rn(carry, v);
+    if (s_out) s_out[j] = s;
+    carry = __shfl_sync(0xffffffffu, s, 31);
+  }
+  return carry;
+}
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int h = blockIdx.x;
-  const long long b = blockIdx.y;
-  const long long row = (long long)H * P;  // x's stride along S
-  const T* xb = x + b * S * row + (long long)h * P;
-  T* yb = y + b * S * row + (long long)h * P;
-  const T* dtb = dt + b * S * H + h;
-  const T* bb = B + b * S * N;
-  const T* cb = C + b * S * N;
-  const float a = A[h];
-  const int p = 4 * tx;  // this thread's 4 columns of y and of the state
+// The state tiles' thread layout: threads [0, 128) of a block each own a
+// 4 x 8 register tile of a 64 x 64 (p, n) tile, p = 4 ty + i and
+// n = 4 tx + 32 j + e (j < 2, e < 4: 8 lanes read 128 consecutive bytes).
+constexpr int kStateThreads = 128;
 
-  for (int e = tid; e < n4 * p4; e += kThreads) h_s[e] = 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += L) {
-    __syncthreads();  // the last chunk is done with every buffer
-    load_rows(x_s, p4, xb + t0 * row, row, L, P, p4);
-    load_rows(b_s, np, bb + (long long)t0 * N, N, L, N, n4);
-    load_rows(c_s, np, cb + (long long)t0 * N, N, L, N, n4);
-    for (int t = tid; t < L; t += kThreads)
-      dt_s[t] = to_f32(dtb[(long long)(t0 + t) * H]);
-    __syncthreads();
-    if (tid == 0) {  // in order, as a running sum
-      float run = 0.f;
-      for (int t = 0; t < L; ++t) {
-        run += dt_s[t] * a;
-        s_s[t] = run;
+// acc = sum_u exp(s_L - s_u) dt_u x_u[p] B_u[n] over chunk c of sequence
+// b, head h, with acc[i][4 j + e] at p = p0 + 4 ty + i and n = n0 + 4 tx +
+// 32 j + e (tx = tid & 7, ty = tid >> 3; threads past 128 only help stage).
+// Uses xw_s and b_s (a tile each), s_s and w_s (64 floats each).  Writes
+// the chunk's s to s_out unless it is null.  Returns s_L in warp 0.
+template <typename T>
+__device__ __forceinline__ float chunk_state(
+    float (&acc)[4][8], const T* __restrict__ x, const T* __restrict__ dt,
+    const T* __restrict__ B, float a, const Dims& d, long long b, int h,
+    int c, int p0, int n0, float* xw_s, float* b_s, float* s_s, float* w_s,
+    float* __restrict__ s_out) {
+  const int tid = threadIdx.x, tx = tid & 7, ty = (tid >> 3) & 15;
+  const long long row0 = b * d.S + (long long)c * d.L;  // first step
+  const T* dtc = dt + row0 * d.H + h;
+  float s_last = 0.f;  // warp 0's
+  if (d.L > kT && tid < 32) {  // several tiles: s_L first, a sweep
+    for (int u0 = 0; u0 < d.L; u0 += kT)
+      s_last = scan_tile(dtc + (long long)u0 * d.H, d.H, a,
+                         min(kT, d.L - u0), s_last, nullptr);
+  }
+  float carry = 0.f;
+  for (int u0 = 0; u0 < d.L; u0 += kT) {
+    const int nu = min(kT, d.L - u0);
+    // x rows [u][p] and B rows [u][n]; the copies run while warp 0 scans
+    stage64(xw_s, kLd, x + ((row0 + u0) * d.H + h) * d.P + p0,
+            (long long)d.H * d.P, nu, d.P - p0, d.xvec);
+    stage64(b_s, kLd, B + (row0 + u0) * d.N + n0, d.N, nu, d.N - n0,
+            d.bvec);
+    cpa::commit();
+    if (tid < 32) {
+      carry = scan_tile(dtc + (long long)u0 * d.H, d.H, a, nu, carry, s_s);
+      if (d.L <= kT) s_last = carry;  // one tile: s of the last row
+      __syncwarp();
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = half * 32 + tid;
+        const float sj = s_s[j];
+        if (s_out && j < nu) s_out[u0 + j] = sj;
+        w_s[j] = j < nu ? expf(s_last - sj) *
+                              to_f32(dtc[(long long)(u0 + j) * d.H])
+                        : 0.f;
       }
     }
-    for (int e = tid; e < L * p4; e += kThreads)
-      xw_s[e] = dt_s[e / p4] * x_s[e];
+    cpa::wait<0>();
+    __syncthreads();  // the tiles and w_s are in
+    // xw_s[u][p] *= w_u
+    for (int e = tid; e < kT * (kT / 4); e += blockDim.x) {
+      float4* q = reinterpret_cast<float4*>(xw_s + (e >> 4) * kLd +
+                                            (e & 15) * 4);
+      const float w = w_s[e >> 4];
+      float4 v = *q;
+      v.x *= w;
+      v.y *= w;
+      v.z *= w;
+      v.w *= w;
+      *q = v;
+    }
     __syncthreads();
-
-    // (1) G[t][u] for t = ty + 16i, u = tx + 16j (rows past L clamped and
-    // not stored)
-    {
-      float cbt[4][4] = {};
-      for (int n = 0; n < n4; n += 4) {
-        float4 bv[4];
+    if (tid < kStateThreads) {
+      for (int u = 0; u < kT; u += 4) {
+        float4 xq[4], bq[2][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(
-              b_s + min(tx + 16 * j, L - 1) * np + n);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 cv = *reinterpret_cast<const float4*>(
-              c_s + min(ty + 16 * i, L - 1) * np + n);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            cbt[i][j] = fmaf(cv.x, bv[j].x, cbt[i][j]);
-            cbt[i][j] = fmaf(cv.y, bv[j].y, cbt[i][j]);
-            cbt[i][j] = fmaf(cv.z, bv[j].z, cbt[i][j]);
-            cbt[i][j] = fmaf(cv.w, bv[j].w, cbt[i][j]);
-          }
+        for (int k = 0; k < 4; ++k) {
+          xq[k] = lds4(xw_s + (u + k) * kLd + 4 * ty);
+          bq[0][k] = lds4(b_s + (u + k) * kLd + 4 * tx);
+          bq[1][k] = lds4(b_s + (u + k) * kLd + 4 * tx + 32);
         }
+        // acc[i][4 j + e] += x[u + k][4 ty + i] B[u + k][4 tx + 32 j + e]
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float xv = get(xq[k], i);
+              acc[i][4 * j + 0] = fmaf(xv, bq[j][k].x, acc[i][4 * j + 0]);
+              acc[i][4 * j + 1] = fmaf(xv, bq[j][k].y, acc[i][4 * j + 1]);
+              acc[i][4 * j + 2] = fmaf(xv, bq[j][k].z, acc[i][4 * j + 2]);
+              acc[i][4 * j + 3] = fmaf(xv, bq[j][k].w, acc[i][4 * j + 3]);
+            }
       }
+    }
+    if (u0 + kT < d.L) __syncthreads();  // before the next tile's copies
+  }
+  return s_last;
+}
+
+// One 64 x 64 tile of C B^T for the chunk's rows [t0, t0 + 64) and steps
+// [u0, u0 + 64), summed over N, into cb (the chunk's L x L, row-major); a
+// 128-thread block, 4 x 8 a thread: t = t0 + 4 ty + i, u = u0 + tx + 8 j.
+template <typename T>
+__device__ __forceinline__ void chunk_cb_tile(const T* __restrict__ B,
+                                              const T* __restrict__ C,
+                                              float* __restrict__ cb,
+                                              const Dims& d, long long row0,
+                                              int t0, int u0, float* c_s,
+                                              float* b_s) {
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  float g[4][8] = {};
+  for (int n0 = 0; n0 < d.N; n0 += kT) {
+    __syncthreads();
+    stage64(c_s, kLd, C + (row0 + t0) * d.N + n0, d.N, d.L - t0, d.N - n0,
+            d.bvec);
+    stage64(b_s, kLd, B + (row0 + u0) * d.N + n0, d.N, d.L - u0, d.N - n0,
+            d.bvec);
+    cpa::commit();
+    cpa::wait<0>();
+    __syncthreads();
+    for (int n = 0; n < kT; n += 4) {
+      float4 cv[4], bv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cv[i] = lds4(c_s + (4 * ty + i) * kLd + n);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = lds4(b_s + (tx + 8 * j) * kLd + n);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = ty + 16 * i, u = tx + 16 * j;
-          if (t < L && u < L)  // exp only where u <= t
-            g_s[t * (L + 1) + u] =
-                u <= t ? expf(s_s[t] - s_s[u]) * cbt[i][j] : 0.f;
+        for (int j = 0; j < 8; ++j) {
+          g[i][j] = fmaf(cv[i].x, bv[j].x, g[i][j]);
+          g[i][j] = fmaf(cv[i].y, bv[j].y, g[i][j]);
+          g[i][j] = fmaf(cv[i].z, bv[j].z, g[i][j]);
+          g[i][j] = fmaf(cv[i].w, bv[j].w, g[i][j]);
         }
     }
-    __syncthreads();
-
-    // (2) y[t][p..p+3] = exp(s_t) (C h^T)[t] + (G (dt o x))[t]
-    if (p < p4) {
-      float yi[4][4] = {}, ye[4][4] = {};
-      for (int u = 0; u < L; ++u) {
-        const float4 xv = *reinterpret_cast<const float4*>(xw_s + u * p4 + p);
+  }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          fma4(yi[i], g_s[min(ty + 16 * i, L - 1) * (L + 1) + u], xv);
-      }
-      for (int n = 0; n < n4; ++n) {
-        const float4 hv = *reinterpret_cast<const float4*>(h_s + n * p4 + p);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          fma4(ye[i], c_s[min(ty + 16 * i, L - 1) * np + n], hv);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        if (t >= L) continue;
-        const float es = expf(s_s[t]);
-        T* yt = yb + (t0 + t) * row + p;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (p + e < P) store(yt + e, es * ye[i][e] + yi[i][e]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int t = t0 + 4 * ty + i, u = u0 + tx + 8 * j;
+      if (t < d.L && u < d.L) cb[(long long)t * d.L + u] = g[i][j];
     }
-    __syncthreads();  // h and dt o x are read
+}
 
-    // (3) h^T[n][p..p+3] = exp(s_L) h^T + sum_u B[u][n] (w o x)[u], with
-    // w = exp(s_L - s) dt, for n = ty + 16i
-    const float s_last = s_s[L - 1];
-    for (int e = tid; e < L * p4; e += kThreads) {
-      const int u = e / p4;
-      xw_s[e] = expf(s_last - s_s[u]) * dt_s[u] * x_s[e];
+// Pass 1, in blocks of 128 threads.  Blocks [0, state_blocks): one per
+// (sequence, chunk, head, 64 x 64 tile of the state) writes the states,
+// transposed, [batch][nc][H][N][P], the decays [batch][nc][H] and s of
+// every step, [batch][nc][H][L]; the blocks after them, one per (sequence,
+// chunk, lower-triangle tile of 64 x 64), write C B^T, [batch][nc][L][L],
+// which does not depend on the head (pass 3 reads it instead of forming it
+// once per head).
+template <typename T>
+__global__ void __launch_bounds__(kStateThreads, 4)
+    ssd_states_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                      const float* __restrict__ A, const T* __restrict__ B,
+                      const T* __restrict__ C, float* __restrict__ ws,
+                      float* __restrict__ decays, float* __restrict__ s_ws,
+                      float* __restrict__ cb_ws, long long state_blocks,
+                      Dims d) {
+  extern __shared__ float4 smem4[];
+  float* xw_s = reinterpret_cast<float*>(smem4);
+  float* b_s = xw_s + kTile;
+  float* s_s = b_s + kTile;
+  float* w_s = s_s + kT;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  if (blockIdx.x >= state_blocks) {  // a tile of C B^T
+    long long q = blockIdx.x - state_blocks;
+    const int tri = d.ttiles * (d.ttiles + 1) / 2;
+    int k = (int)(q % tri);
+    q /= tri;
+    const int c = (int)(q % d.nc);
+    const long long b = q / d.nc;
+    int tt = 0;
+    while (k > tt) k -= ++tt;
+    chunk_cb_tile(B, C, cb_ws + (b * d.nc + c) * (long long)d.L * d.L, d,
+                  b * d.S + (long long)c * d.L, tt * kT, k * kT, xw_s, b_s);
+    return;
+  }
+  const int ntl = (d.N + kT - 1) / kT;
+  const int tiles = d.ptiles * ntl;
+  long long rest = blockIdx.x;
+  const int tile = (int)(rest % tiles);
+  rest /= tiles;
+  const int h = (int)(rest % d.H);
+  rest /= d.H;
+  const int c = (int)(rest % d.nc);
+  const long long b = rest / d.nc;
+  const int p0 = (tile / ntl) * kT, n0 = (tile % ntl) * kT;
+  const long long sidx = (b * d.nc + c) * d.H + h;
+
+  float acc[4][8] = {};
+  const float s_last =
+      chunk_state(acc, x, dt, B, A[h], d, b, h, c, p0, n0, xw_s, b_s, s_s,
+                  w_s, tile == 0 ? s_ws + sidx * d.L : nullptr);
+
+  // the state, transposed: st[n][p]
+  float* st = ws + sidx * d.P * d.N;
+  const int p = p0 + 4 * ty;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int n = n0 + 4 * tx + 32 * (e >> 2) + (e & 3);
+    if (n >= d.N || p >= d.P) continue;
+    float* row = st + (long long)n * d.P + p;
+    if (d.svec) {
+      *reinterpret_cast<float4*>(row) =
+          make_float4(acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (p + i < d.P) row[i] = acc[i][e];
     }
-    __syncthreads();
-    if (p < p4) {
-      float hn[8][4] = {};
-      for (int u = 0; u < L; ++u) {
-        const float4 xv = *reinterpret_cast<const float4*>(xw_s + u * p4 + p);
+  }
+  if (tile == 0 && tid == 0) decays[sidx] = expf(s_last);
+}
+
+// Pass 2: one thread per VEC state elements of one (sequence, head),
+// with the next kAhead chunks' states and decays in flight.
+constexpr int kAhead = 4;
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    ssd_passing_kernel(float* __restrict__ ws,
+                       const float* __restrict__ decays, long long lanes,
+                       Dims d) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= lanes) return;
+  const long long per = (long long)d.P * d.N / VEC;  // lanes a (seq, head)
+  const long long bh = idx / per, e = idx - bh * per;
+  const long long b = bh / d.H;
+  const int h = (int)(bh - b * d.H);
+  const long long step = (long long)d.H * d.P * d.N;  // chunk to chunk
+  float* p = ws + ((b * d.nc) * d.H + h) * d.P * d.N + e * VEC;
+  const float* dec = decays + b * d.nc * d.H + h;
+  using V = typename std::conditional<VEC == 4, float4, float>::type;
+  V ring[kAhead];
+  float dring[kAhead];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          fma4(hn[i], b_s[u * np + min(ty + 16 * i, n4 - 1)], xv);
+  for (int k = 0; k < kAhead; ++k) {
+    ring[k] = k < d.nc ? *reinterpret_cast<const V*>(p + k * step) : V{};
+    dring[k] = k < d.nc ? dec[(long long)k * d.H] : 0.f;
+  }
+  V hs{};
+  for (int c0 = 0; c0 < d.nc; c0 += kAhead) {
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int c = c0 + k;
+      if (c >= d.nc) break;
+      const V cur = ring[k];
+      const float dk = dring[k];
+      if (c + kAhead < d.nc) {
+        ring[k] = *reinterpret_cast<const V*>(p + (c + kAhead) * step);
+        dring[k] = dec[(long long)(c + kAhead) * d.H];
       }
-      const float decay = expf(s_last);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int n = ty + 16 * i;
-        if (n >= n4) continue;
-        float4* hp = reinterpret_cast<float4*>(h_s + n * p4 + p);
-        float4 hv = *hp;
-        hv.x = decay * hv.x + hn[i][0];
-        hv.y = decay * hv.y + hn[i][1];
-        hv.z = decay * hv.z + hn[i][2];
-        hv.w = decay * hv.w + hn[i][3];
-        *hp = hv;
+      *reinterpret_cast<V*>(p + c * step) = hs;  // the state entering c
+      if constexpr (VEC == 4) {
+        hs.x = dk * hs.x + cur.x;
+        hs.y = dk * hs.y + cur.y;
+        hs.z = dk * hs.z + cur.z;
+        hs.w = dk * hs.w + cur.w;
+      } else {
+        hs = dk * hs + cur;
       }
     }
   }
 }
 
+// Pass 3: y for one (sequence, chunk, head, 64-row tile, 64-column tile of
+// P), thread tile t = t0 + 4 ty + i, p = p0 + 4 tx + e (a warp's rows are
+// 8 consecutive ones).  yi = G (dt o x) over the u tiles up to the
+// diagonal one, G = mask o exp(s_t - s_u) o C B^T from pass 1's C B^T and
+// s (in the diagonal tile a warp stops at its last row); then ye = C h^T
+// over N in tiles of 64, h the state entering the chunk, two N tiles in
+// flight.  Every load of a phase is issued before the block waits on any.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_outputs_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                       const T* __restrict__ C, const float* __restrict__ ws,
+                       const float* __restrict__ s_ws,
+                       const float* __restrict__ cb_ws, T* __restrict__ y,
+                       Dims d) {
+  extern __shared__ float4 smem4[];
+  float* g_s = reinterpret_cast<float*>(smem4);  // [t][u] G
+  float* xw_s = g_s + kTile;     // [u][p] dt o x
+  float* c_s = xw_s + kTile;     // 2 x [t][n] C rows
+  float* h_s = c_s + 2 * kTile;  // 2 x [n][p] the state entering the chunk
+  float* st_s = h_s + 2 * kTile;  // [64] s of the tile's rows
+  float* su_s = st_s + kT;        // [64] s of a u tile
+  float* dt_s = su_s + kT;        // [64] dt of a u tile
+  const int tiles = d.ttiles * d.ptiles;
+  long long rest = blockIdx.x;
+  const int tile = (int)(rest % tiles);
+  rest /= tiles;
+  const int h = (int)(rest % d.H);
+  rest /= d.H;
+  const int c = (int)(rest % d.nc);
+  const long long b = rest / d.nc;
+  const int t0 = (tile / d.ptiles) * kT, p0 = (tile % d.ptiles) * kT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long row0 = b * d.S + (long long)c * d.L;
+  const T* dtc = dt + row0 * d.H + h;
+  const float* sc = s_ws + ((b * d.nc + c) * d.H + h) * (long long)d.L;
+  const float* cbc = cb_ws + (b * d.nc + c) * (long long)d.L * d.L;
+  const float* st = ws + ((b * d.nc + c) * d.H + h) * (long long)d.P * d.N;
+  const int nk = (d.N + kT - 1) / kT;
+  auto issue_inter = [&](int k) {  // C and h for N tile k, into buffer k & 1
+    const int n0 = k * kT;
+    stage64(c_s + (k & 1) * kTile, kLd, C + (row0 + t0) * d.N + n0, d.N,
+            d.L - t0, d.N - n0, d.bvec);
+    stage64(h_s + (k & 1) * kTile, kLd, st + (long long)n0 * d.P + p0, d.P,
+            d.N - n0, d.P - p0, d.svec);
+    cpa::commit();
+  };
+  issue_inter(0);
+  if (nk > 1) issue_inter(1);
+  if (tid < kT) st_s[tid] = t0 + tid < d.L ? sc[t0 + tid] : 0.f;
+
+  // intra: yi = G (dt o x)
+  float yi[4][4] = {};
+  for (int u0 = 0; u0 <= t0; u0 += kT) {
+    const int nu = min(kT, d.L - u0);
+    __syncthreads();  // the last tile's products are done
+    stage64(g_s, kLd, cbc + (long long)t0 * d.L + u0, d.L, d.L - t0, nu,
+            d.L % 4 == 0);
+    stage64(xw_s, kLd, x + ((row0 + u0) * d.H + h) * d.P + p0,
+            (long long)d.H * d.P, nu, d.P - p0, d.xvec);
+    cpa::commit();
+    if (tid < kT) {
+      su_s[tid] = tid < nu ? sc[u0 + tid] : 0.f;
+      dt_s[tid] = tid < nu ? to_f32(dtc[(long long)(u0 + tid) * d.H]) : 0.f;
+    }
+    cpa::wait<0>();
+    __syncthreads();
+    // in place: G[t][u] = exp(s_t - s_u) (C B^T)[t][u] for u <= t, else 0;
+    // xw[u][p] = dt_u x[u][p]
+    for (int e = tid; e < kT * (kT / 4); e += kThreads) {
+      const int r = e >> 4, q = (e & 15) * 4, t = t0 + r;
+      float4* gp = reinterpret_cast<float4*>(g_s + r * kLd + q);
+      float gv[4] = {gp->x, gp->y, gp->z, gp->w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int u = u0 + q + k;
+        gv[k] = u <= t && t < d.L ? expf(st_s[r] - su_s[q + k]) * gv[k]
+                                  : 0.f;
+      }
+      *gp = make_float4(gv[0], gv[1], gv[2], gv[3]);
+      float4* xp = reinterpret_cast<float4*>(xw_s + r * kLd + q);
+      const float w = dt_s[r];
+      float4 xv = *xp;
+      xv.x *= w;
+      xv.y *= w;
+      xv.z *= w;
+      xv.w *= w;
+      *xp = xv;
+    }
+    __syncthreads();
+    // past the warp's last row G is 0 in the diagonal tile
+    const int u_end = u0 == t0 ? min(kT, 8 * (tid >> 5) + 8) : kT;
+    for (int u = 0; u < u_end; u += 4) {
+      float4 gq[4], xq[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gq[i] = lds4(g_s + (4 * ty + i) * kLd + u);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) xq[k] = lds4(xw_s + (u + k) * kLd + 4 * tx);
+      fma_tile(yi, gq, xq);
+    }
+  }
+
+  // inter: ye = C h^T
+  float ye[4][4] = {};
+  for (int k = 0; k < nk; ++k) {
+    if (k + 1 < nk)  // tile k + 1 may stay in flight
+      cpa::wait<1>();
+    else
+      cpa::wait<0>();
+    __syncthreads();
+    const float* cs = c_s + (k & 1) * kTile;
+    const float* hs = h_s + (k & 1) * kTile;
+    for (int n = 0; n < kT; n += 4) {
+      float4 cq[4], hq[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cq[i] = lds4(cs + (4 * ty + i) * kLd + n);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hq[j] = lds4(hs + (n + j) * kLd + 4 * tx);
+      fma_tile(ye, cq, hq);
+    }
+    __syncthreads();  // before the buffer takes N tile k + 2
+    if (k + 2 < nk) issue_inter(k + 2);
+  }
+
+  // y = exp(s) o ye + yi
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + 4 * ty + i;
+    if (t >= d.L) continue;
+    const float es = expf(st_s[4 * ty + i]);
+    T* yr = y + ((row0 + t) * d.H + h) * d.P;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + 4 * tx + e;
+      if (p < d.P) store(yr + p, es * ye[i][e] + yi[i][e]);
+    }
+  }
+}
+
+constexpr size_t kStatesSmem = sizeof(float) * (2 * kTile + 2 * kT);
+constexpr size_t kOutputsSmem = sizeof(float) * (6 * kTile + 3 * kT);
+
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* B,
-           const void* C, void* y, int batch, int S, int H, int P, int N,
-           int L, cudaStream_t stream) {
-  if (L < 1 || L > kLMax || S % L || P < 1 || P > kPMax || N < 1 ||
-      N > kNMax)
-    return (int)cudaErrorInvalidValue;
-  const int p4 = (P + 3) / 4 * 4, n4 = (N + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * (n4 * p4 + 2 * L * (n4 + 4) +
-                                       2 * L * p4 + L * (L + 1) + 2 * L);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+           const void* C, void* y, void* ws, int batch, Dims d,
+           cudaStream_t stream) {
+  const long long states = (long long)batch * d.nc * d.H;
+  float* wsf = static_cast<float*>(ws);
+  float* decays = wsf + states * d.P * d.N;
+  float* s_ws = decays + states;
+  // C B^T is read 16 bytes at a time: its region starts on 16 bytes
+  float* cb_ws = s_ws + ((long long)batch * d.S * d.H + 3) / 4 * 4 +
+                 (4 - reinterpret_cast<size_t>(s_ws) / sizeof(float) % 4) % 4;
+  {
+    const long long state_blocks = states * d.ptiles * ((d.N + kT - 1) / kT);
+    const long long cb_blocks =
+        (long long)batch * d.nc * (d.ttiles * (d.ttiles + 1) / 2);
+    ssd_states_kernel<T><<<(unsigned)(state_blocks + cb_blocks),
+                           kStateThreads, kStatesSmem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dt),
+        static_cast<const float*>(A), static_cast<const T*>(B),
+        static_cast<const T*>(C), wsf, decays, s_ws, cb_ws, state_blocks, d);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
-    const long long ox = (long long)b0 * S * H * P,
-                    odt = (long long)b0 * S * H, obc = (long long)b0 * S * N;
-    const int n = batch - b0 < kMaxGridY ? batch - b0 : kMaxGridY;
-    ssd_scan_kernel<T><<<dim3(H, n), kThreads, smem, stream>>>(
-        static_cast<const T*>(x) + ox, static_cast<const T*>(dt) + odt,
-        static_cast<const float*>(A), static_cast<const T*>(B) + obc,
-        static_cast<const T*>(C) + obc, static_cast<T*>(y) + ox, S, H, P, N,
-        L);
+  {
+    const bool quads = (long long)d.P * d.N % 4 == 0;
+    const long long lanes = states / d.nc * d.P * d.N / (quads ? 4 : 1);
+    const unsigned blocks = (unsigned)((lanes + kThreads - 1) / kThreads);
+    if (quads)
+      ssd_passing_kernel<4><<<blocks, kThreads, 0, stream>>>(wsf, decays,
+                                                             lanes, d);
+    else
+      ssd_passing_kernel<1><<<blocks, kThreads, 0, stream>>>(wsf, decays,
+                                                             lanes, d);
     const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  {
+    auto kernel = ssd_outputs_kernel<T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kOutputsSmem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks =
+        (long long)batch * d.nc * d.H * d.ttiles * d.ptiles;
+    kernel<<<(unsigned)blocks, kThreads, kOutputsSmem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dt),
+        static_cast<const T*>(C), wsf, s_ws, cb_ws, static_cast<T*>(y), d);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
@@ -257,17 +656,35 @@ int launch(const void* x, const void* dt, const void* A, const void* B,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, B, C and y); A is float32.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for sizes the kernel does not take.  Launches on
-// `stream` and does not synchronise.
+// ws, 16-byte aligned, holds batch * (S / L * H * (P * N + 1) + S * (H +
+// L)) + 8 floats.  Launches the three kernels in order and returns
+// cudaGetLastError() after the launches (0 on success), or
+// cudaErrorInvalidValue for sizes the kernel does not take (any the
+// reference refuses).  Launches on `stream` and does not synchronise.
 extern "C" int ssd_scan_launch(int dtype, const void* x, const void* dt,
                                const void* A, const void* B, const void* C,
-                               void* y, int batch, int S, int H, int P, int N,
-                               int L, void* stream) {
+                               void* y, void* ws, int batch, int S, int H,
+                               int P, int N, int L, void* stream) {
+  if (batch < 1 || L < 1 || S < L || S % L || H < 1 || P < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  Dims d{};
+  d.S = S;
+  d.H = H;
+  d.P = P;
+  d.N = N;
+  d.L = L;
+  d.nc = S / L;
+  d.ptiles = (P + kT - 1) / kT;
+  d.ttiles = (L + kT - 1) / kT;
+  const int align = dtype == 0 ? 16 : 8;  // bytes of four elements
+  d.xvec = P % 4 == 0 && reinterpret_cast<size_t>(x) % align == 0;
+  d.bvec = N % 4 == 0 && reinterpret_cast<size_t>(B) % align == 0 &&
+           reinterpret_cast<size_t>(C) % align == 0;
+  d.svec = P % 4 == 0;
+  if (reinterpret_cast<size_t>(ws) % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, A, B, C, y, batch, S, H, P, N, L, s);
+  if (dtype == 0) return launch<float>(x, dt, A, B, C, y, ws, batch, d, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, B, C, y, batch, S, H, P, N, L, s);
+    return launch<__nv_bfloat16>(x, dt, A, B, C, y, ws, batch, d, s);
   return (int)cudaErrorInvalidValue;
 }

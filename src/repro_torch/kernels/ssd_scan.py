@@ -14,10 +14,14 @@ Shapes: x (..., S, H, P), dt (..., S, H), A (H,), B/C (..., S, N), D (H,)
 or None.  The reference's functions take (S, H, P) alone and ``ops.ssd``
 vmaps them; here leading dims are a batch axis of one launch.
 
-  * ``ssd_scan`` launches the hand-written kernel in ``csrc/ssd_scan.cu``
-    on CUDA tensors and runs ``ssd_scan_plain``, the plain version of the
-    kernel's maths, on CPU tensors.  The D skip is added outside the
-    kernel, after y is cast to x's dtype, as the reference does.
+  * ``ssd_scan`` launches the hand-written kernels in ``csrc/ssd_scan.cu``
+    on CUDA tensors: three passes (chunk states, state passing, chunk
+    outputs), each over every chunk at once.  On CPU tensors it runs
+    ``ssd_scan_plain``, the plain version of the kernel's maths.  The D
+    skip is added outside the kernels, after y is cast to x's dtype, as the
+    reference does.  ``ssd_chunk_states_plain``,
+    ``ssd_state_passing_plain`` and ``ssd_chunk_outputs_plain`` are the
+    plain versions of the three passes; composed, they are ``_chunk_scan``.
   * ``ssd_chunked`` is the reference's XLA path in plain PyTorch: the
     same chunked maths, with the D skip added in f32 and one cast.
 """
@@ -32,7 +36,6 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 128   # the kernel's tiles
 _LIB = None
 
 
@@ -40,7 +43,7 @@ def _kernel():
     global _LIB
     if _LIB is None:
         fn = _build.load("ssd_scan").ssd_scan_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = fn
@@ -125,29 +128,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, B, C)):
         raise TypeError(f"x/dt/B/C must share one dtype of {list(_DTYPES)};"
                         f" got {x.dtype}, {dt.dtype}, {B.dtype}, {C.dtype}")
-    S, H, P = x.shape[-3:]
-    N = B.shape[-1]
-    if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
-        raise ValueError(f"chunk {chunk}, head dim {P}, state {N}: the "
-                         f"kernel takes at most {MAX_CHUNK}, {MAX_HEAD_DIM}"
-                         f", {MAX_STATE}")
     if not all(t.is_contiguous() for t in (x, dt, B, C)):
         raise ValueError("x/dt/B/C must be contiguous")
-    batch = math.prod(x.shape[:-3])
-    a32 = A.float().contiguous()
+    *lead, S, H, P = x.shape
     y = torch.empty_like(x)
+    ws = _workspace(x, B, chunk)
+    a32 = A.float().contiguous()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _kernel()(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(),
                         a32.data_ptr(), B.data_ptr(), C.data_ptr(),
-                        y.data_ptr(), batch, S, H, P, N, chunk, stream)
+                        y.data_ptr(), ws.data_ptr(), math.prod(lead), S, H,
+                        P, B.shape[-1], chunk, stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     ssd_scan.launches += 1
     return _add_skip(y, x, D)
 
 
-ssd_scan.launches = 0     # kernel launches (CUDA tensors only)
+ssd_scan.launches = 0     # calls that launched (CUDA tensors only)
+
+
+def _workspace(x, B, chunk):
+    """The f32 workspace of one ``ssd_scan`` call: a (P, N) state and a
+    decay per (sequence, chunk, head), s = cumsum(dt A) per step and head,
+    and each chunk's (L, L) C B^T."""
+    *lead, S, H, P = x.shape
+    return torch.empty(math.prod(lead) * (S // chunk * H
+                                          * (P * B.shape[-1] + 1)
+                                          + S * (H + chunk)) + 8,
+                       dtype=torch.float32, device=x.device)
 
 
 def ssd_scan_plain(x, dt, A, B, C, D=None, *, chunk=64):
@@ -155,6 +165,65 @@ def ssd_scan_plain(x, dt, A, B, C, D=None, *, chunk=64):
     y cast to x's dtype, then the D skip."""
     chunk = _check(x, dt, A, B, C, D, chunk)
     return _add_skip(_chunk_scan(x, dt, A, B, C, chunk).to(x.dtype), x, D)
+
+
+def _chunk_parts(x, dt, A, B, chunk):
+    """Per chunk, in f32: x, dt, B (..., nc, L, ...) and s = cumsum(dt A)
+    (..., nc, L, H)."""
+    lead, (S, H, P) = x.shape[:-3], x.shape[-3:]
+    nc = S // chunk
+    xc = x.float().reshape(lead + (nc, chunk, H, P))
+    dtc = dt.float().reshape(lead + (nc, chunk, H))
+    Bc = B.float().reshape(lead + (nc, chunk, B.shape[-1]))
+    s = torch.cumsum(dtc * A.float(), dim=-2)
+    return xc, dtc, Bc, s
+
+
+def _chunk_state(xc, dtc, Bc, s):
+    """S_c = ((exp(s_L - s) dt) o x)^T B: (..., nc, H, P, N)."""
+    w = torch.exp(s[..., -1:, :] - s) * dtc
+    return torch.einsum("...cuhp,...cun->...chpn", w[..., None] * xc, Bc)
+
+
+def ssd_chunk_states_plain(x, dt, A, B, *, chunk=64):
+    """Pass 1: per (sequence, chunk, head) the chunk's own state
+    S_c = ((exp(s_L - s) dt) o x)^T B and its decay exp(s_L).  Returns
+    (states (..., nc, H, P, N), decays (..., nc, H)), f32."""
+    xc, dtc, Bc, s = _chunk_parts(x, dt, A, B, chunk)
+    return _chunk_state(xc, dtc, Bc, s), torch.exp(s[..., -1, :])
+
+
+def ssd_state_passing_plain(states, decays):
+    """Pass 2: the state entering each chunk, h <- decay h + S in chunk
+    order from 0.  states (..., nc, H, P, N), decays (..., nc, H)."""
+    h, out = torch.zeros_like(states[..., 0, :, :, :]), []
+    for k in range(states.shape[-4]):
+        out.append(h)
+        h = decays[..., k, :, None, None] * h + states[..., k, :, :, :]
+    return torch.stack(out, -4)
+
+
+def ssd_chunk_outputs_plain(x, dt, A, B, C, h_in, *, chunk=64):
+    """Pass 3: y = exp(s) o (C h^T) + (M o C B^T)(dt o x) per chunk, h the
+    state entering the chunk, ``h_in`` (..., nc, H, P, N).  Returns
+    (..., S, H, P) f32, without the D skip."""
+    xc, dtc, Bc, s = _chunk_parts(x, dt, A, B, chunk)
+    Cc = C.float().reshape(Bc.shape)
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]      # (t, u, 1)
+    ys = []
+    for c in range(xc.shape[-4]):
+        h = h_in[..., c, :, :, :]
+        sk, Ck = s[..., c, :, :], Cc[..., c, :, :]
+        M = torch.where(causal, torch.exp(sk[..., :, None, :]
+                                          - sk[..., None, :, :]), 0.0)
+        CB = Ck @ Bc[..., c, :, :].transpose(-1, -2)
+        y_intra = torch.einsum("...tuh,...uhp->...thp", M * CB[..., None],
+                               dtc[..., c, :, :, None] * xc[..., c, :, :, :])
+        y_inter = torch.exp(sk)[..., None] * torch.einsum(
+            "...tn,...hpn->...thp", Ck, h)
+        ys.append(y_inter + y_intra)
+    return torch.stack(ys, dim=-4).reshape(x.shape)
 
 
 def bracket(x, dt, A, B, C, D=None, *, chunk=64, rtol=1e-3, atol=1e-4):

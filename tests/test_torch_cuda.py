@@ -78,6 +78,94 @@ def test_kernel_matches_plain(cuda, dtype, tol, shape, valid, block_k):
                 <= BF16_ROUND * want32.abs() + TOL).all()
 
 
+def _check_decode(q, k, v, valid, dtype, splits=None, **kw):
+    """The kernel against the plain version: through ``decode_attention``,
+    or, given ``splits``, through its launcher in that many ranges."""
+    if splits is None:
+        got = da.decode_attention(q, k, v, valid, **kw)
+    else:
+        got = da._launch(q, k, v, valid, da.split_plan(
+            k.shape[2], q.shape[0] * q.shape[1], splits))
+    torch.cuda.synchronize()
+    want = da.decode_attention_ref(q, k, v, valid)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.isfinite(got).all()
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid,splits", [
+    ([5, 20], 8),            # ranges of 8: later ranges wholly past valid
+    ([15, 16], 4),           # ranges of 16: a boundary at valid +- 1
+    ([17, 47], 4),
+    ([0, 0], 4),             # an empty cache: the mean of V
+    ([0, 33], 3),
+    ([40, 64], 80),          # more ranges than positions
+    ([64, 1], 1),            # one range: no merge kernel
+    ([64, 63], 2),           # ranges of 32: each a whole tile
+])
+def test_kernel_split_edges(cuda, dtype, valid, splits):
+    """The split ranges and the merge at their edges, against the plain
+    version and the plain version of the split itself."""
+    q, k, v, valid = _inputs(cuda, dtype, 2, 2, 3, 64, 64, valid, seed=3)
+    got = _check_decode(q, k, v, valid, dtype, splits=splits)
+    want = da.decode_attention_split_ref(q, k, v, valid, splits)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["shifted", "hd_6", "odd_stride"])
+def test_kernel_narrow_copies(cuda, dtype, case):
+    """K/V rows the 16-byte copies cannot read (data 1 element past a
+    16-byte boundary, hd 6, hd 30 of rows 32 wide) take the
+    element-by-element instantiation, at several split counts."""
+    hd = 6 if case == "hd_6" else 32
+    q, k, v, valid = _inputs(cuda, dtype, 2, 3, 4, hd, 150, [150, 37],
+                             seed=4)
+    if case == "shifted":
+        k, v = shifted(k), shifted(v)
+    elif case == "odd_stride":
+        k, v = k[..., :-2], v[..., :-2]
+        q = q[..., :-2]
+    assert not da.wide(k, v)
+    for splits in (None, 1, 5):
+        before = (da.decode_attention.launches,
+                  da.decode_attention.narrow_launches)
+        _check_decode(q, k, v, valid, dtype, splits=splits)
+        assert (da.decode_attention.launches - before[0],
+                da.decode_attention.narrow_launches - before[1]) == (1, 1)
+
+
+def shifted(x):
+    """A copy of ``x`` whose data starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("splits", [None, 3])
+def test_kernel_above_65535_groups(cuda, splits):
+    """B * KV = 66000 blocks of groups (x splits), past a grid's 65535 on
+    any axis but x, through the split and the merge kernels."""
+    q, k, v, valid = _inputs(cuda, torch.float32, 33000, 2, 2, 8, 24,
+                             list(range(24)) * 1375, seed=5)
+    _check_decode(q, k, v, valid, torch.float32, splits=splits)
+
+
+@pytest.mark.parametrize("depth", [547, 4096])
+def test_kernel_deep_caches(cuda, depth):
+    """A prime depth at block_k 1 (the kernel's ranges ignore it) and a
+    long cache whose ranges span many tiles (two tile buffers)."""
+    q, k, v, valid = _inputs(cuda, torch.float32, 2, 2, 7, 128, depth,
+                             [depth, depth // 3], seed=6)
+    block_k = 1 if depth == 547 else 256
+    _check_decode(q, k, v, valid, torch.float32, block_k=block_k)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, valid = _inputs(cuda, torch.float32, 1, 1, 2, 16, 32, [4])
     with pytest.raises(TypeError):
@@ -799,6 +887,14 @@ def _ssd(dev, dtype, batch, S, H, P, N, seed=0):
     ((2, 256, 3, 64, 128), 64, True),        # mamba2-130m's P, N, chunk
     ((1, 96, 2, 6, 5), 32, True),            # widths not 4k
     ((2, 8, 2, 3, 4), 64, True),             # one chunk shorter than 64
+    # chunk above 64, P above 64 and N above 128, which the reference's
+    # kernel takes
+    ((1, 256, 2, 8, 4), 128, True),
+    ((1, 512, 2, 8, 4), 256, True),
+    ((1, 128, 1, 65, 4), 64, True),
+    ((1, 128, 1, 128, 16), 64, True),
+    ((1, 128, 1, 8, 129), 64, True),
+    ((1, 128, 1, 8, 256), 64, True),
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, shape, chunk, with_d):
     from repro_torch.kernels import ssd_scan as ss
@@ -820,8 +916,8 @@ def test_ssd_kernel_matches_plain(cuda, dtype, shape, chunk, with_d):
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels import ssd_scan as ss
     x, dt, A, B, C, D = _ssd(cuda, torch.float32, 1, 256, 2, 8, 4)
-    with pytest.raises(ValueError, match="chunk 128"):
-        ss.ssd_scan(x, dt, A, B, C, D, chunk=128)
+    with pytest.raises(ValueError, match="must divide chunk"):
+        ss.ssd_scan(x, dt, A, B, C, D, chunk=96)
     with pytest.raises(TypeError):
         ss.ssd_scan(x.half(), dt.half(), A, B.half(), C.half(), D)
     with pytest.raises(TypeError):
@@ -829,10 +925,6 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ss.ssd_scan(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2),
                     C, D)
-    for P, N in ((65, 4), (8, 129)):
-        big = _ssd(cuda, torch.float32, 1, 64, 1, P, N)
-        with pytest.raises(ValueError, match="the kernel takes"):
-            ss.ssd_scan(*big)
 
 
 def test_ops_ssd_one_launch_and_backends(cuda):

@@ -5,7 +5,11 @@ On the CPU the port's ``ssd_scan`` runs its plain PyTorch version; the JAX
 side runs the Pallas kernel in interpret mode, as tests/test_kernels.py
 does, and its oracles.  Inputs are drawn as tests/test_kernels.py:82-90
 draws them, with numpy from a seed.  The hand-written kernel itself is held
-against the plain version on a GPU, in test_torch_cuda.py.
+against the plain version on a GPU, in test_torch_cuda.py.  The kernel's
+three passes (chunk states, state passing, chunk outputs) have plain
+versions of their own; composed, they are held to the JAX kernel and to
+``ssd_scan_plain``, at chunk 128 and 256, P 128 and N 256 among
+others.
 """
 
 import jax.numpy as jnp
@@ -121,6 +125,62 @@ def test_bf16_each_side_of_the_d_add():
     assert (got_chunked != want_chunked).mean() < 0.01
     assert (want_scan != want_chunked).mean() > 0.1
     assert (got_scan != want_chunked).mean() > 0.1
+
+
+def _passes(t, chunk):
+    """The three plain passes composed: y (..., S, H, P) f32, no D."""
+    x, dt, A, B, C = t[:5]
+    states, decays = ss.ssd_chunk_states_plain(x, dt, A, B, chunk=chunk)
+    h_in = ss.ssd_state_passing_plain(states, decays)
+    return ss.ssd_chunk_outputs_plain(x, dt, A, B, C, h_in, chunk=chunk)
+
+
+@pytest.mark.parametrize("S,H,P,N,chunk", [
+    (128, 4, 16, 8, 32),
+    (96, 2, 6, 5, 32),          # widths not 4k
+    (256, 2, 8, 4, 128),        # chunk 128
+    (512, 1, 8, 8, 256),        # chunk 256
+    (128, 1, 128, 16, 64),      # P 128
+    (128, 1, 8, 256, 64),       # N 256
+    (128, 1, 65, 129, 64),      # P 65, N 129: a tile and one more
+])
+def test_passes_compose_to_jax_kernel(S, H, P, N, chunk):
+    arrays = _inputs(S, H, P, N, seed=S + P + N)
+    j, t = _cast(arrays)
+    y = _passes(t, chunk)
+    skip = (t[5][:, None] * t[0].float())
+    want_scan = _np(jax_scan(*j, chunk=chunk))
+    want_chunked = _np(jax_chunked(*j, chunk=chunk))
+    np.testing.assert_allclose(_np(y + skip), want_scan, **ACROSS)
+    np.testing.assert_allclose(_np(y + skip), want_chunked, **ACROSS)
+    np.testing.assert_allclose(_np(y), _np(ss._chunk_scan(*t[:5], chunk)),
+                               **ACROSS)
+    np.testing.assert_allclose(_np(y + skip),
+                               _np(ss.ssd_scan_plain(*t, chunk=chunk)),
+                               **ACROSS)
+
+
+def test_passes_with_a_batch_axis():
+    """Leading dims ride through every pass, and the passes are the state
+    recurrence of ``_chunk_scan`` in the same order."""
+    arrays = _inputs(64, 3, 8, 4, seed=5, lead=(2,))
+    _, t = _cast(arrays)
+    states, decays = ss.ssd_chunk_states_plain(*t[:4], chunk=16)
+    assert states.shape == (2, 4, 3, 8, 4) and decays.shape == (2, 4, 3)
+    h_in = ss.ssd_state_passing_plain(states, decays)
+    assert torch.equal(h_in[:, 0], torch.zeros_like(h_in[:, 0]))
+    y = ss.ssd_chunk_outputs_plain(*t[:5], h_in, chunk=16)
+    np.testing.assert_allclose(_np(y), _np(ss._chunk_scan(*t[:5], 16)),
+                               **SAME)
+
+
+def test_workspace_size():
+    """A state and a decay per (sequence, chunk, head), s per step and
+    head, and each chunk's C B^T, as ssd_scan_launch reads it."""
+    x = torch.zeros((2, 192, 3, 8))
+    B = torch.zeros((2, 192, 5))
+    assert ss._workspace(x, B, 64).numel() == 2 * (3 * 3 * (8 * 5 + 1)
+                                                   + 192 * (3 + 64)) + 8
 
 
 def test_chunk_must_divide_s():
