@@ -23,6 +23,22 @@ Phases, each printing its own lines; any failure exits nonzero:
      profile a few decode steps for the device's busy time;
   5. the full-width decode step with the kernels against the plain versions;
   6. full-width prefill + decode against one full forward (teacher forcing);
+ 6a. bf16 serving: qwen2-7b with RunConfig(param_dtype="bfloat16",
+     cache_dtype="bfloat16"), weights from the launcher's seed, through
+     Engine at B=4, 128 + 32 tokens, counting decode_attention's launches;
+     tok/s, ms per step beside the bf16 weight-bytes bound, peak memory, a
+     profiled step; then the decode logits with the kernels against the
+     plain versions;
+ 6b. continuous batching: repro_torch.launch.serve --continuous (f32, 16
+     requests of the load generator at rate 4, 4 slots) and the bf16 model
+     through ContinuousEngine on the same stream, counting the kernel's
+     launches per batched step; each with one batched step against B=1
+     steps of its slots, the greedy streams against SerialSlotEngine's,
+     and the metrics snapshot; the f32 batched step's time;
+ 6c. the repaired emitters: an f16 GEMM and a kernel whose scratch exceeds
+     a block's shared memory through compile_traced, and a batched product
+     with rank-3 matmul tiles through backend_cuda.emit, each launched once
+     with the counts reset, held to its plain version and timed;
   7. decode_attention's time per launch beside its bound, its plain
      version's time and one PyTorch library call's time, with its launch
      plan; then, each with the counts reset, one call at a prime cache
@@ -58,7 +74,8 @@ Phases, each printing its own lines; any failure exits nonzero:
      its plain version, a float64 oracle and the hand kernel on the same
      slice, then timed per call and per stage, beside each stage's launch
      layout (grid, spread loops, row split, blocks x threads);
- 12. a JSON line with the rows of phases 7-11.
+ 12. a JSON line with the rows of phases 6c-11 (phase 7 adds
+     decode_attention's rows on the paths of 6a-6b).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 
@@ -170,6 +187,38 @@ COMPILED = (("flash qwen2-7b causal", "flash", (2048, 2048, 128), None, GRID2),
 # SSD bound (a 4096-step sequential scan against the chunked kernel)
 TOL_COMPILED = (1e-4, 1e-4)
 NEG = -1e30
+# bf16 serving (phase 6a): params and caches in bf16.  The kernels and
+# the plain versions round every product and activation to bf16 at other
+# places (the decode kernel once, at its output; the plain attention
+# after each f32 step), a bf16 step (2^-8 relative) apart, and 28 layers
+# carry it on: the cuda and torch decode logits are held to the
+# reference's bf16 bound, 5e-2, taken relative to the logits' largest
+# magnitude.
+BF16_RUN = dict(param_dtype="bfloat16", cache_dtype="bfloat16")
+TOL_BF16_LOGITS = 5e-2
+# the continuous stream (phase 6b), the launcher's --continuous defaults
+# at the smoke's prompt and generation lengths; the per-row lengths of the
+# decode kernel's timed continuous row (four slots at different depths)
+CONT_REQUESTS, CONT_RATE = 16, 4.0
+CONT_VALID = [129, 98, 65, 34]
+# the repaired emitters (phase 6c): a product whose 256 x 256 f32
+# accumulator (256 KB) exceeds a block's 227 KB, on 256 programs, so no
+# row split frees it; and a batched product with rank-3 tiles
+WS_GEMM = (4096, 512, 4096)                       # (M, K, N)
+WS_PIPE = "lower{tile_m=256,tile_n=256,tile_k=128},grid{vars=2}"
+RANK3 = (4, 512, 512)                             # (batch, M, K = N)
+RANK3_TEXT = """\
+stagecc.kernel @batched(arg0: tensor<4x512x512xfloat32> @hbm, arg1: tensor<512x512xfloat32> @hbm, out: tensor<4x512x512xfloat32> @hbm) -> (out) {
+  alloc s: tensor<2x64x64xfloat32> @vreg
+  for %i in [0,2) @grid {
+    for %j in [0,8) @grid {
+      for %n in [0,8) @seq {
+        s[0, 0, 0 : 2x64x64] = mxu.matmul(arg0[i, j, 0 : 2x64x512], arg1[0, n : 512x64])
+        out[i, j, n : 2x64x64] = vpu.copy(s[0, 0, 0 : 2x64x64])
+      }
+    }
+  }
+}"""
 
 
 def check(ok: bool, what: str) -> None:
@@ -225,24 +274,40 @@ def clone(tree):
 
 
 def profile_decode(eng, toks, steps: int = 4):
-    """Device time per decode step, from torch.profiler's kernel times
-    over a few steps, the wall time per step of that same window (the
+    """Device time per decode step of ``Engine`` ``eng``, after a prefill
+    of ``toks``' prompts (``profile_steps``)."""
+    return profile_steps(engine_step(eng, toks), steps)
+
+
+def engine_step(eng, toks):
+    """A decode step of ``Engine`` ``eng`` after a prefill of ``toks``'
+    prompts, as a callable (each call decodes one more position)."""
+    cache = eng.model.cache_init(BATCH, PROMPT + GEN + 1)
+    logits, cache = eng.prefill(eng.params, cache, toks[:, :PROMPT])
+    state = {"tok": logits.argmax(-1, keepdim=True), "cache": cache}
+
+    def step():
+        logits, state["cache"] = eng.decode(eng.params, state["cache"],
+                                            state["tok"])
+        state["tok"] = logits.argmax(-1, keepdim=True)
+    return step
+
+
+def profile_steps(step, steps: int = 4):
+    """Device time per call of ``step``, from torch.profiler's kernel times
+    over a few calls, the wall time per call of that same window (the
     profiler slows the host, so it is longer than an unprofiled step), and
     the largest kernels (ms per step, launches per step, name).  Returns
     (busy ms per step or None where the profiler records no device time,
     window ms per step, rows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cache = eng.model.cache_init(BATCH, PROMPT + GEN + 1)
-    logits, cache = eng.prefill(eng.params, cache, toks[:, :PROMPT])
-    tok = logits.argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = eng.decode(eng.params, cache, tok)
-            tok = logits.argmax(-1, keepdim=True)
+            step()
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) / steps * 1e3
     rows = []
@@ -338,10 +403,37 @@ def decode_phase(dev, flush, smi, launches, err32):
     return rows
 
 
+def serving_decode_rows(dev, flush, smi, bf16_launches, cont_launches,
+                        err_bf16):
+    """decode_attention's rows on the paths of phases 6a-6b: bf16 serving
+    (phase 3's bf16 inputs and error), and the continuous engine's steps,
+    whose rows sit at different lengths (per-row ``valid``), in f32 and
+    bf16; each with its path's launches, held to SDPA and timed."""
+    from repro_torch.kernels import decode_attention as da
+    rows = [decode_row("decode_attention [bf16 serving]",
+                       attention_inputs(torch.bfloat16, dev), 256,
+                       bf16_launches, err_bf16, flush, smi,
+                       lib_tol=TOL_BF16)]
+    for dtype, tol in (("float32", TOL_F32), ("bfloat16", TOL_BF16)):
+        q, k, v, _ = attention_inputs(getattr(torch, dtype), dev)
+        valid = torch.tensor(CONT_VALID, dtype=torch.int32, device=dev)
+        got = da.decode_attention(q, k, v, valid)
+        err = (got.float() - da.decode_attention_ref(q, k, v, valid).float()
+               ).abs().max().item()
+        print(f"[kernel] decode_attention {dtype} per-row valid "
+              f"{CONT_VALID}: max_abs_err {err:.3e} (limit {tol:g})")
+        check(err <= tol, f"decode_attention {dtype} per-row: {err}")
+        rows.append(decode_row(f"decode_attention [continuous {dtype}]",
+                               (q, k, v, valid), 256, cont_launches[dtype],
+                               err, flush, smi, lib_tol=tol))
+    return rows
+
+
 def decode_row(name, inputs, block_k, launches, err, flush, smi,
-               sdpa_kv=None):
-    """A JSON row of decode_attention on ``inputs`` (f32): held to SDPA,
-    then timed beside its bound, its plain version and SDPA."""
+               sdpa_kv=None, lib_tol=TOL_LIBRARY):
+    """A JSON row of decode_attention on ``inputs``: held to SDPA within
+    ``lib_tol``, then timed beside its bound, its plain version and
+    SDPA."""
     from repro_torch.kernels import decode_attention as da
     q, k, v, valid = inputs
     B, KV, rep, hd = q.shape
@@ -359,7 +451,7 @@ def decode_row(name, inputs, block_k, launches, err, flush, smi,
         return da.decode_attention(q, k, v, valid, block_k=block_k)
 
     lib_err = (library().reshape(q.shape) - kernel()).abs().max().item()
-    check(lib_err <= TOL_LIBRARY, f"{name}: SDPA differs by {lib_err}")
+    check(lib_err <= lib_tol, f"{name}: SDPA differs by {lib_err}")
     bound, bound_by = decode_attention_bound(q, k, valid)
     row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -370,7 +462,7 @@ def decode_row(name, inputs, block_k, launches, err, flush, smi,
                lambda: da.decode_attention_ref(q, k, v, valid), flush),
            "bound_ms": bound, "bound_by": bound_by,
            "library_ms": time_ms(library, flush)}
-    print(f"[timing] {name} f32 B={B} KV={KV} rep={rep} hd={hd} "
+    print(f"[timing] {name} {str(q.dtype)[6:]} B={B} KV={KV} rep={rep} hd={hd} "
           f"Smax={k.shape[2]} valid={valid.tolist()}, cold L2: kernel "
           f"{row['ms'] * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
           f"({bound_by}), plain {row['plain_ms'] * 1e3:.1f} us, SDPA "
@@ -1217,6 +1309,376 @@ def gemm_margin(gemms, dev, seeds: int) -> int:
     return failed
 
 
+# ---- phases 6a-6c: bf16 serving, continuous batching, the repaired emitters
+
+
+def serving_profile(label, step, steps, bound_ms, step_ms):
+    """Print a profiled window of ``step`` (device busy, idle share beside
+    the unprofiled ``step_ms``, the weight-bytes bound, the top kernels);
+    returns the busy ms per step, or None."""
+    busy, window, rows = profile_steps(step, steps)
+    if busy is None:
+        print(f"[profile] {label}: device time not measured (the profiler "
+              f"recorded no device time)")
+        return None
+    print(f"[profile] {label}: device busy {busy:.2f} ms of {window:.2f} ms "
+          f"wall in the profiled window (idle share {1 - busy / window:.1%})"
+          f"; of {step_ms:.2f} ms unprofiled, idle share "
+          f"{1 - busy / step_ms:.1%}; weight-bytes bound {bound_ms:.2f} ms; "
+          f"{sum(r[1] for r in rows)} kernel launches a step")
+    for ms, n, name in rows[:8]:
+        print(f"[profile]   {ms:8.3f} ms/step  {n:4d} launches/step"
+              f"  {name[:90]}")
+    return busy
+
+
+def bf16_serving_phase(cfg, dev, toks):
+    """Phase 6a: qwen2-7b at full width with bf16 params and caches, drawn
+    from the launcher's seed (each param drawn in f32 and cast: the cast
+    of phase 4's weights), serving the launcher's prompts through
+    ``Engine``: the kernel's launches, prefill and decode rates, the step
+    beside its weight-bytes bound, peak memory and a profiled step; then
+    the decode logits with the kernels against the plain versions.
+    Returns (model, params, launches, logits error)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.serve.engine import (Engine, EngineConfig,
+                                          throughput_stats)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, RunConfig(**BF16_RUN), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, EngineConfig(max_len=PROMPT + GEN + 1))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    da.decode_attention.launches = 0
+    res = throughput_stats(eng, prompts, GEN)
+    launches, steps = da.decode_attention.launches, res["decode_steps"]
+    print(f"[bf16] {cfg.name} params and caches bfloat16, "
+          f"{model.param_count():,} params: prefill "
+          f"{res['prefill_tok_per_s']:.1f} tok/s, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s ({res['decode_s'] / steps * 1e3:.2f}"
+          f" ms/step), decode_attention launches {launches} = "
+          f"{cfg.num_layers} layers x {steps} decode steps")
+    check(steps == GEN, f"bf16: {steps} decode steps, expected {GEN}")
+    check(launches == cfg.num_layers * steps,
+          f"bf16: decode_attention launched {launches} times, expected "
+          f"{cfg.num_layers} x {steps}")
+    warm = throughput_stats(eng, prompts, GEN)
+    step_ms = warm["decode_s"] / GEN * 1e3
+    bound = model.param_count() * 2 / HBM_BYTES_PER_S * 1e3
+    print(f"[bf16] warm rerun: prefill {warm['prefill_tok_per_s']:.1f} "
+          f"tok/s, decode {warm['decode_tok_per_s']:.1f} tok/s "
+          f"({step_ms:.2f} ms/step; weight-bytes bound {bound:.2f} ms), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    with torch.no_grad():
+        serving_profile("bf16 decode step", engine_step(eng, toks), 4,
+                        bound, step_ms)
+        # decode logits, kernels vs plain versions, same params and cache
+        plain = Model(cfg, RunConfig(backend="torch", **BF16_RUN), dev)
+        cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+        model.apply(params, toks[:, :PROMPT], cache=cache)
+        twin = clone(cache)
+        got, _ = model.apply(params, toks[:, PROMPT:PROMPT + 1], cache=cache)
+        want, _ = plain.apply(params, toks[:, PROMPT:PROMPT + 1], cache=twin)
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"[bf16] full-width decode logits, cuda vs torch: max_abs_diff "
+          f"{err:.3e}, logits max |x| {scale:.2f}: {err / scale:.3g} of it "
+          f"(limit {TOL_BF16_LOGITS:g} of it; the reference's bf16 bound "
+          f"is {TOL_BF16:g} absolute)")
+    check(bool(torch.isfinite(got).all()), "non-finite bf16 decode logits")
+    check(err <= TOL_BF16_LOGITS * scale, f"bf16 backends differ by {err}")
+    return model, params, launches, err
+
+
+def continuous_stream(cfg):
+    """The launcher's --continuous stream at the smoke's widths, as
+    Requests."""
+    from repro_torch.serve import loadgen
+    from repro_torch.serve.continuous import Request
+    load = loadgen.LoadConfig(
+        num_requests=CONT_REQUESTS, vocab_size=cfg.vocab_size, seed=0,
+        rate=CONT_RATE, prompt=loadgen.LengthDist("uniform", 4, PROMPT),
+        output=loadgen.LengthDist("uniform", 2, GEN))
+    return [Request(r.rid, r.prompt, r.max_new)
+            for r in loadgen.generate_stream(load)]
+
+
+def snapshot_line(label, snap):
+    print(f"[continuous] {label}: {snap['requests']['completed']} requests, "
+          f"{snap['tokens']['decode']} tokens in {snap['duration']:.2f} s = "
+          f"{snap['tokens_per_s']:.1f} tok/s; TTFT p50 "
+          f"{snap['ttft']['p50'] * 1e3:.1f} ms p99 "
+          f"{snap['ttft']['p99'] * 1e3:.1f} ms; TPOT p50 "
+          f"{snap['tpot']['p50'] * 1e3:.2f} ms p99 "
+          f"{snap['tpot']['p99'] * 1e3:.2f} ms; slot utilisation "
+          f"{snap['slot_utilization']:.3f}; {snap['steps']} engine steps")
+
+
+def batched_vs_single(model, params, tol, label):
+    """One batched decode step of the continuous engine, its four slots at
+    different lengths, against B=1 decode steps of the same slots (the
+    serial engine's path).  Returns (max error, the logits' max |x|)."""
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    eng = ContinuousEngine(model, params, slots=BATCH,
+                           max_len=PROMPT + GEN + 1)
+    rng = np.random.default_rng(3)
+    for i, n in enumerate((PROMPT, PROMPT * 3 // 4, PROMPT // 2,
+                           PROMPT // 4)):
+        eng.submit(Request(i, rng.integers(0, model.cfg.vocab_size, (n,))
+                           .astype(np.int32), GEN))
+    eng.step()
+    states = [eng.slot_state(s) for s in range(BATCH)]
+    with torch.no_grad():
+        batched = eng.decode_step().float()
+        single = torch.cat([model.apply(params, tok, cache=one)[0][:, -1]
+                            for one, tok in states]).float()
+    err = (batched - single).abs().max().item()
+    scale = single.abs().max().item()
+    print(f"[continuous] {label}: one batched step (rows at lengths "
+          f"{[one['len'] for one, _ in states]}) vs B=1 steps of the same "
+          f"slots: max_abs_diff {err:.3e}, logits max |x| {scale:.2f} "
+          f"(limit {tol(scale):.3g})")
+    check(err <= tol(scale), f"{label}: batched vs B=1 off by {err}")
+    return err, scale
+
+
+def same_streams(label, got, model, params):
+    """How many of ``got``'s greedy streams the serial B=1 engine
+    reproduces bit for bit, on the same stream."""
+    from repro_torch.serve.engine import SerialSlotEngine
+    want = SerialSlotEngine(model, params, slots=BATCH,
+                            max_len=PROMPT + GEN + 1).serve(
+                                continuous_stream(model.cfg))
+    same = sum(np.array_equal(got[r], want[r]) for r in want)
+    print(f"[continuous] {label}: {same} of {len(want)} greedy streams "
+          f"bit-identical to SerialSlotEngine's (B=1 steps)")
+    return same
+
+
+def continuous_phase(cfg, bmodel, bparams, dev):
+    """Phase 6b: serve the load generator's stream through
+    ``launch.serve --continuous`` (f32, the launcher's default), then the
+    bf16 model of phase 6a through ContinuousEngine on the same stream;
+    every request completes, decode_attention launches once a layer per
+    batched step, one batched step matches B=1 steps of its slots, and the
+    greedy streams are compared with the serial engine's.  Returns the
+    launches of each run."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.metrics import ServeMetrics, WallClock
+    da.decode_attention.launches = 0
+    res = serve.main(["--arch", ARCH, "--continuous", "--slots", str(BATCH),
+                      "--requests", str(CONT_REQUESTS), "--rate",
+                      str(CONT_RATE), "--prompt-len", str(PROMPT), "--gen",
+                      str(GEN)])
+    launches = {"float32": da.decode_attention.launches}
+    eng = res.pop("engine")
+    snapshot_line("float32 (launch.serve --continuous)", res)
+    check(res["requests"]["completed"] == CONT_REQUESTS,
+          f"{res['requests']['completed']} of {CONT_REQUESTS} completed")
+    print(f"[continuous] float32: decode_attention launches "
+          f"{launches['float32']} = {cfg.num_layers} layers x {eng.steps} "
+          f"batched steps")
+    check(launches["float32"] == cfg.num_layers * eng.steps,
+          f"continuous: {launches['float32']} launches, {eng.steps} steps")
+    model, params = eng.model, eng.params
+    results = dict(eng.results)
+    del eng, res
+    batched_vs_single(model, params, lambda s: TOL_BACKENDS,
+                      "float32")
+    same_streams("float32", results, model, params)
+    step_time(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+
+    metrics = ServeMetrics(WallClock(), slots=BATCH)
+    beng = ContinuousEngine(bmodel, bparams, slots=BATCH,
+                            max_len=PROMPT + GEN + 1, metrics=metrics)
+    da.decode_attention.launches = 0
+    for r in continuous_stream(cfg):
+        while not beng.submit(r):
+            beng.step()
+    beng.drain()
+    launches["bfloat16"] = da.decode_attention.launches
+    snap = metrics.snapshot()
+    snapshot_line("bfloat16 (ContinuousEngine)", snap)
+    check(snap["requests"]["completed"] == CONT_REQUESTS,
+          f"bf16: {snap['requests']['completed']} of {CONT_REQUESTS}")
+    check(launches["bfloat16"] == cfg.num_layers * beng.steps,
+          f"bf16 continuous: {launches['bfloat16']} launches, "
+          f"{beng.steps} steps")
+    print(f"[continuous] bfloat16: decode_attention launches "
+          f"{launches['bfloat16']} = {cfg.num_layers} layers x "
+          f"{beng.steps} batched steps")
+    batched_vs_single(bmodel, bparams, lambda s: TOL_BF16_LOGITS * s,
+                      "bfloat16")
+    same_streams("bfloat16", beng.results, bmodel, bparams)
+    return launches
+
+
+def step_time(model, params, steps: int = 8):
+    """The continuous engine's batched step with all four slots occupied
+    (per-row lengths, uploaded each step), wall ms per step over
+    ``steps`` steps that end in one synchronise, beside the same rows'
+    uniform-length step (Engine's path: one int length, nothing uploaded)
+    in the same call; then a profiled window of the batched step."""
+    from repro_torch.models.transformer import cache_leaves
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    eng = ContinuousEngine(model, params, slots=BATCH,
+                           max_len=PROMPT + GEN + 1)
+    rng = np.random.default_rng(4)
+    for i in range(BATCH):
+        eng.submit(Request(i, rng.integers(0, model.cfg.vocab_size,
+                                           (PROMPT,)).astype(np.int32), GEN))
+    eng.step()
+    uniform = model.cache_init(BATCH, eng.depth)
+    toks = []
+    for s in range(BATCH):
+        one, tok = eng.slot_state(s)
+        for leaf, src in zip(cache_leaves(uniform), cache_leaves(one)):
+            leaf[:, s] = src[:, 0]
+        uniform["len"] = one["len"]
+        toks.append(tok)
+    toks = torch.cat(toks)
+
+    def wall(step):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    with torch.no_grad():
+        ms = wall(eng.decode_step)
+        uni = wall(lambda: model.apply(params, toks, cache=uniform))
+    print(f"[continuous] float32 batched step, 4 slots at {PROMPT + 2}-"
+          f"{PROMPT + 2 + steps} cached positions: {ms:.2f} ms/step wall; "
+          f"the same rows at one length through Engine's path: {uni:.2f} "
+          f"ms/step")
+    with torch.no_grad():
+        serving_profile("float32 continuous step", eng.decode_step, 4,
+                        model.param_count() * 4 / HBM_BYTES_PER_S * 1e3, ms)
+
+
+def compile_repaired(dev):
+    """Phase 6c's kernels, each one the port once refused: an f16 GEMM
+    (qwen2-7b's up product, f32 output) and a kernel whose matmul scratch
+    exceeds a block's shared memory, both through compile_traced; a
+    batched product with a rank-3 matmul tile through backend_cuda.emit on
+    its LoopIR (no traced graph has rank-3 tiles).  Returns (label, fn,
+    inputs, bound, library) tuples."""
+    import repro_torch.core.frontend as fe
+    from repro_torch.core import backend_cuda, compile_traced, ir_text
+    m, n, k = MLP["up"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    ck = compile_traced(fe.trace(
+        lambda a, b: fe.matmul(a, b), [fe.spec((m, k), "float16"),
+                                       fe.spec((k, n), "float16")],
+        name=f"gemm_{m}x{n}x{k}_f16"), device=str(dev), want_torch=False)
+    check(ck.run_cuda is not None and ck.run_cuda.plan is not None,
+          "f16 GEMM: no emitted GEMM")
+    xs = [torch.randn(s, generator=gen, device=dev).half()
+          for s in ((m, k), (k, n))]
+    out.append((f"stagecc_gemm up tpu_mxu float16 none [simt]", ck.run_cuda,
+                xs, roofline((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k,
+                             BF16_FLOP_PER_S), None))
+    sm, sk, sn = WS_GEMM
+    ck = compile_traced(fe.trace(
+        lambda a, b: fe.exp(fe.matmul(a, b)), [fe.spec((sm, sk)),
+                                               fe.spec((sk, sn))],
+        name="exp_matmul_256_tiles"), pipeline=WS_PIPE, device=str(dev),
+        want_torch=False)
+    check(ck.run_cuda is not None and ck.run_cuda.plan is None,
+          "workspace kernel: no general emission")
+    check(ck.run_cuda.stages[0].ws_bytes > 0, "workspace kernel: none")
+    # entries of N(0, K^-1/2), so that A @ B is about N(0, 1) and its exp
+    # finite
+    xs = [torch.randn(s, generator=gen, device=dev) * sk ** -0.25
+          for s in ((sm, sk), (sk, sn))]
+    out.append(("stagecc_general exp(A @ B) 256 x 256 tiles [workspace]",
+                ck.run_cuda, xs, roofline((sm * sk + sk * sn + sm * sn) * 4,
+                                          2 * sm * sn * sk, F32_FLOP_PER_S),
+                None))
+    b, mm, kk = RANK3
+    fn = backend_cuda.emit(ir_text.parse_ir(RANK3_TEXT), device=str(dev))
+    check(fn.plan is None, "rank-3 kernel: not the general path")
+    xs = [torch.randn(s, generator=gen, device=dev)
+          for s in ((b, mm, kk), (kk, kk))]
+    out.append(("stagecc_general batched (4, 512, 512) @ (512, 512), "
+                "rank-3 tiles", fn, xs,
+                roofline((2 * b * mm * kk + kk * kk) * 4, 2 * b * mm * kk * kk,
+                         F32_FLOP_PER_S),
+                lambda xs=xs: torch.matmul(*xs)))
+    for label, fn, *_ in out:
+        where = ("simt" if fn.plan is not None else
+                 "; ".join(f"stage {st.index}: {st.layout}"
+                           + (f", workspace {st.ws_bytes} bytes x "
+                              f"{st.ws_blocks} blocks" if st.ws_bytes
+                              else "") for st in fn.stages))
+        print(f"[compile] {label}: {where}")
+    return out
+
+
+def repaired_phase(repaired, flush, smi):
+    """Phase 6c: launch each repaired kernel once through its callable with
+    the counts reset, hold it to its plain version within 1e-4, then time
+    it beside its bound.  Returns the JSON rows."""
+    from repro_torch.core import backend_cuda
+    from repro_torch.kernels import gemm
+    rows = []
+    rtol, atol = TOL_COMPILED
+    for label, fn, xs, (bound, bound_by), library in repaired:
+        gemm.cuda_gemm.launches = backend_cuda.emit_general.launches = 0
+        got = fn(*xs)
+        torch.cuda.synchronize()
+        count = (gemm.cuda_gemm.launches if fn.plan is not None
+                 else backend_cuda.emit_general.launches)
+        want_count = 1 if fn.plan is not None else len(fn.stages)
+        if fn.plan is not None:
+            plain = lambda: backend_cuda.gemm_plain(fn.plan, *xs)
+        else:
+            plain = lambda: backend_cuda.general_plain(fn, *xs)
+        want = plain()
+        err = (got.double() - want.double()).abs().max().item()
+        share = share_of(got.float(), want.float(), rtol, atol)
+        print(f"[repaired] {label}: launches {count} (expected "
+              f"{want_count}), max_abs_err {err:.3e} vs its plain version, "
+              f"worst element at {share:.3g} of rtol {rtol:g} atol {atol:g}")
+        check(count == want_count, f"{label}: {count} launches")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        check(share <= 1, f"{label}: off its bound")
+        if library is not None:
+            lib_share = share_of(library(), got.float(), rtol, atol)
+            print(f"[repaired] {label}: torch.matmul vs the kernel at "
+                  f"{lib_share:.3g} of the bound")
+            check(lib_share <= 1, f"{label}: torch.matmul differs")
+        row = {"name": label, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/" + (
+                   "stagecc_gemm.cuh" if fn.plan is not None
+                   else "stagecc_stage.cuh"),
+               "replaces": "src/repro/core/backend_pallas.py:" + (
+                   "229" if fn.plan is not None else "402"),
+               "launches": count, "max_abs_err": err,
+               "ms": time_ms(lambda: fn(*xs), flush, iters=5),
+               "plain_ms": time_ms(plain, flush, iters=3, warm=1),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": (None if library is None else
+                              time_ms(library, flush, iters=10))}
+        lib = ("none" if library is None
+               else f"{row['library_ms']:.3f} ms")
+        print(f"[timing] {label}, cold L2: kernel {row['ms']:.3f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}), plain {row['plain_ms']:.3f} ms, "
+              f"library {lib}; card {smi}")
+        rows.append(row)
+        del got, want
+    return rows
+
+
 # the kernels whose resources phase 2 prints: (mangled name, kind)
 PTXAS_KERNELS = (
     (r"gemm_wgmma_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", "gemm_wgmma"),
@@ -1350,8 +1812,10 @@ def main() -> int:
         print(f"[margin] {failed} gates failed")
         return 1 if failed else 0
     compiled = compile_graphs(dev)
+    repaired = compile_repaired(dev)
     sources = sorted({ck.run_cuda.source for _, _, ck in gemms})
     general = [ck.run_cuda.source for *_, ck in compiled]
+    general += [fn.source for _, fn, *_ in repaired]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(
             len(sources) + len(general) + len(HAND_KERNELS)) as pool:
@@ -1364,7 +1828,8 @@ def main() -> int:
     # output
     print_resources(sources)
     print(f"[build] {', '.join(HAND_KERNELS)}, {len(sources)} emitted "
-          f"GEMM sources and {len(general)} general-emitter sources, one "
+          f"GEMM sources and {len(general)} more emitted sources (the "
+          f"general emitter's, and the repaired kernels' of phase 6c), one "
           f"nvcc each, in parallel: {time.perf_counter() - t0:.1f}s")
 
     # 3. kernel vs plain version at the serving path's shapes
@@ -1436,7 +1901,8 @@ def main() -> int:
                   f"share {1 - busy / window:.1%}); of {step_ms:.2f} ms in "
                   f"the unprofiled warm rerun, idle share "
                   f"{1 - busy / step_ms:.1%}; weight-bytes bound "
-                  f"{model.param_count() * 4 / HBM_BYTES_PER_S * 1e3:.2f} ms")
+                  f"{model.param_count() * 4 / HBM_BYTES_PER_S * 1e3:.2f} ms"
+                  f"; {sum(r[1] for r in rows)} kernel launches a step")
             for ms, n, name in rows[:8]:
                 print(f"[profile]   {ms:8.3f} ms/step  {n:4d} launches/step"
                       f"  {name[:90]}")
@@ -1480,9 +1946,23 @@ def main() -> int:
     del cache, twin, full, pre, eng, res, params
     torch.cuda.empty_cache()
 
-    # 7. time per launch beside the bound, the plain version and SDPA
+    # 6a. bf16 serving; 6b. continuous batching, f32 through the launcher
+    # and the bf16 model on the same stream
+    bmodel, bparams, bf16_launches, _ = bf16_serving_phase(cfg, dev, toks)
+    cont_launches = continuous_phase(cfg, bmodel, bparams, dev)
+    del bmodel, bparams
+    torch.cuda.empty_cache()
+
+    # 6c. the repaired emitters
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
-    rows = decode_phase(dev, flush, smi, launches, errs[torch.float32])
+    rows = repaired_phase(repaired, flush, smi)
+    del repaired
+    torch.cuda.empty_cache()
+
+    # 7. time per launch beside the bound, the plain version and SDPA
+    rows += decode_phase(dev, flush, smi, launches, errs[torch.float32])
+    rows += serving_decode_rows(dev, flush, smi, bf16_launches,
+                                cont_launches, errs[torch.bfloat16])
     torch.cuda.empty_cache()
 
     # 8. the compiled-GEMM path

@@ -24,9 +24,10 @@ inside the block) or rounded to the output dtype after each tile
 grid axis), the element types, and the ``EwiseTile`` epilogue chain as a
 generated ``__device__`` functor.  On CPU tensors the emitted callable
 runs ``gemm_plain``, the plain PyTorch version of the same arithmetic.
-Its own refusals (element types other than f32 / bf16, epilogue inputs
-shaped other than (N,) or (M, N), tiles that do not divide the problem)
-stay refusals: such a contraction gets no kernel.
+It takes the reference's five element types (f16, int32 and int8 on the
+``simt`` template), epilogue inputs of any block spec the reference's
+epilogue broadcasts, and a grid that covers only part of the arrays;
+a contraction whose tiles it cannot index goes to the general emitter.
 
 **The general emitter** (``emit_general``, after ``_emit_stage``) takes
 what the classifier refuses: the ``nested`` / ``inner_flattened``
@@ -34,8 +35,9 @@ schedules and the multi-nest serving-kernel graphs.  Each top-level nest
 is a stage: its leading @grid chain, the independent loops below it and,
 where that leaves SMs idle, a split of row-local tiles are the CUDA
 blocks; every other loop is a C loop in the block, scratch lives in
-shared memory, and every statement is a block-cooperative loop over its
-tile (``kernels/csrc/stagecc_stage.cuh``).  One source holds every stage of a kernel.  On CPU
+shared memory (or, where it does not fit, in a per-block workspace in
+global memory), and every statement is a block-cooperative loop over
+its tile (``kernels/csrc/stagecc_stage.cuh``).  One source holds every stage of a kernel.  On CPU
 tensors the callable runs ``general_plain``, which executes each stage
 as the Pallas body does, in PyTorch.
 
@@ -83,6 +85,8 @@ class _Plan:
     acc_name: Optional[str]
     matmul: Optional[MatmulTile] = None
     dtypes: Dict[str, str] = dataclasses.field(default_factory=dict)
+    shapes: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def tiles(self) -> Tuple[int, int, int]:
@@ -243,7 +247,8 @@ def _analyze(kernel: Kernel) -> _Plan:
                  out_buffer=out, block_specs=specs, acc_name=acc_name,
                  matmul=matmul,
                  dtypes={b.name: b.type.dtype
-                         for b in kernel.params + kernel.scratch})
+                         for b in kernel.params + kernel.scratch},
+                 shapes={b.name: b.shape for b in kernel.params})
 
 
 def emit(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
@@ -252,8 +257,11 @@ def emit(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
     Dispatch, as ``backend_pallas.emit``: the single-nest contraction
     classifier (``_analyze``) first, and the general multi-nest emitter
     (``emit_general``) only where the classifier refuses.  A contraction
-    the classifier takes but the GEMM template does not is refused here
-    (:class:`EmitError`) rather than sent down the general path.  numpy
+    the classifier takes whose tiles the GEMM template cannot index (rank
+    other than 2, or not tiled by the grid's row and column variables:
+    ``_Untiled``) goes to the general emitter, which sums the same k tiles
+    in the same order; any other refusal of the template stands
+    (:class:`EmitError`).  numpy
     inputs go to ``device``; tensor inputs stay where they are.  All
     inputs on the CPU run the plain version; on a CUDA device the emitted
     kernel launches, or the call raises."""
@@ -261,11 +269,37 @@ def emit(kernel: Kernel, device="cuda") -> Callable[..., torch.Tensor]:
         plan = _analyze(kernel)
     except EmitError:
         return emit_general(kernel, device)
-    return _emit_gemm(kernel, device, plan)
+    try:
+        return _emit_gemm(kernel, device, plan)
+    except _Untiled as why:
+        try:
+            return emit_general(kernel, device)
+        except EmitError:
+            raise why from None
 
 
-# C type of each element type the template takes
-_CTYPE = {"float32": "float", "bfloat16": "__nv_bfloat16"}
+# C type of each element type, the five of TensorIR
+_CTYPE = {"float32": "float", "bfloat16": "__nv_bfloat16",
+          "float16": "__half", "int32": "int", "int8": "int8_t"}
+_INTS = ("int32", "int8")
+
+# ops whose result is float32 on integer operands (jnp's true divide and
+# transcendental functions); the others keep the operands' type
+_FLOAT_OPS = ("div", "exp", "tanh", "sigmoid", "sqrt", "rsqrt", "log1p",
+              "gelu")
+
+# the integer ops as C expressions over int operands; sums and products
+# wrap modulo 2^32 (in unsigned arithmetic, which C defines)
+_EWISE_INT = {
+    "add": "(int)((unsigned)({0}) + (unsigned)({1}))",
+    "sub": "(int)((unsigned)({0}) - (unsigned)({1}))",
+    "mul": "(int)((unsigned)({0}) * (unsigned)({1}))",
+    "maximum": "max({0}, {1})",
+    "relu": "max({0}, 0)",
+    "neg": "(int)(0u - (unsigned)({0}))",
+    "abs": "(({0}) < 0 ? (int)(0u - (unsigned)({0})) : ({0}))",
+    "copy": "{0}",
+}
 
 # epilogue ops as C expressions over float operands ({0}, {1}); each
 # mirrors the entry of backend_torch._EWISE of the same name
@@ -290,39 +324,174 @@ _EWISE_CUDA = {
 }
 
 
+class _Untiled(EmitError):
+    """The contraction's tiles are not the template's row-major (i, j)
+    tiling of rank-2 operands; ``emit`` hands such a kernel to the general
+    emitter, which computes the same sums in the same order."""
+
+
+def _geometry(plan: _Plan) -> Tuple[int, int, int]:
+    """(row tiles, column tiles, k tiles) of the reference's grid: its
+    tiles times these cover the part of the problem it computes, which
+    may fall short of the arrays (the rest of the output is never
+    written)."""
+    ext = dict(zip(plan.grid_vars, plan.grid))
+    (_, (row, col)) = plan.block_specs[plan.out_buffer]
+    nk = (plan.k_loop.var.extent if plan.k_loop is not None
+          else ext.get(plan.k_grid_var, 1))
+    return ext[row], ext[col], nk
+
+
+def _covers(plan: _Plan) -> bool:
+    """Whether the grid covers the whole problem (the tiles divide it)."""
+    tm, tn, tk = plan.tiles
+    gm, gn, nk = _geometry(plan)
+    m, k = plan.shapes[plan.matmul.lhs.buffer.name]
+    kb, n = plan.shapes[plan.matmul.rhs.buffer.name]
+    return ((gm * tm, gn * tn, nk * tk, kb) == (m, n, k, k)
+            and plan.shapes[plan.out_buffer] == (m, n))
+
+
 def _layout(kernel: Kernel, plan: _Plan) -> Dict[str, str]:
     """Check that the plan is a row-major (M, K) @ (K, N) -> (M, N)
-    contraction the template takes, and return how each epilogue input
-    is indexed from the output element (``col`` or ``row * n + col``)."""
+    contraction the template takes (``_Untiled`` if not), and return how
+    each epilogue input is indexed from the output element ``(row,
+    col)``: ``col`` for an (N,) bias and ``row * n + col`` for an (M, N)
+    input of the output's shape, else an offset from the input's block
+    spec, broadcast over the (tm, tn) tile as the reference's epilogue
+    broadcasts its block."""
     tm, tn, tk = plan.tiles
     lhs, rhs = plan.matmul.lhs.buffer.name, plan.matmul.rhs.buffer.name
-    for name in (lhs, rhs, plan.out_buffer, *plan.epilogue_inputs):
-        if plan.dtypes[name] not in _CTYPE:
-            raise EmitError(f"{kernel.name}: {name} is {plan.dtypes[name]}; "
-                            f"the CUDA GEMM takes {sorted(_CTYPE)}")
-    (_, (row, kl)), (_, (kr, col)) = (plan.block_specs[lhs],
-                                      plan.block_specs[rhs])
-    if not (isinstance(row, str) and isinstance(col, str) and kl == kr
-            and plan.block_specs[plan.out_buffer] == ((tm, tn), (row, col))):
-        raise EmitError(f"{kernel.name}: not an (i, j)-tiled contraction "
-                        f"{plan.block_specs}")
+    specs = [plan.block_specs[n] for n in (lhs, rhs, plan.out_buffer)]
+    if any(len(block) != 2 for block, _ in specs):
+        raise _Untiled(f"{kernel.name}: a matmul tile of rank other than 2 "
+                       f"{plan.block_specs}")
+    (_, (row, kl)), (_, (kr, col)) = specs[:2]
+    if not (isinstance(row, str) and isinstance(col, str) and row != col
+            and kl == kr
+            and specs[2] == ((tm, tn), (row, col))):
+        raise _Untiled(f"{kernel.name}: not an (i, j)-tiled contraction "
+                       f"{plan.block_specs}")
+    ext = dict(zip(plan.grid_vars, plan.grid))
+    out_shape = plan.shapes[plan.out_buffer]
     index = {}
     for name in plan.epilogue_inputs:
-        spec = plan.block_specs[name]
-        if spec == ((tn,), (col,)):
+        block, imap = plan.block_specs[name]
+        if (block, imap) == ((tn,), (col,)):
             index[name] = "col"
-        elif spec == ((tm, tn), (row, col)):
+            continue
+        if (block, imap) == ((tm, tn), (row, col)) and \
+                plan.shapes[name] == out_shape:
             index[name] = "row * n + col"
-        else:
-            raise EmitError(f"{kernel.name}: epilogue input {name} "
-                            f"{spec} is neither (N,) nor (M, N)")
+            continue
+        if len(block) > 2:
+            raise EmitError(f"{kernel.name}: epilogue input {name} has a "
+                            f"rank-{len(block)} block {block}, which does "
+                            f"not fit the (tm, tn) output block")
+        terms = []
+        for d, (b, v, st) in enumerate(zip(block, imap,
+                                           _strides(plan.shapes[name]))):
+            axis = 2 - len(block) + d         # numpy's trailing alignment
+            coord, t = ("row", tm) if axis == 0 else ("col", tn)
+            if b not in (1, t):
+                raise EmitError(f"{kernel.name}: epilogue input {name}'s "
+                                f"block {block} does not broadcast to "
+                                f"({tm}, {tn})")
+            # the block's index: the program's tile along the variable
+            # (the epilogue runs at the last k tile), or 0
+            if v == 0:
+                tile = None
+            elif v == row:
+                tile = f"row / {tm}"
+            elif v == col:
+                tile = f"col / {tn}"
+            elif v == plan.k_grid_var:
+                tile = str(ext[v] - 1)
+            else:
+                raise EmitError(f"{kernel.name}: epilogue input {name} is "
+                                f"indexed by %{v}")
+            if b == t and tile == f"{coord} / {t}":
+                idx = coord                   # the tile's origin plus coord
+            else:
+                parts = ([f"({tile}) * {b}"] if tile is not None else []) + \
+                    ([f"{coord} % {t}"] if b == t else [])
+                idx = " + ".join(parts) or "0"
+            terms.append(f"({idx})" + (f" * {st}LL" if st != 1 else ""))
+        index[name] = " + ".join(terms)
     return index
 
 
 def _promote(*dtypes: str) -> str:
-    """Result type of an elementwise op, by the JAX/PyTorch rule for the
-    two types the template takes."""
-    return "float32" if "float32" in dtypes else "bfloat16"
+    """Result type of an elementwise op on values of these types, by JAX's
+    promotion lattice over TensorIR's five types: one type stays; float32
+    wins; bf16 with f16 is float32; a floating type wins over the
+    integers; int8 with int32 is int32."""
+    kinds = set(dtypes)
+    if len(kinds) == 1:
+        return kinds.pop()
+    floats = kinds & {"bfloat16", "float16"}
+    if "float32" in kinds or len(floats) == 2:
+        return "float32"
+    return floats.pop() if floats else "int32"
+
+
+def _typed_op(op: str, args: Sequence[Tuple[str, str]],
+              rounding: Dict[str, str]) -> Tuple[str, str]:
+    """The C expression and element type of elementwise ``op`` on typed C
+    values ``args`` ((expression, dtype) pairs), as the reference computes
+    it: the promoted type (float32 for ``_FLOAT_OPS`` on integers); an
+    integer result in int arithmetic, wrapped to int8 where it is int8; a
+    floating one in f32 and rounded to bf16 or f16 where it has that type
+    (``rounding`` holds each wrapper, a format string)."""
+    dtype = _promote(*(t for _, t in args))
+    if dtype in _INTS and op in _FLOAT_OPS:
+        dtype = "float32"
+    if dtype in _INTS:
+        expr = _EWISE_INT[op].format(*(c for c, _ in args))
+    else:
+        expr = _EWISE_CUDA[op].format(*(
+            f"(float)({c})" if t in _INTS else c for c, t in args))
+    if dtype in rounding:
+        expr = rounding[dtype].format(expr)
+    return expr, dtype
+
+
+def _vtype(dtype: str) -> str:
+    """The C type a value of ``dtype`` is computed in."""
+    return "int" if dtype in _INTS else "float"
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` as the reference's astype converts it: a float
+    into an integer type truncates toward zero, saturates and takes NaN to
+    0 (XLA's convert; PyTorch's own cast leaves those undefined)."""
+    if x.is_floating_point() and not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        x = torch.nan_to_num(x.double(), nan=0.0).clamp(info.min,
+                                                        info.max).trunc()
+    return x.to(dtype)
+
+
+def _unwritten(t: torch.Tensor) -> torch.Tensor:
+    """``t`` filled as the reference's interpret mode leaves an output
+    element nothing writes: NaN, or the integer type's least value."""
+    return t.fill_(float("nan") if t.is_floating_point()
+                   else torch.iinfo(t.dtype).min)
+
+
+def _fast_reason(plan: _Plan) -> Optional[str]:
+    """Why neither faster template (``wgmma``, ``ffma``) can run the
+    plan, or None: both take f32 and bf16 operands, outputs and epilogue
+    inputs only, and a grid that covers the whole problem (their blocks
+    divide M, N and K); the ``simt`` template takes every type and the
+    grid's part of the problem."""
+    for name in (plan.matmul.lhs.buffer.name, plan.matmul.rhs.buffer.name,
+                 plan.out_buffer, *plan.epilogue_inputs):
+        if plan.dtypes[name] not in ("float32", "bfloat16"):
+            return f"{name} is {plan.dtypes[name]}"
+    if not _covers(plan):
+        return "the grid does not cover the problem"
+    return None
 
 
 def _plan_route(plan: _Plan) -> Optional[str]:
@@ -330,7 +499,11 @@ def _plan_route(plan: _Plan) -> Optional[str]:
     of ``stagecc_gemm_sm90.cuh``, or None when it holds it: both operands
     bf16 (the tensor cores' bf16 products are exact; f32 stays on the CUDA
     cores, since TF32 would break the f32 bounds) and tk a multiple of 16
-    (one wgmma takes 16 of K, and tk fixes where the sums round)."""
+    (one wgmma takes 16 of K, and tk fixes where the sums round), and
+    what both faster templates need (``_fast_reason``)."""
+    why = _fast_reason(plan)
+    if why:
+        return why
     for name in (plan.matmul.lhs.buffer.name, plan.matmul.rhs.buffer.name):
         if plan.dtypes[name] != "bfloat16":
             return f"operand {name} is {plan.dtypes[name]}, not bfloat16"
@@ -363,7 +536,11 @@ def _ffma_plan_route(plan: _Plan) -> Optional[str]:
     (``ffma``) kernel of ``stagecc_gemm_ffma.cuh``, or None when it holds
     it: tm and tn multiples of 64 (so its 64 x 64 blocks divide M and N)
     and tk a multiple of 8 (K is staged 8 or 16 columns at a time, and tk fixes
-    where the sums round)."""
+    where the sums round), and what both faster templates need
+    (``_fast_reason``)."""
+    why = _fast_reason(plan)
+    if why:
+        return why
     tm, tn, tk = plan.tiles
     if tm % 64 or tn % 64:
         return f"tiles {tm} x {tn} are not multiples of 64"
@@ -431,17 +608,14 @@ def _render(kernel: Kernel, plan: _Plan, index: Dict[str, str]) -> str:
             elif name == plan.out_buffer:
                 args.append(val)
             elif name in index:
-                args.append((f"stagecc::to_f32(in{extras.index(name)}"
+                args.append((f"stagecc::to_val(in{extras.index(name)}"
                              f"[{index[name]}])", plan.dtypes[name]))
             else:
                 raise EmitError(f"epilogue src {name} not mapped")
-        dtype = _promote(*(t for _, t in args))
-        expr = _EWISE_CUDA[s.op].format(*(c for c, _ in args))
-        if dtype == "bfloat16":
-            expr = f"stagecc::round_to<__nv_bfloat16>({expr})"
-        lines.append(f"    const float t{n} = {expr};  // {s.op}")
+        expr, dtype = _typed_op(s.op, args, _GEMM_ROUNDING)
+        lines.append(f"    const {_vtype(dtype)} t{n} = {expr};  // {s.op}")
         env[s.dst.buffer.name] = val = (f"t{n}", dtype)
-    result = env.get(plan.out_buffer, val)[0]
+    result, result_t = env.get(plan.out_buffer, val)
     fields = "".join(f"  const {_CTYPE[plan.dtypes[e]]}* in{i};\n"
                      for i, e in enumerate(extras))
     params = "".join(f"const void* in{i}, " for i in range(len(extras)))
@@ -455,9 +629,10 @@ def _render(kernel: Kernel, plan: _Plan, index: Dict[str, str]) -> str:
     ffma = _ffma_plan_route(plan) is None
     signature = f"""(const void* a, const void* b, {params}void* out,
     int m, int n, int k, long long sam, long long sak, long long sbk,
-    long long sbn, void* stream)"""
+    long long sbn, long long ldo, void* stream)"""
     wgmma = "" if not sm90 else f"""
-// the tensor-core route (backend_cuda._gemm_route)
+// the tensor-core route (backend_cuda._gemm_route; its grid covers the
+// problem, so ldo is n)
 extern "C" int stagecc_gemm_wgmma_launch{signature} {{
   return stagecc::launch_wgmma<{tk}, {str(kgrid).lower()}, {_CTYPE[out_t]}>(
       a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
@@ -468,6 +643,7 @@ extern "C" int stagecc_gemm_wgmma_smem() {{ return stagecc::wg::kSmem; }}
 """
     ffma_launch = "" if not ffma else f"""
 // the register-tiled CUDA-core route (ffma): blocks of 64 x 64 outputs
+// (its grid covers the problem, so ldo is n)
 extern "C" int stagecc_gemm_ffma_launch{signature} {{
   return stagecc::launch_ffma<{tk}, {str(kgrid).lower()}, {ta}, {tb}, {_CTYPE[out_t]}>(
       a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
@@ -488,8 +664,8 @@ extern "C" int stagecc_gemm_ffma_smem() {{
 namespace {{
 
 struct Epilogue {{
-{fields}  __device__ __forceinline__ float operator()(float v, long long row,
-                                              long long col, int n) const {{
+{fields}  __device__ __forceinline__ {_vtype(result_t)} operator()({_vtype(acc_t)} v, long long row,
+                                              long long col, long long n) const {{
 {chr(10).join(lines)}
     return {result};
   }}
@@ -500,7 +676,7 @@ struct Epilogue {{
 // the plain CUDA-core route (simt)
 extern "C" int stagecc_gemm_launch{signature} {{
   return stagecc::launch<{tm}, {tn}, {tk}, {str(kgrid).lower()}, {ta}, {tb}, {_CTYPE[out_t]}>(
-      a, b, out, m, n, k, sam, sak, sbk, sbn, Epilogue{{{inits}}}, stream);
+      a, b, out, m, n, k, sam, sak, sbk, sbn, ldo, Epilogue{{{inits}}}, stream);
 }}
 {ffma_launch}{wgmma}"""
 
@@ -511,13 +687,16 @@ def _emit_gemm(kernel: Kernel, device="cuda",
     plan = plan or _analyze(kernel)
     index = _layout(kernel, plan)
     source = _render(kernel, plan, index)
-    shapes = {b.name: b.shape for b in kernel.params}
+    shapes = plan.shapes
     lhs, rhs = plan.matmul.lhs.buffer.name, plan.matmul.rhs.buffer.name
-    (m, kdim), n = shapes[lhs], shapes[rhs][1]
     tm, tn, tk = plan.tiles
-    if m % tm or n % tn or kdim % tk or (m // tm) * (n // tn) >= 2 ** 31:
-        raise EmitError(f"{kernel.name}: tiles {plan.tiles} do not fit "
-                        f"({m}, {n}, {kdim})")
+    gm, gn, nk = _geometry(plan)
+    if gm * gn >= 2 ** 31:
+        raise EmitError(f"{kernel.name}: {gm} x {gn} tiles")
+    # the grid's part of the problem; the output's rows are ldo apart
+    m, n, kdim = gm * tm, gn * tn, nk * tk
+    out_shape = shapes[plan.out_buffer]
+    covers = _covers(plan)
     launchers = {}          # route -> the built kernel's entry, at first use
 
     def _args(inputs) -> Dict[str, torch.Tensor]:
@@ -557,11 +736,13 @@ def _emit_gemm(kernel: Kernel, device="cuda",
             lib = _build.load_source(source)
             launchers[route] = f = getattr(lib, _LAUNCHER[route])
             f.argtypes = ([ctypes.c_void_p] * (3 + len(epi))
-                          + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4
+                          + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 5
                           + [ctypes.c_void_p])
             f.restype = ctypes.c_int
-        out = torch.empty((m, n), dtype=_TORCH_DTYPE[plan.dtypes[
+        out = torch.empty(out_shape, dtype=_TORCH_DTYPE[plan.dtypes[
             plan.out_buffer]], device=dev)
+        if not covers:
+            _unwritten(out)
         # A and B are read through their strides (the backward passes
         # transposed views); the small epilogue inputs are made contiguous
         epi = [t.contiguous() for t in epi]
@@ -569,7 +750,7 @@ def _emit_gemm(kernel: Kernel, device="cuda",
             err = launchers[route](
                 a.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in epi),
                 out.data_ptr(), m, n, kdim, *a.stride(), *b.stride(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                out_shape[1], torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"{kernel.name}: CUDA GEMM launch ({route}: "
                                f"{why}) failed: error {err} (a cudaError, "
@@ -589,6 +770,11 @@ def _emit_gemm(kernel: Kernel, device="cuda",
     fn.route = lambda *inputs: _route(_args(inputs))
     return fn
 
+
+# the rounding of each floating type, and int8's wrap, around a C value
+_GEMM_ROUNDING = {"bfloat16": "stagecc::round_to<__nv_bfloat16>({})",
+                  "float16": "stagecc::round_to<__half>({})",
+                  "int8": "stagecc::wrap8({})"}
 
 # each route's entry point in an emitted source
 _LAUNCHER = {"simt": "stagecc_gemm_launch",
@@ -633,17 +819,59 @@ def gemm_plain(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
     rounds each tile's product to the output dtype and adds it to the
     output-typed sum.  The epilogue then runs, and the result is cast to
     the output dtype.  That is K / tk products of f32 operands, which run
-    in full f32 as long as TF32 stays off (PyTorch's default)."""
+    in full f32 as long as TF32 stays off (PyTorch's default).  Only the
+    grid's part of the problem is computed; the rest of the output is
+    left as ``_unwritten`` fills it."""
     out_dtype = _TORCH_DTYPE[plan.dtypes[plan.out_buffer]]
     kgrid = plan.k_grid_var is not None
-    tk = plan.tiles[2]
+    tm, tn, tk = plan.tiles
+    gm, gn, nk = _geometry(plan)
+    a, b = a[:gm * tm, :nk * tk], b[:nk * tk, :gn * tn]
     acc = torch.zeros((a.shape[0], b.shape[1]), device=a.device,
                       dtype=out_dtype if kgrid else torch.float32)
     for k0 in range(0, a.shape[1], tk):
         p = a[:, k0:k0 + tk].float() @ b[k0:k0 + tk].float()
-        acc = acc + (p.to(out_dtype) if kgrid else p)
-    val = _apply_epilogue(plan, acc, dict(zip(plan.epilogue_inputs, epi)))
-    return val.to(out_dtype)
+        acc = acc + (_cast(p, out_dtype) if kgrid else p)
+    val = _cast(_apply_epilogue(plan, acc, _epilogue_inputs(plan, epi)),
+                out_dtype)
+    if _covers(plan):
+        return val
+    out = _unwritten(torch.empty(plan.shapes[plan.out_buffer],
+                                 dtype=out_dtype, device=a.device))
+    out[:gm * tm, :gn * tn] = val
+    return out
+
+
+def _epilogue_inputs(plan: _Plan, epi: Sequence[torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """The epilogue inputs as the whole computed (M, N) slab sees them:
+    an (N,) bias or an (M, N) input of the output's shape as it is (the
+    epilogue broadcasts it), any other block spec gathered element by
+    element as the emitted kernel indexes it (``_layout``)."""
+    tm, tn, _ = plan.tiles
+    gm, gn, _ = _geometry(plan)
+    (_, (row, col)) = plan.block_specs[plan.out_buffer]
+    ext = dict(zip(plan.grid_vars, plan.grid))
+    out = {}
+    for name, t in zip(plan.epilogue_inputs, epi):
+        block, imap = plan.block_specs[name]
+        if (block, imap) == ((tn,), (col,)) or (
+                (block, imap) == ((tm, tn), (row, col))
+                and plan.shapes[name] == plan.shapes[plan.out_buffer]):
+            out[name] = t[..., :gm * tm, :gn * tn] if t.ndim == 2 else \
+                t[:gn * tn]
+            continue
+        coords = (torch.arange(gm * tm, device=t.device)[:, None],
+                  torch.arange(gn * tn, device=t.device)[None, :])
+        index = []
+        for d, (bd, v) in enumerate(zip(block, imap)):
+            axis = 2 - len(block) + d
+            c, size = coords[axis], (tm, tn)[axis]
+            tile = {0: 0, row: coords[0] // tm, col: coords[1] // tn}.get(
+                v, ext.get(v, 1) - 1)
+            index.append(tile * bd + (c % size if bd == size else 0))
+        out[name] = t[tuple(index)]
+    return out
 
 
 # epilogue ops that are nondecreasing in every operand, through which
@@ -694,7 +922,7 @@ def bracket(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
         e = 2 * tk * 2.0 ** -24 * (at.abs() @ bt.abs())
         lo, hi = rnd(lo + rnd(p - e)), rnd(hi + rnd(p + e))
     # the epilogue in PyTorch's dtypes rounds where the reference's does
-    inputs = dict(zip(plan.epilogue_inputs, epi))
+    inputs = _epilogue_inputs(plan, epi)
     return tuple(_apply_epilogue(plan, x.to(acc_t), inputs).to(out).float()
                  for x in (lo, hi))
 
@@ -723,6 +951,13 @@ def bracket(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
 #     in the schedule's order;
 #   * scratch (@vreg / @vmem) lives in the block's shared memory, zeroed
 #     per block, as the reference's local values are fresh per program;
+#     what does not fit beside the matmul staging lives in a per-block
+#     workspace in global memory, and such a stage runs at most
+#     ``_WS_BLOCKS`` blocks, each walking programs in a loop and zeroing
+#     its workspace per program;
+#   * values keep the reference's types: integers compute in int and
+#     wrap, floats in f32 rounded to bf16 / f16 where the reference's
+#     value has that type, and stores convert as its astype does;
 #   * every HBM buffer the stage touches is a pointer to the whole array;
 #     a tile's origin is ``index.evaluate(env) * tile`` per dimension;
 #   * stages communicate through a host-level environment: each stage's
@@ -738,6 +973,7 @@ _CHUNK = 16                         # stagecc_stage::kChunk
 _SMS = 132                          # the H100's SMs: a stage aims at one block each
 _MIN_PART_ROWS = 8                  # the fewest rows of one block's part of a tile
 _PART = "part$"                     # the launch variable of a row split
+_WS_BLOCKS = 2 * _SMS               # blocks of a stage with a workspace
 
 
 def _stage_io(stmts: Sequence[Stmt]) -> Tuple[List[str], List[str]]:
@@ -1020,6 +1256,9 @@ class _Stage:
     body: List[Stmt] = dataclasses.field(default_factory=list)  # per block
     block_scratch: List[Buffer] = dataclasses.field(default_factory=list)
     covered: Set[str] = dataclasses.field(default_factory=set)
+    ws_bytes: int = 0                    # global workspace per block and
+    ws_blocks: int = 0                   # blocks launched with it (set
+                                         # when the stage is rendered)
     flops: int = 0                       # of the stage's statements
     hbm_bytes: int = 0                   # reads and writes, each once
     lib: Optional["_Library"] = None     # the kernel's built source
@@ -1082,6 +1321,10 @@ class _Stage:
             if t.device != dev or not t.is_contiguous():
                 raise ValueError(f"{self.kernel_name}: {name} is not a "
                                  f"contiguous array on {dev}")
+        if self.ws_bytes:
+            # each block zeroes its own part per program
+            ptrs.append(torch.empty(self.ws_blocks * self.ws_bytes,
+                                    dtype=torch.uint8, device=dev))
         launcher = self.lib.stage(self.index, len(ptrs))
         with torch.cuda.device(dev):
             err = launcher(*(t.data_ptr() for t in ptrs),
@@ -1094,18 +1337,17 @@ class _Stage:
 
 
 def _fresh(stage: _Stage, dev, fill: bool = True) -> Dict[str, torch.Tensor]:
-    """New arrays for the stage's writes.  They start as NaN, as the
-    reference's outputs do in Pallas interpret mode, so a tile no program
-    writes, or a read of a written buffer before its write, shows the
-    same in both.  With ``fill`` False (the kernels' path) a buffer the
-    blocks write whole before any read (``_Stage.covered``) is left
-    unfilled."""
+    """New arrays for the stage's writes.  They start as the reference's
+    outputs do in Pallas interpret mode (``_unwritten``: NaN, or an integer
+    type's least value), so a tile no program writes, or a read of a
+    written buffer before its write, shows the same in both.  With
+    ``fill`` False (the kernels' path) a buffer the blocks write whole
+    before any read (``_Stage.covered``) is left unfilled."""
     out = {}
     for n in stage.writes:
         t = torch.empty(stage.buffers[n].shape, device=dev,
                         dtype=_TORCH_DTYPE[stage.buffers[n].type.dtype])
-        out[n] = t if not fill and n in stage.covered else t.fill_(
-            float("nan"))
+        out[n] = t if not fill and n in stage.covered else _unwritten(t)
     return out
 
 
@@ -1138,7 +1380,7 @@ def _stage_flops(stmts) -> int:
         if isinstance(s, Loop):
             n += s.var.extent * _stage_flops(s.body)
         elif isinstance(s, MatmulTile):
-            n += 2 * s.macs
+            n += 2 * s.macs * math.prod(s.lhs.tile[:-2] + s.rhs.tile[:-2])
         elif isinstance(s, ReduceTile):
             n += s.src.tile_elems
         elif isinstance(s, ScanTile):
@@ -1238,9 +1480,19 @@ def _flit(value: float) -> str:
         bits, f"__int_as_float((int)0x{bits:08x}u)")
 
 
+# the rounding of each floating type, and int8's wrap, around a C value
+_STAGE_ROUNDING = {"bfloat16": "stagecc_stage::bf16r({})",
+                   "float16": "stagecc_stage::f16r({})",
+                   "int8": "stagecc_stage::wrap8({})"}
+
+
 def _rnd(expr: str, dtype: str) -> str:
-    """``expr`` rounded to ``dtype`` (a no-op for f32)."""
-    return f"stagecc_stage::bf16r({expr})" if dtype == "bfloat16" else expr
+    """``expr`` rounded to ``dtype`` (a no-op for f32 and int32)."""
+    return _STAGE_ROUNDING.get(dtype, "{}").format(expr)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def _pow2ceil(n: int) -> int:
@@ -1301,37 +1553,42 @@ class _StageRenderer:
         self.kernel, self.stage = kernel, stage
         self.nt = stage.threads
         self.dtypes = {n: b.type.dtype for n, b in stage.buffers.items()}
-        names = stage.params + [b.name for b in stage.block_scratch]
-        for n in names:
-            if self.dtypes[n] not in _CTYPE:
-                raise EmitError(f"{kernel.name}: {n} is {self.dtypes[n]}; "
-                                f"the CUDA stages take {sorted(_CTYPE)}")
         self.ptr = {n: f"g{i}" for i, n in enumerate(stage.params)}
         self.ptr.update({b.name: f"s{i}"
                          for i, b in enumerate(stage.block_scratch)})
         self.read_only = set(stage.reads) - set(stage.writes)
-        # shared memory: scratch, then matmul staging, then staged results
-        self.smem_off: Dict[str, int] = {}
-        off = 0
-        for b in stage.block_scratch:
-            self.smem_off[b.name] = off
-            off += -(-b.type.nbytes // 16) * 16
-        self.scratch_bytes = off
         mm = stg = 0
         for s in _walk_stmts(stage.body):
             if isinstance(s, MatmulTile):
-                tm, tn = s.dst.tile[-2:]
-                mm = max(mm, _mm_layout(self.nt, tm, tn)[3])
+                mm = max(mm, _mm_layout(self.nt, s.lhs.tile[-2],
+                                        s.rhs.tile[-1])[3])
             if _staged(s):
                 extra = s.carry.tile_elems if isinstance(s, ScanTile) else 0
                 stg = max(stg, 4 * (s.dst.tile_elems + extra))
-        self.mm_off, self.stg_off = off, off + mm
-        self.smem = off + mm + -(-stg // 16) * 16
-        if self.smem > _SMEM_LIMIT:
-            raise EmitError(
-                f"{kernel.name}: stage {stage.index} needs {self.smem} "
-                f"bytes of shared memory (scratch {self.scratch_bytes}); a "
-                f"block has {_SMEM_LIMIT}")
+        # shared memory first: scratch in order while it fits beside the
+        # matmul staging, then the staged results; what does not fit goes
+        # to the block's workspace in global memory
+        room = _SMEM_LIMIT - mm
+        self.smem_off: Dict[str, int] = {}
+        self.ws_off: Dict[str, int] = {}
+        off = ws = 0
+        for b in stage.block_scratch:
+            size = _align16(b.type.nbytes)
+            if off + size <= room:
+                self.smem_off[b.name], off = off, off + size
+            else:
+                self.ws_off[b.name], ws = ws, ws + size
+        self.scratch_bytes, self.ws_scratch = off, ws
+        self.mm_off = off
+        if off + _align16(stg) <= room:
+            self.stg_at, self.stg_off = "smem", off + mm
+            self.smem = off + mm + _align16(stg)
+        else:
+            self.stg_at, self.stg_off = "ws", ws
+            self.smem, ws = off + mm, ws + _align16(stg)
+        self.ws_bytes = ws
+        stage.ws_bytes = ws
+        stage.ws_blocks = min(stage.programs, _WS_BLOCKS) if ws else 0
         self.lines: List[str] = []
         self.depth = 1
         self.onames: Dict[int, str] = {}     # id(TileRef) -> origin name
@@ -1343,6 +1600,18 @@ class _StageRenderer:
 
     def ctype(self, name: str) -> str:
         return _CTYPE[self.dtypes[name]]
+
+    def load(self, var: str, r: TileRef, addr: str) -> Tuple[str, str]:
+        """Declare ``var`` as the value at ``addr`` of ``r``'s buffer, in
+        the C type its element type computes in; (var, dtype)."""
+        dtype = self.dtypes[r.buffer.name]
+        self.out(f"const {_vtype(dtype)} {var} = stagecc_stage::ld({addr});")
+        return var, dtype
+
+    @staticmethod
+    def stg(dtype: str) -> str:
+        """The staging array for values of ``dtype``: float or int."""
+        return "stgi" if dtype in _INTS else "stg"
 
     def origin(self, r: TileRef) -> str:
         """The tile's first element, as a 64-bit offset into its buffer."""
@@ -1412,7 +1681,7 @@ class _StageRenderer:
         self.bind(s.dst, *s.srcs)
         idx = self.elems_loop(shape)
         if s.op == "ones":
-            val = "1.f"
+            val, dtype = "1.f", "float32"
         elif s.op == "copy1":
             src = s.srcs[0]
             if src.tile_elems != s.dst.tile_elems:
@@ -1421,25 +1690,18 @@ class _StageRenderer:
             # the flat element e of the dst is the flat element e of src
             self.out("const int f = e;")
             sidx = self.elems_index("f", src.tile)
-            self.out(f"const float x0 = stagecc_stage::ld("
-                     f"{self.element(src, sidx, src.tile)});")
-            val = "x0"
+            val, dtype = self.load("x0", src,
+                                   self.element(src, sidx, src.tile))
         else:
             if s.op != "cast" and s.op not in _EWISE_CUDA:
                 raise EmitError(f"{self.kernel.name}: no CUDA emission for "
                                 f"op {s.op!r}")
-            for i, r in enumerate(s.srcs):
-                self.out(f"const float x{i} = stagecc_stage::ld("
-                         f"{self.element(r, idx, shape)});")
-            if s.op == "cast":
-                val = "x0"
-            else:
-                args = [f"x{i}" for i in range(len(s.srcs))]
-                dtype = _promote(*(self.dtypes[r.buffer.name]
-                                   for r in s.srcs))
-                val = _rnd(_EWISE_CUDA[s.op].format(*args), dtype)
+            args = [self.load(f"x{i}", r, self.element(r, idx, shape))
+                    for i, r in enumerate(s.srcs)]
+            val, dtype = (args[0] if s.op == "cast" else
+                          _typed_op(s.op, args, _STAGE_ROUNDING))
         if staged:
-            self.out(f"stg[e] = {val};")
+            self.out(f"{self.stg(dtype)}[e] = {val};")
         else:
             self.out(f"stagecc_stage::st({self.element(s.dst, idx, shape)},"
                      f" {val});")
@@ -1448,7 +1710,7 @@ class _StageRenderer:
             self.sync()
             idx = self.elems_loop(shape)
             self.out(f"stagecc_stage::st({self.element(s.dst, idx, shape)},"
-                     f" stg[e]);")
+                     f" {self.stg(dtype)}[e]);")
             self.close()
 
     def elems_index(self, flat: str, shape: Sequence[int]) -> List[str]:
@@ -1463,30 +1725,57 @@ class _StageRenderer:
             self.out(f"const int {names[0]} = q_{flat};")
         return names
 
-    def view(self, r: TileRef) -> str:
-        if len(r.tile) != 2:
-            raise EmitError(f"{self.kernel.name}: rank-{len(r.tile)} matmul "
-                            f"operand {r}")
-        rs, cs = _strides(r.buffer.shape)
-        # only the read-only global pointers are const
-        const = "const " if r.buffer.name in self.read_only else ""
-        return (f"stagecc_stage::View2<{const}{self.ctype(r.buffer.name)}>"
-                f"{{{self.ptr[r.buffer.name]} + {self.onames[id(r)]}, "
-                f"{rs}LL, {cs}LL}}")
+    def view(self, r: TileRef, lead: Sequence[Tuple[int, str]] = (),
+             rows: int = -2, ptr: Optional[str] = None,
+             strides: Optional[Sequence[int]] = None) -> str:
+        """A rank-2 view of ``r``'s tile: its dimension ``rows`` by its
+        last, offset by ``lead``'s (dimension, C index) pairs; ``ptr`` and
+        ``strides`` replace the buffer's (a staged result)."""
+        st = strides or _strides(r.buffer.shape)
+        off = "".join(f" + {v} * {st[d]}LL" for d, v in lead)
+        if ptr is None:
+            # only the read-only global pointers are const
+            const = "const " if r.buffer.name in self.read_only else ""
+            t = f"{const}{self.ctype(r.buffer.name)}"
+            ptr = f"{self.ptr[r.buffer.name]} + {self.onames[id(r)]}"
+        else:
+            t = "float"
+        return (f"stagecc_stage::View2<{t}>{{{ptr}{off}, "
+                f"{st[rows]}LL, {st[-1]}LL}}")
 
     def render_matmul(self, s: MatmulTile, staged: bool) -> None:
+        """dst (+)= lhs @ rhs with jnp.dot's shapes: a 2-D product for
+        each index of the operands' leading tile dimensions, (lhs leading,
+        M, rhs leading, N) in dst; leading dimensions of extent 1 add
+        nothing."""
         tm, tk = s.lhs.tile[-2:]
         tn = s.rhs.tile[-1]
+        ll, lr = s.lhs.tile[:-2], s.rhs.tile[:-2]
+        if s.dst.tile != ll + (tm,) + lr + (tn,):
+            raise EmitError(f"{self.kernel.name}: jnp.dot of {s.lhs.tile} "
+                            f"and {s.rhs.tile} is not the tile {s.dst.tile}")
         rx, mi, mj, _ = _mm_layout(self.nt, tm, tn)
         self.bind(s.dst, s.lhs, s.rhs)
-        dst = (f"stagecc_stage::View2<float>{{stg, {tn}LL, 1LL}}" if staged
-               else self.view(s.dst))
+        loops = []           # (C index, lhs dim, dst dim) or rhs's
+        for side, lead, base in (("l", ll, 0), ("r", lr, len(ll) + 1)):
+            for d, e in enumerate(lead):
+                if e > 1:
+                    v = f"b{side}{d}"
+                    self.out(f"for (int {v} = 0; {v} < {e}; ++{v}) {{")
+                    self.depth += 1
+                    loops.append((side, v, d, base + d))
+        dst_lead = [(dd, v) for _, v, _, dd in loops]
+        dst = (self.view(s.dst, dst_lead, len(ll), ptr="stg",
+                         strides=_strides(s.dst.tile)) if staged
+               else self.view(s.dst, dst_lead, len(ll)))
         acc = "true" if s.accumulate and not staged else "false"
         self.out(f"stagecc_stage::matmul_tile<{self.nt}, {tm}, {tn}, {tk}, "
                  f"{rx}, {mi}, {mj}, {acc}>(")
-        self.out(f"    {self.view(s.lhs)},")
-        self.out(f"    {self.view(s.rhs)},")
+        self.out(f"    {self.view(s.lhs, [(d, v) for w, v, d, _ in loops if w == 'l'])},")
+        self.out(f"    {self.view(s.rhs, [(d, v) for w, v, d, _ in loops if w == 'r'])},")
         self.out(f"    {dst}, mm);")
+        for _ in loops:
+            self.close()
         if staged:
             self.sync()
             idx = self.elems_loop(s.dst.tile)
@@ -1502,7 +1791,17 @@ class _StageRenderer:
         width = s.src.tile[-1]
         rows = math.prod(rows_shape)
         src_t = self.dtypes[s.src.buffer.name]
-        combined = _promote(self.dtypes[s.dst.buffer.name], src_t)
+        dst_t = self.dtypes[s.dst.buffer.name]
+        # jnp.sum of an integer type sums in int32; max keeps the type
+        red_t = "int32" if src_t in _INTS and not mx else src_t
+        vt = _vtype(red_t)
+        if vt == "int":
+            init = "(-2147483647 - 1)" if mx else "0"
+            step = "max(v, x)" if mx else _EWISE_INT["add"].format("v", "x")
+        else:
+            init = "-INFINITY" if mx else "0.f"
+            step = "fmaxf(v, x)" if mx else "v + x"
+        comb = "maximum" if mx else "add"
         self.bind(s.dst, s.src)
         self.out(f"for (int row = threadIdx.x / 32; row < {rows}; "
                  f"row += {self.nt // 32}) {{")
@@ -1510,34 +1809,33 @@ class _StageRenderer:
         ridx = self.elems_index("row", rows_shape)
         s_last = _strides(s.src.buffer.shape)[-1]
         src_row = self.element(s.src, ridx + ["0"], s.src.tile)
-        self.out(f"float v = {'-INFINITY' if mx else '0.f'};")
+        self.out(f"{vt} v = {init};")
         self.out(f"for (int c = threadIdx.x % 32; c < {width}; c += 32) {{")
-        self.out(f"  const float x = stagecc_stage::ld({src_row} + c * "
+        self.out(f"  const {vt} x = stagecc_stage::ld({src_row} + c * "
                  f"{s_last}LL);")
-        self.out(f"  v = {'fmaxf(v, x)' if mx else 'v + x'};")
+        self.out(f"  v = {step};")
         self.out("}")
-        self.out(f"v = {_rnd(f'stagecc_stage::warp_reduce<{str(mx).lower()}>(v)', src_t)};")
+        self.out(f"v = {_rnd(f'stagecc_stage::warp_reduce<{str(mx).lower()}>(v)', red_t)};")
         dst = self.element(s.dst, ridx + ["0"], s.dst.tile)
         self.out("if (threadIdx.x % 32 == 0) {")
         if staged:
-            self.out("  stg[row] = v;")
+            self.out(f"  {self.stg(red_t)}[row] = v;")
         else:
+            val = "v"
             if s.accumulate:
-                d = f"stagecc_stage::ld({dst})"
-                comb = f"fmaxf({d}, v)" if mx else f"{d} + v"
-                self.out(f"  v = {_rnd(comb, combined)};")
-            self.out(f"  stagecc_stage::st({dst}, v);")
+                val = _typed_op(comb, [(f"stagecc_stage::ld({dst})", dst_t),
+                                       ("v", red_t)], _STAGE_ROUNDING)[0]
+            self.out(f"  stagecc_stage::st({dst}, {val});")
         self.out("}")
         self.close()
         if staged:
             self.sync()
             idx = self.elems_loop(s.dst.tile)
             d = self.element(s.dst, idx, s.dst.tile)
-            val = "stg[e]"
+            val = f"{self.stg(red_t)}[e]"
             if s.accumulate:
-                dv = f"stagecc_stage::ld({d})"
-                val = _rnd(f"fmaxf({dv}, stg[e])" if mx
-                           else f"{dv} + stg[e]", combined)
+                val = _typed_op(comb, [(f"stagecc_stage::ld({d})", dst_t),
+                                       (val, red_t)], _STAGE_ROUNDING)[0]
             self.out(f"stagecc_stage::st({d}, {val});")
             self.close()
 
@@ -1547,32 +1845,37 @@ class _StageRenderer:
         cols = math.prod(cols_shape)
         dtype = _promote(self.dtypes[s.carry.buffer.name],
                          *(self.dtypes[r.buffer.name] for r in s.srcs))
+        vt, stg = _vtype(dtype), self.stg(dtype)
         self.bind(s.dst, s.carry, *s.srcs)
         self.out(f"for (int col = threadIdx.x; col < {cols}; "
                  f"col += {self.nt}) {{")
         self.depth += 1
         cidx = self.elems_index("col", cols_shape)
         carry = self.element(s.carry, ["0"] + cidx, s.carry.tile)
-        self.out(f"float c = stagecc_stage::ld({carry});")
+        self.out(f"{vt} c = stagecc_stage::ld({carry});")
         self.out("#pragma unroll 4")
         self.out(f"for (int r = 0; r < {rows}; ++r) {{")
         self.depth += 1
         srcs = [self.element(r, ["r"] + cidx, s.dst.tile) for r in s.srcs]
         if s.kind == "linear":
-            self.out(f"const float a = stagecc_stage::ld({srcs[0]});")
-            self.out(f"const float x = stagecc_stage::ld({srcs[1]});")
-            self.out(f"c = {_rnd('__fadd_rn(__fmul_rn(a, c), x)', dtype)};")
+            self.out(f"const {vt} a = stagecc_stage::ld({srcs[0]});")
+            self.out(f"const {vt} x = stagecc_stage::ld({srcs[1]});")
+            step = ("__fadd_rn(__fmul_rn(a, c), x)" if vt == "float" else
+                    _EWISE_INT["add"].format(
+                        _EWISE_INT["mul"].format("a", "c"), "x"))
         else:
-            self.out(f"const float x = stagecc_stage::ld({srcs[0]});")
-            self.out(f"c = {_rnd('__fadd_rn(c, x)', dtype)};")
+            self.out(f"const {vt} x = stagecc_stage::ld({srcs[0]});")
+            step = ("__fadd_rn(c, x)" if vt == "float"
+                    else _EWISE_INT["add"].format("c", "x"))
+        self.out(f"c = {_rnd(step, dtype)};")
         if staged:
-            self.out(f"stg[r * {cols} + col] = c;")
+            self.out(f"{stg}[r * {cols} + col] = c;")
         else:
             self.out(f"stagecc_stage::st("
                      f"{self.element(s.dst, ['r'] + cidx, s.dst.tile)}, c);")
         self.close()
         if staged:
-            self.out(f"stg[{rows * cols} + col] = c;")
+            self.out(f"{stg}[{rows * cols} + col] = c;")
         else:
             self.out(f"stagecc_stage::st({carry}, c);")
         self.close()
@@ -1580,12 +1883,12 @@ class _StageRenderer:
             self.sync()
             idx = self.elems_loop(s.dst.tile)
             self.out(f"stagecc_stage::st("
-                     f"{self.element(s.dst, idx, s.dst.tile)}, stg[e]);")
+                     f"{self.element(s.dst, idx, s.dst.tile)}, {stg}[e]);")
             self.close()
             cidx = self.elems_loop(s.carry.tile, "k")
             self.out(f"stagecc_stage::st("
                      f"{self.element(s.carry, cidx, s.carry.tile)}, "
-                     f"stg[{rows * cols} + k]);")
+                     f"{stg}[{rows * cols} + k]);")
             self.close()
 
     def sync(self) -> None:
@@ -1638,27 +1941,48 @@ class _StageRenderer:
             params.append(f"const {c}* __restrict__ {self.ptr[n]}"
                           if n in self.read_only else f"{c}* {self.ptr[n]}")
         self.out("extern __shared__ __align__(16) unsigned char smem[];")
+        if self.ws_bytes:
+            # a bounded number of blocks, each walking programs with its
+            # own workspace, zeroed per program as the shared scratch is
+            params.append("unsigned char* __restrict__ wsp")
+            self.out(f"unsigned char* const ws = wsp + (long long)blockIdx.x"
+                     f" * {self.ws_bytes}LL;")
+            self.out(f"for (long long p0 = blockIdx.x; p0 < {st.programs}; "
+                     f"p0 += gridDim.x) {{")
+            self.depth += 1
         for b in st.block_scratch:
             c = self.ctype(b.name)
+            base = (f"smem + {self.smem_off[b.name]}" if b.name in
+                    self.smem_off else f"ws + {self.ws_off[b.name]}")
             self.out(f"{c}* const {self.ptr[b.name]} = reinterpret_cast<{c}*>"
-                     f"(smem + {self.smem_off[b.name]});  // {b.name} "
-                     f"{'x'.join(map(str, b.shape))}")
+                     f"({base});  // {b.name} {'x'.join(map(str, b.shape))}")
         self.out(f"float* const mm = reinterpret_cast<float*>(smem + "
                  f"{self.mm_off});")
-        self.out(f"float* const stg = reinterpret_cast<float*>(smem + "
-                 f"{self.stg_off});")
+        self.out(f"float* const stg = reinterpret_cast<float*>("
+                 f"{self.stg_at} + {self.stg_off});")
+        self.out("int* const stgi = reinterpret_cast<int*>(stg);")
         if self.scratch_bytes:
             self.out(f"stagecc_stage::zero_shared<{self.nt}>(smem, "
                      f"{self.scratch_bytes});")
+        if self.ws_scratch:
+            self.out(f"stagecc_stage::zero_shared<{self.nt}>(ws, "
+                     f"{self.ws_scratch});")
+        if self.scratch_bytes or self.ws_scratch:
             self.sync()
         if st.launch_vars:
-            self.out("long long pid = blockIdx.x;")
+            self.out("long long pid = p0;" if self.ws_bytes
+                     else "long long pid = blockIdx.x;")
             for v, g in reversed(st.launch_vars):
                 self.out(f"const int {_cvar(v)} = (int)(pid % {g}); "
                          f"pid /= {g};")
         self.body(st.body)
+        if self.ws_bytes:
+            self.depth -= 1
+            self.out("}")
+        ws = (f", a {self.ws_bytes}-byte workspace a block in global memory "
+              f"({st.ws_blocks} blocks)" if self.ws_bytes else "")
         head = (f"// stage {i}: {st.layout}, {self.smem} bytes of shared "
-                f"memory;\n// reads {', '.join(st.reads) or '-'}; writes "
+                f"memory{ws};\n// reads {', '.join(st.reads) or '-'}; writes "
                 f"{', '.join(st.writes)}\n")
         kernel = (f"__global__ void __launch_bounds__({self.nt}) "
                   f"stage{i}({', '.join(params)}) {{\n"
@@ -1667,6 +1991,10 @@ class _StageRenderer:
             f"static_cast<{'const ' if n in self.read_only else ''}"
             f"{self.ctype(n)}*>({self.ptr[n]})" for n in st.params)
         vparams = "".join(f"void* {self.ptr[n]}, " for n in st.params)
+        if self.ws_bytes:
+            vparams += "void* wsp, "
+            casts += ", static_cast<unsigned char*>(wsp)"
+        blocks = st.ws_blocks if self.ws_bytes else st.programs
         opt_in = ""
         if self.smem > _SMEM_DEFAULT:
             opt_in = (f"  const cudaError_t attr = cudaFuncSetAttribute("
@@ -1675,7 +2003,7 @@ class _StageRenderer:
                       f"  if (attr != cudaSuccess) return (int)attr;\n")
         launcher = (f'extern "C" int stagecc_stage{i}({vparams}void* stream) '
                     f"{{\n{opt_in}"
-                    f"  stage{i}<<<{st.programs}, {self.nt}, {self.smem}, "
+                    f"  stage{i}<<<{blocks}, {self.nt}, {self.smem}, "
                     f"static_cast<cudaStream_t>(stream)>>>({casts});\n"
                     f"  return (int)cudaGetLastError();\n}}\n")
         return head + kernel + "\n" + launcher
@@ -1798,7 +2126,7 @@ def _run_plain(stmts, env: Dict[str, int], mem: Dict[str, torch.Tensor],
 
     def write(r: TileRef, val: torch.Tensor):
         dst = mem[r.buffer.name]
-        dst[r.slices(env)] = val.to(dst.dtype)
+        dst[r.slices(env)] = _cast(val, dst.dtype)
 
     def full(r: TileRef, value: float):
         return torch.full(r.tile, value, dtype=torch.float32, device=dev)
@@ -1814,7 +2142,9 @@ def _run_plain(stmts, env: Dict[str, int], mem: Dict[str, torch.Tensor],
         elif isinstance(s, FillTile):
             write(s.dst, full(s.dst, s.value))
         elif isinstance(s, MatmulTile):
-            c = read(s.lhs).float() @ read(s.rhs).float()
+            # jnp.dot's contraction: (lhs leading, M, rhs leading, N)
+            c = torch.tensordot(read(s.lhs).float(), read(s.rhs).float(),
+                                dims=([-1], [-2]))
             if s.accumulate:
                 c = read(s.dst).float() + c
             write(s.dst, c)

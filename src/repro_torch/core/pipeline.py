@@ -124,9 +124,7 @@ def compile_traced(fn_or_graph, in_specs: Optional[Sequence[spec]] = None,
     per-nest kernels for everything else (``backend_cuda.emit``); it is
     None where both refuse the kernel, as ``run_pallas`` is in the
     reference (a stage over 4096 traced statements, an interior @grid
-    loop, ...), and where the port alone refuses it (element types other
-    than f32 / bf16, scratch beyond a block's shared memory, and the GEMM
-    template's own refusals).
+    loop, ...).
     """
     if isinstance(fn_or_graph, Graph):
         graph = fn_or_graph

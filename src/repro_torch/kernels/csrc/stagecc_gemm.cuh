@@ -12,8 +12,10 @@
 // Function: out = epilogue(A @ B).  A (M, K) and B (K, N) are read through
 // the element strides given (the autograd backward passes transposed
 // views, never copies); out (M, N) is contiguous.  Products are f32: bf16
-// inputs are widened exactly, and f32 runs as IEEE FFMA on the CUDA cores
-// (no TF32).  As in the reference, each k tile's product is summed on its
+// and f16 inputs are widened exactly, int32 and int8 ones converted (the
+// reference's preferred_element_type=float32), and f32 runs as IEEE FFMA
+// on the CUDA cores (no TF32).  An integer output rounds as XLA converts
+// (toward zero, saturating); its kgrid running sum is an int that wraps.  As in the reference, each k tile's product is summed on its
 // own in f32 and then added to the running sum, with the k tiles walked in
 // order inside the block (the TPU grid's sequential k axis); there is no
 // split-K, which would move the roundings below.
@@ -43,7 +45,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace stagecc {
 
@@ -51,24 +57,84 @@ constexpr int kDim = 16;  // threads per side of the block's thread grid
 constexpr int kThreads = kDim * kDim;
 constexpr int kChunk = 32;  // K columns staged in shared memory per step
 
+// An operand element widened to float (an integer converted, as the
+// reference's jnp.dot(..., preferred_element_type=float32) does).
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
-// x rounded (to nearest even) to the type T, and widened back to float
+// An epilogue input element as a value: float for the floating types, int
+// for the integer ones (the epilogue computes integers in int).
+__device__ __forceinline__ float to_val(float x) { return x; }
+__device__ __forceinline__ float to_val(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_val(__half x) { return __half2float(x); }
+__device__ __forceinline__ int to_val(int x) { return x; }
+__device__ __forceinline__ int to_val(int8_t x) { return x; }
+
+// int8's wrap: x modulo 2^8, as a signed value
+__device__ __forceinline__ int wrap8(int x) {
+  return static_cast<int>(static_cast<int8_t>(x));
+}
+
+// x rounded (to nearest even) to the type T, and widened back to float;
+// into an integer type, as XLA converts a float: toward zero, clamped to
+// the type's range, NaN to 0 (PTX's cvt.rzi clamps and takes NaN to 0)
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
+__device__ __forceinline__ float round_to(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
+}
+__device__ __forceinline__ int round_to(float x, const int*) {
+  return __float2int_rz(x);
+}
+__device__ __forceinline__ int round_to(float x, const int8_t*) {
+  return min(max(__float2int_rz(x), -128), 127);
+}
 template <typename T>
-__device__ __forceinline__ float round_to(float x) {
+__device__ __forceinline__ auto round_to(float x) {
   return round_to(x, static_cast<const T*>(nullptr));
 }
+
+// The type a running sum of T is kept in: int for the integer types,
+// float for the floating ones.
+template <typename T>
+using value_t = decltype(round_to<T>(0.f));
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+__device__ __forceinline__ void store(int* p, float x) {
+  *p = round_to<int>(x);
+}
+__device__ __forceinline__ void store(int8_t* p, float x) {
+  *p = static_cast<int8_t>(round_to<int8_t>(x));
+}
+__device__ __forceinline__ void store(float* p, int x) {
+  *p = static_cast<float>(x);
+}
+__device__ __forceinline__ void store(__nv_bfloat16* p, int x) {
+  *p = __float2bfloat16(static_cast<float>(x));
+}
+__device__ __forceinline__ void store(__half* p, int x) {
+  *p = __int2half_rn(x);
+}
+__device__ __forceinline__ void store(int* p, int x) { *p = x; }
+__device__ __forceinline__ void store(int8_t* p, int x) {
+  *p = static_cast<int8_t>(x);
 }
 
 template <int TM, int TN, int TK, bool kKGrid, typename TA, typename TB,
@@ -76,7 +142,8 @@ template <int TM, int TN, int TK, bool kKGrid, typename TA, typename TB,
 __global__ void __launch_bounds__(kThreads)
     gemm_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
                 TO* __restrict__ out, int n, int k, long long sam,
-                long long sak, long long sbk, long long sbn, Epilogue epi) {
+                long long sak, long long sbk, long long sbn, long long ldo,
+                Epilogue epi) {
   constexpr int RM = (TM + kDim - 1) / kDim;  // rows per thread
   constexpr int RN = (TN + kDim - 1) / kDim;  // columns per thread
   constexpr int KC = TK < kChunk ? TK : kChunk;
@@ -97,12 +164,14 @@ __global__ void __launch_bounds__(kThreads)
   const TA* a_blk = a + row0 * sam;
   const TB* b_blk = b + col0 * sbn;
 
-  float acc[RM][RN];   // the running sum (output-typed in kgrid)
+  // the running sum: output-typed in kgrid (an int for an integer output)
+  using Acc = std::conditional_t<kKGrid, value_t<TO>, float>;
+  Acc acc[RM][RN];
   float part[RM][RN];  // the current k tile's f32 product
 #pragma unroll
   for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0;
 
   for (int k0 = 0; k0 < k; k0 += TK) {  // the k tiles, in order
 #pragma unroll
@@ -163,9 +232,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
-        if constexpr (kKGrid)
+        if constexpr (kKGrid && std::is_same_v<Acc, int>) {
+          // the integer output's running sum wraps as its type does
+          const int t = static_cast<int>(
+              static_cast<unsigned>(acc[i][j]) +
+              static_cast<unsigned>(round_to<TO>(part[i][j])));
+          acc[i][j] = std::is_same_v<TO, int8_t> ? wrap8(t) : t;
+        } else if constexpr (kKGrid) {
           acc[i][j] = round_to<TO>(acc[i][j] + round_to<TO>(part[i][j]));
-        else
+        } else
           acc[i][j] += part[i][j];
       }
   }
@@ -179,24 +254,26 @@ __global__ void __launch_bounds__(kThreads)
       const int c = tx + kDim * j;
       if (!kFullN && c >= TN) continue;
       const long long gr = row0 + r, gc = col0 + c;
-      store(out + gr * n + gc, epi(acc[i][j], gr, gc, n));
+      store(out + gr * ldo + gc, epi(acc[i][j], gr, gc, ldo));
     }
   }
 }
 
-// Launch on `stream`, one block per output tile; the caller has checked
-// that the tiles divide M, N and K and that the tiles number below 2^31.
-// Returns cudaGetLastError() (0 when the launch was accepted).
+// Launch on `stream`, one block per output tile.  m, n and k are what the
+// reference's grid covers (its tiles times its extents), which may fall
+// short of the arrays: the output's rows are `ldo` apart, and the caller
+// has filled what no tile writes.  The tiles number below 2^31.  Returns
+// cudaGetLastError() (0 when the launch was accepted).
 template <int TM, int TN, int TK, bool kKGrid, typename TA, typename TB,
           typename TO, typename Epilogue>
 int launch(const void* a, const void* b, void* out, int m, int n, int k,
            long long sam, long long sak, long long sbk, long long sbn,
-           Epilogue epi, void* stream) {
+           long long ldo, Epilogue epi, void* stream) {
   const dim3 grid(static_cast<unsigned>((n / TN) * (m / TM)));
   gemm_kernel<TM, TN, TK, kKGrid, TA, TB, TO, Epilogue>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const TA*>(a), static_cast<const TB*>(b),
-          static_cast<TO*>(out), n, k, sam, sak, sbk, sbn, epi);
+          static_cast<TO*>(out), n, k, sam, sak, sbk, sbn, ldo, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,9 +30,20 @@
 //   * every statement is a loop of the whole block over the tile's
 //     elements, followed by __syncthreads(), since the next statement may
 //     read what this one wrote;
-//   * every value is computed in f32 (bf16 inputs are widened exactly) and
-//     rounded to bf16 where the reference's value has that type; every
-//     store rounds to the destination's type.
+//   * a floating value is computed in f32 (bf16 and f16 inputs are widened
+//     exactly) and rounded to bf16 or f16 where the reference's value has
+//     that type; an integer value (int32, int8) is computed in int and
+//     wraps as the reference's type does; every store converts to the
+//     destination's type as the reference's astype does (a float into an
+//     integer type truncates toward zero, saturates, and takes NaN to 0);
+//   * scratch that does not fit in shared memory, and a staged result too
+//     large for it, live in a per-block workspace in global memory that
+//     the launch allocates; such a stage runs a bounded number of blocks,
+//     each walking programs in a loop and zeroing its workspace per
+//     program;
+//   * a matmul tile of rank above 2 is a loop of 2-D products over the
+//     operands' leading tile dimensions, as the reference's jnp.dot
+//     computes it (the output is (lhs leading, M, rhs leading, N)).
 //
 // What bounds it: the compiled graphs materialise every intermediate in
 // HBM, so a stage moves whole (S, S) score tensors, and a nest whose rows
@@ -43,22 +54,64 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace stagecc_stage {
 
+// Loads: a floating element widens to float, an integer one to int.
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float ld(const __half* p) {
+  return __half2float(*p);
+}
+__device__ __forceinline__ int ld(const int* p) { return *p; }
+__device__ __forceinline__ int ld(const int8_t* p) { return *p; }
+
+// int8's wrap: x modulo 2^8, as a signed value
+__device__ __forceinline__ int wrap8(int x) {
+  return static_cast<int>(static_cast<int8_t>(x));
+}
+// a float into an integer type as XLA converts it: toward zero, clamped
+// to the type's range, NaN to 0 (PTX's cvt.rzi clamps and takes NaN to 0)
+__device__ __forceinline__ int sat32(float x) { return __float2int_rz(x); }
+__device__ __forceinline__ int sat8(float x) {
+  return min(max(__float2int_rz(x), -128), 127);
+}
+
+// Stores: to the destination's type, as the reference's astype.
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
-// x rounded to the nearest bf16 (ties to even) and widened back
+__device__ __forceinline__ void st(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+__device__ __forceinline__ void st(int* p, float x) { *p = sat32(x); }
+__device__ __forceinline__ void st(int8_t* p, float x) {
+  *p = static_cast<int8_t>(sat8(x));
+}
+__device__ __forceinline__ void st(float* p, int x) {
+  *p = static_cast<float>(x);
+}
+__device__ __forceinline__ void st(__nv_bfloat16* p, int x) {
+  *p = __float2bfloat16_rn(static_cast<float>(x));
+}
+__device__ __forceinline__ void st(__half* p, int x) { *p = __int2half_rn(x); }
+__device__ __forceinline__ void st(int* p, int x) { *p = x; }
+__device__ __forceinline__ void st(int8_t* p, int x) {
+  *p = static_cast<int8_t>(x);
+}
+// x rounded to the nearest bf16 / f16 (ties to even) and widened back
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float f16r(float x) {
+  return __half2float(__float2half_rn(x));
 }
 
 // A rank-2 view of a tile: element (r, c) at p[r * rs + c * cs].
@@ -66,7 +119,7 @@ template <typename T>
 struct View2 {
   T* p;
   long long rs, cs;
-  __device__ __forceinline__ float get(int r, int c) const {
+  __device__ __forceinline__ auto get(int r, int c) const {
     return ld(p + r * rs + c * cs);
   }
   __device__ __forceinline__ void put(int r, int c, float x) const {
@@ -74,11 +127,12 @@ struct View2 {
   }
 };
 
-// Zero `bytes` (a multiple of 16) of shared memory with the whole block.
+// Zero `bytes` (a multiple of 16, 16-byte aligned) of shared or global
+// memory with the whole block.
 template <int NT>
-__device__ __forceinline__ void zero_shared(unsigned char* p, int bytes) {
+__device__ __forceinline__ void zero_shared(unsigned char* p, long long bytes) {
   float4* q = reinterpret_cast<float4*>(p);
-  for (int i = threadIdx.x; i < bytes / 16; i += NT)
+  for (long long i = threadIdx.x; i < bytes / 16; i += NT)
     q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
@@ -188,13 +242,24 @@ __device__ __forceinline__ void matmul_tile(const View2<TA>& a,
   }
 }
 
-// Sum or max of a warp's 32 values, left in every lane.
+// Sum or max of a warp's 32 values, left in every lane; an int sum wraps
+// modulo 2^32, as the reference's int32 sum does.
 template <bool MAX>
 __device__ __forceinline__ float warp_reduce(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float y = __shfl_xor_sync(0xffffffffu, x, o);
     x = MAX ? fmaxf(x, y) : x + y;
+  }
+  return x;
+}
+template <bool MAX>
+__device__ __forceinline__ int warp_reduce(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = MAX ? max(x, y) : static_cast<int>(static_cast<unsigned>(x) +
+                                           static_cast<unsigned>(y));
   }
   return x;
 }

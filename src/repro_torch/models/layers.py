@@ -32,29 +32,31 @@ class Maker:
     shape: the tensor is ``lead + shape``, while the init scale follows the
     per-layer ``shape`` (the reference initialises each layer under
     ``jax.vmap``, so its fan-in never sees the layer axis).  Tensors are
-    float32."""
+    ``dtype``; a normal draw is made in float32 and cast, as the
+    reference's ``(normal * s).astype(dtype)``."""
     mode: str                                   # "init" | "shape"
     generator: Optional[torch.Generator] = None
     device: Any = "cuda"
     lead: Tuple[int, ...] = ()
+    dtype: torch.dtype = torch.float32
 
     def __call__(self, shape: Tuple[int, ...], axes: str,
                  init: str = "normal", scale: float = 0.02) -> torch.Tensor:
         full = tuple(self.lead) + tuple(shape)
         if self.mode == "shape":
-            return torch.empty(full, dtype=torch.float32, device="meta")
+            return torch.empty(full, dtype=self.dtype, device="meta")
         if self.mode != "init":
             raise ValueError(f"Maker mode {self.mode!r}")
         if init == "zeros":
-            return torch.zeros(full, dtype=torch.float32, device=self.device)
+            return torch.zeros(full, dtype=self.dtype, device=self.device)
         if init == "ones":
-            return torch.ones(full, dtype=torch.float32, device=self.device)
+            return torch.ones(full, dtype=self.dtype, device=self.device)
         if init == "normal":
             fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
             s = min(scale, (1.0 / fan_in) ** 0.5) if len(shape) > 1 else scale
             t = torch.randn(full, generator=self.generator,
                             dtype=torch.float32, device=self.device)
-            return t.mul_(s)
+            return t.mul_(s).to(self.dtype)
         raise ValueError(init)
 
 
@@ -142,7 +144,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Position-based attention that never builds a full (Sq, Sk) mask.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); qpos: (B, Sq); kpos: (B, Sk);
-    ``valid``: count of valid cache entries (decode) or None;
+    ``valid``: count of valid cache entries (decode), one int for every
+    row or a (B,) tensor of per-row counts, or None;
     ``window``: local attention window or None.
 
     Small problems take the direct path; large ones run a blockwise
@@ -165,7 +168,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m &= kk <= qq
         if window is not None:
             m &= kk > qq - window
-        if valid is not None:
+        if torch.is_tensor(valid):
+            m &= kk < valid[:, None, None]
+        elif valid is not None:
             m &= kk < valid
         return m
 
@@ -208,23 +213,38 @@ def decode_block(smax: int) -> int:
     divisor of ``smax`` not above ``DECODE_BLOCK``, since the kernel, like
     the reference's, takes only tiles that divide the cache.  A depth with
     no large divisor gets small tiles: right, but slower, which is why
-    ``Engine`` rounds its caches up (``serve.engine.cache_depth``)."""
+    the serving engines round their caches up (``cache_depth``)."""
     return max(b for b in range(1, min(DECODE_BLOCK, smax) + 1)
                if smax % b == 0)
 
 
+def cache_depth(max_len: int) -> int:
+    """Depth of the KV cache the serving engines allocate for ``max_len``
+    positions: past one decode tile, ``max_len`` rounded up to a whole
+    number of tiles, so the decode kernel always runs full-size tiles
+    (``decode_block``).  A decode step always has at least one valid
+    position, so the extra, never-written positions get a weight of
+    exactly 0 and the tokens are those of a ``max_len``-deep cache."""
+    if max_len <= DECODE_BLOCK:
+        return max_len
+    return -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
+
+
 def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
                     window=None, cache: Optional[Params] = None,
-                    kv_len: Optional[int] = None,
+                    kv_len=None,
                     backend: str = "cuda") -> Tuple[torch.Tensor,
                                                     Optional[Params]]:
     """Pre-norm GQA attention block with optional KV cache.
 
     Training/prefill: x is (B, S, d), cache None/fresh. Decode: x is
     (B, 1, d) and ``cache`` holds (B, Smax, KV, hd) buffers with ``kv_len``
-    tokens valid before this call.  Unlike the reference, which returns a
-    new cache, the new keys and values are written into ``cache`` in place
-    and the same dict is returned.
+    tokens valid before this call: one int for every row, or a (B,)
+    integer tensor of per-row counts (the continuous engine's slots),
+    whose keys and values go to each row's own positions (``positions``,
+    which the caller has checked fit the cache).  Unlike the reference,
+    which returns a new cache, the new keys and values are written into
+    ``cache`` in place and the same dict is returned.
     """
     B, S, d = x.shape
     hd, H, KV = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -241,7 +261,13 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
+    if cache is not None and torch.is_tensor(kv_len):
+        rows = torch.arange(B, device=x.device)[:, None]
+        cache["k"][rows, positions] = k.to(cache["k"].dtype)
+        cache["v"][rows, positions] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        valid = kv_len + S
+    elif cache is not None:
         start = int(kv_len or 0)
         smax = cache["k"].shape[1]
         if start + S > smax:
@@ -259,6 +285,7 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         rep = H // KV
         out = decode_attention(
             q.reshape(B, KV, rep, hd), k.transpose(1, 2), v.transpose(1, 2),
+            valid.to(torch.int32) if torch.is_tensor(valid) else
             torch.full((B,), valid, dtype=torch.int32, device=x.device),
             block_k=decode_block(k.shape[1]))
         out = out.reshape(B, S, H, hd)

@@ -17,6 +17,7 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -115,14 +116,16 @@ def _check_supported(cfg: ModelConfig) -> StackPlan:
 
 def init_params(cfg: ModelConfig, mode: str = "shape",
                 generator: Optional[torch.Generator] = None,
-                device: Any = "cuda") -> Params:
+                device: Any = "cuda",
+                dtype: torch.dtype = torch.float32) -> Params:
     """mode: "init" (tensors on ``device``, drawn from ``generator``) |
-    "shape" (meta tensors).  The random streams differ from the
-    reference's; ``repro_torch.convert`` carries its params over instead."""
+    "shape" (meta tensors), every param in ``dtype``.  The random streams
+    differ from the reference's; ``repro_torch.convert`` carries its
+    params over instead."""
     plan = _check_supported(cfg)
 
     def mk(lead=()):
-        return Maker(mode, generator, device, tuple(lead))
+        return Maker(mode, generator, device, tuple(lead), dtype)
 
     p: Params = {"embed": mk()((cfg.padded_vocab, cfg.d_model), "vocab fsdp")}
     if plan.groups:
@@ -169,7 +172,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     cache=None: training forward.  cache given: prefill (S>1, fresh cache)
     or decode (S==1); the cache is updated in place (new keys and values
-    written, ``len`` advanced) and the same dict is returned.
+    written, ``len`` advanced) and the same dict is returned.  ``len`` is
+    an int, the length of every row, or a (B,) numpy array of per-row
+    lengths (the continuous engine's slots), which the host checks
+    against the cache's depth and uploads once for every layer of the
+    step.
     """
     plan = _check_supported(cfg)
     B, S = tokens.shape
@@ -178,12 +185,21 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = params["embed"][tokens.long()]
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                          device=x.device).to(x.dtype)
-    start = kv_len if kv_len is not None else 0
-    positions = (start + torch.arange(S, device=x.device))[None, :].expand(
-        B, S)
+    steps = torch.arange(S, device=x.device)
+    if isinstance(kv_len, np.ndarray):
+        smax = _depth(cache)
+        if int(kv_len.max()) + S > smax:
+            raise ValueError(f"KV cache full: {int(kv_len.max())} + {S} > "
+                             f"{smax}")
+        lens = torch.as_tensor(kv_len, device=x.device).to(torch.int32)
+        positions = lens[:, None] + steps
+    else:
+        lens = kv_len
+        start = kv_len if kv_len is not None else 0
+        positions = (start + steps)[None, :].expand(B, S)
 
     for p, c, window in _layers(cfg, plan, params, cache):
-        x = _apply_layer(p, x, cfg, positions, window, c, kv_len, backend)
+        x = _apply_layer(p, x, cfg, positions, window, c, lens, backend)
 
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -195,17 +211,34 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, cache
 
 
+def _depth(cache: Params) -> int:
+    """The cache's depth (positions per row)."""
+    return next(cache_leaves(cache)).shape[2]
+
+
+def cache_leaves(cache: Params):
+    """The K and V buffers of a cache tree, in the tree's order (which
+    ``cache_spec`` fixes)."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from cache_leaves(v)
+        elif k != "len":
+            yield v
+
+
 # --------------------------------------------------------------------------
 # cache construction
 # --------------------------------------------------------------------------
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
-               mode: str = "shape", device: Any = "cuda") -> Params:
-    """Cache tree as float32 meta tensors ("shape") or zeros on ``device``
-    ("init").  ``len``, the count of cached positions, is a Python int in
-    "init" mode (the host always knows it, so reading it never waits for
-    the device) and a 0-d int32 meta tensor in "shape" mode."""
+               mode: str = "shape", device: Any = "cuda",
+               dtype: torch.dtype = torch.float32) -> Params:
+    """Cache tree as ``dtype`` meta tensors ("shape") or zeros on
+    ``device`` ("init"), each (groups, batch, max_len, KV, hd).  ``len``,
+    the count of cached positions, is a Python int in "init" mode (the
+    host always knows it, so reading it never waits for the device) and a
+    0-d int32 meta tensor in "shape" mode."""
     if mode not in ("shape", "init"):
         raise ValueError(mode)
     plan = _check_supported(cfg)
@@ -214,8 +247,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
 
     def leaf():
         if mode == "shape":
-            return torch.empty(shape, dtype=torch.float32, device="meta")
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     out: Dict[str, Any] = {}
     if plan.groups:

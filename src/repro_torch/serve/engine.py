@@ -4,6 +4,12 @@ The PyTorch counterpart of ``repro/serve/engine.py``.  ``make_prefill_step``
 / ``make_decode_step`` are the step functions; ``Engine`` drives them for
 real generation, greedy or with temperature sampling.  PyTorch runs
 eagerly, so the steps are called as they are (the reference jits them).
+
+Continuous batching lives next door: the serving engine is
+:class:`repro_torch.serve.continuous.ContinuousEngine` (one batched
+decode step across all occupied slots, an admission queue,
+backpressure); :class:`SerialSlotEngine` below decodes each slot with its
+own B=1 step, the differential reference the batched engine is held to.
 """
 
 from __future__ import annotations
@@ -15,8 +21,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.layers import DECODE_BLOCK
+from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
+# ContinuousEngine and Request are re-exported, as the reference's module does
+from repro_torch.serve.continuous import (ContinuousEngine, Request,  # noqa: F401
+                                         sample)
 
 
 def make_prefill_step(model: Model) -> Callable:
@@ -31,19 +40,6 @@ def make_decode_step(model: Model) -> Callable:
         logits, cache = model.apply(params, token, cache=cache)
         return logits[:, -1], cache
     return decode
-
-
-def cache_depth(max_len: int) -> int:
-    """Depth of the KV cache that ``Engine`` allocates for ``max_len``
-    positions: past one decode tile, ``max_len`` rounded up to a whole
-    number of tiles, so the decode kernel always runs full-size tiles
-    (``models.layers.decode_block``).  A decode step always has at least
-    one valid position, so the extra, never-written positions get a
-    weight of exactly 0 and the tokens are those of a ``max_len``-deep
-    cache."""
-    if max_len <= DECODE_BLOCK:
-        return max_len
-    return -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
 
 
 @dataclasses.dataclass
@@ -159,3 +155,98 @@ def throughput_stats(engine: Engine, prompts: np.ndarray, steps: int,
             "decode_steps": t["decode_steps"],
             "decode_tok_per_s": (B * t["decode_steps"] / t["decode_s"]
                                  if t["decode_steps"] else 0.0)}
+
+
+# --------------------------------------------------------------------------
+# continuous batching — serial reference implementation
+# --------------------------------------------------------------------------
+
+
+class SerialSlotEngine:
+    """Per-slot continuous batching, the differential reference for
+    :class:`ContinuousEngine`.
+
+    A fixed decode batch of ``slots`` where finished or empty slots are
+    refilled from the queue at once; every slot decodes with its own B=1
+    step on its own cache (``slots`` forwards per generated token, where
+    the batched engine runs one), and the batched engine must produce the
+    same greedy token streams.  Sampling at a temperature draws from one
+    generator seeded with ``seed``, in scheduling order, as the
+    reference's single key stream does.
+    """
+
+    def __init__(self, model: Model, params, slots: int = 4,
+                 max_len: int = 256, temperature: float = 0.0,
+                 seed: int = 0):
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.cfg = EngineConfig(max_len=max_len, temperature=temperature,
+                                seed=seed)
+        self.decode = make_decode_step(model)
+        self.prefill = make_prefill_step(model)
+
+    @torch.no_grad()
+    def serve(self, requests) -> Dict[int, np.ndarray]:
+        """Run all requests to completion; returns rid -> generated ids."""
+        dev = self.model.device
+        gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
+        depth = cache_depth(self.max_len)
+        queue = list(requests)
+        results: Dict[int, np.ndarray] = {}
+        # per-slot caches are allocated inside admit(); slots start empty
+        slot_cache: list = [None] * self.slots
+        slot_req: list = [None] * self.slots
+        slot_tok: list = [None] * self.slots
+        slot_left = np.zeros(self.slots, np.int64)
+        slot_hist: list = [[] for _ in range(self.slots)]
+
+        def draw(logits):
+            return sample(logits, self.model.cfg.vocab_size,
+                          self.cfg.temperature, [gen])
+
+        def finish(s):
+            req = slot_req[s]
+            results[req.rid] = np.asarray(slot_hist[s], np.int32)
+            slot_req[s] = None
+
+        def admit(s):
+            while queue:
+                req = queue.pop(0)
+                cache = self.model.cache_init(1, depth)
+                prompt = torch.as_tensor(
+                    np.asarray(req.prompt, np.int64)[None], device=dev)
+                logits, cache = self.prefill(self.params, cache, prompt)
+                tok = draw(logits)
+                if req.max_new <= 1:
+                    # the prefill sampled this request's only token; a
+                    # decode pass would emit a second one (max_new=1
+                    # off-by-one) — finish here instead
+                    results[req.rid] = np.asarray([int(tok[0])], np.int32)
+                    continue
+                slot_cache[s] = cache
+                slot_req[s] = req
+                slot_hist[s] = [int(tok[0])]
+                slot_left[s] = req.max_new - 1
+                slot_tok[s] = tok[:, None]
+                return True
+            return False
+
+        for s in range(self.slots):
+            admit(s)
+        while any(r is not None for r in slot_req) or queue:
+            for s in range(self.slots):
+                if slot_req[s] is None:
+                    admit(s)
+                    continue
+                logits, slot_cache[s] = self.decode(
+                    self.params, slot_cache[s], slot_tok[s])
+                tok = draw(logits)
+                slot_tok[s] = tok[:, None]
+                slot_hist[s].append(int(tok[0]))
+                slot_left[s] -= 1
+                if slot_left[s] <= 0 or \
+                        slot_cache[s]["len"] >= self.max_len - 1:
+                    finish(s)
+        return results

@@ -231,3 +231,192 @@ ROW_SPLIT = {
   }
 """, extra=", w: tensor<8x8xfloat32> @hbm"), 1),
 }
+
+
+# --------------------------------------------------------------------------
+# kernels the port refused and the reference took, before the repairs
+# --------------------------------------------------------------------------
+
+
+def typed_chain(F, dtype, n=8):
+    """An elementwise chain, both reductions and a cumsum on ``dtype``
+    inputs (integer arithmetic wraps; the reductions' accumulators are
+    float32 scratch), in one traced graph of frontend module ``F``."""
+    def f(a, b, x):
+        s = F.maximum((a + b - x) * a, b)
+        r = F.reduce(s, kind="sum", axis=1)
+        m = F.reduce(s, kind="max", axis=1)
+        return F.cumsum(s + r, axis=0) + m
+    return F.trace(f, [F.spec((n, n), dtype)] * 3, name=f"chain_{dtype}")
+
+
+def gemm_graph(F, dtype, bias=True, m=32, n=48, k=16):
+    """relu(A @ B + bias) on ``dtype`` operands (the product is float32),
+    or A @ B alone."""
+    specs = [F.spec((m, k), dtype), F.spec((k, n), dtype)]
+    if not bias:
+        return F.trace(lambda a, b: F.matmul(a, b), specs, name="mm")
+    return F.trace(lambda a, b, c: F.relu(F.matmul(a, b) + c),
+                   specs + [F.spec((n,))], name="mm_bias_relu")
+
+
+def _lowered(graph, schedule=None, pipeline=None, tile=None):
+    from repro_torch.core import compile_traced
+    ck = compile_traced(graph, schedule=schedule or "tpu_mxu", tile=tile,
+                        pipeline=pipeline, want_torch=False,
+                        want_cuda=False, device="cpu")
+    return ir_text.print_ir(ck.kernel)
+
+
+# an integer (or f16, f32) product summed on a k grid into an output of
+# another type (acc_dtype), each tile's product rounded to it
+KGRID = """\
+stagecc.kernel @kgrid(arg0: tensor<16x32xDT> @hbm, arg1: tensor<32x16xDT> @hbm, out: tensor<16x16xOT> @hbm) -> (out) {
+  for %i in [0,2) @grid {
+    for %j in [0,2) @grid {
+      for %k in [0,4) @grid {
+        out[i, j : 8x8] += mxu.matmul(arg0[i, k : 8x8], arg1[k, j : 8x8])
+      }
+    }
+  }
+}"""
+
+# float -> int8 / int32 (saturating, NaN to 0), int32 -> f16 and -> int8
+# (wrapping), int8 sums that wrap, an int8 division (a float32 result)
+CASTS = """\
+stagecc.kernel @casts(arg0: tensor<8x8xfloat32> @hbm, arg1: tensor<8x8xint32> @hbm, t8: tensor<8x8xint8> @hbm, t32: tensor<8x8xint32> @hbm, h: tensor<8x8xfloat16> @hbm, out: tensor<8x8xint8> @hbm) -> (out) {
+  for %i in [0,1) @seq {
+    t8[0, 0 : 8x8] = vpu.cast(arg0[0, 0 : 8x8])
+    t32[0, 0 : 8x8] = vpu.cast(arg0[0, 0 : 8x8])
+    h[0, 0 : 8x8] = vpu.cast(t32[0, 0 : 8x8])
+    out[0, 0 : 8x8] = vpu.add(t8[0, 0 : 8x8], t8[0, 0 : 8x8])
+    out[0, 4 : 8x1] = vpu.cast(arg1[0, 4 : 8x1])
+    out[0, 5 : 8x1] = vpu.div(t8[0, 5 : 8x1], t8[0, 6 : 8x1])
+  }
+}"""
+
+# a 256 x 256 f32 scratch (256 KB) that a scan keeps whole in one block:
+# above a block's 227 KB of shared memory
+BIG_SCRATCH = """\
+stagecc.kernel @big(arg0: tensor<256x256xfloat32> @hbm, out: tensor<256x256xfloat32> @hbm) -> (out) {
+  alloc acc: tensor<256x256xfloat32> @vmem
+  alloc c: tensor<1x256xfloat32> @vreg
+  for %i in [0,1) @seq {
+    scan<cumsum> acc[0, 0 : 256x256], c[0, 0 : 1x256], arg0[0, 0 : 256x256]
+    out[0, 0 : 256x256] = vpu.copy(acc[0, 0 : 256x256])
+  }
+}"""
+
+
+def rank3_text(lead, kind="seq"):
+    """A product with an lhs tile of leading dims ``lead`` (jnp.dot gives
+    (lead, M, N)).  Under @seq: into scratch twice (the second adds),
+    then copied out, which the reference's general emitter takes; under
+    @grid: straight into the output, which its GEMM classifier takes."""
+    f = lambda s: "x".join(map(str, s))
+    t = tuple(lead) + (8, 8)
+    z = ", ".join(["0"] * len(t))
+    head = (f"stagecc.kernel @rank3(arg0: tensor<{f(t)}xfloat32> @hbm, "
+            f"arg1: tensor<8x8xfloat32> @hbm, out: tensor<{f(t)}xfloat32> "
+            f"@hbm) -> (out) {{\n")
+    mm = f"mxu.matmul(arg0[{z} : {f(t)}], arg1[0, 0 : 8x8])"
+    if kind == "grid":
+        return (head + f"  for %i in [0,1) @grid {{\n    out[{z} : {f(t)}] "
+                f"= {mm}\n  }}\n}}")
+    return (head + f"  alloc s: tensor<{f(t)}xfloat32> @vreg\n"
+            f"  for %i in [0,1) @seq {{\n"
+            f"    s[{z} : {f(t)}] = {mm}\n"
+            f"    s[{z} : {f(t)}] += {mm}\n"
+            f"    out[{z} : {f(t)}] = vpu.copy(s[{z} : {f(t)}])\n  }}\n}}")
+
+
+# a contraction whose grid covers 16 x 16 of 20 x 20 arrays, with an
+# epilogue input EPI (type EPIT); the rest of the output is never written
+EDGE = """\
+stagecc.kernel @edge(arg0: tensor<20x20xfloat32> @hbm, arg1: tensor<20x20xfloat32> @hbm, arg2: EPIT @hbm, out: tensor<20x20xfloat32> @hbm) -> (out) {
+  alloc acc: tensor<8x8xfloat32> @vreg
+  for %i in [0,2) @grid {
+    for %j in [0,2) @grid {
+      zero acc[0, 0 : 8x8]
+      for %k in [0,2) @seq {
+        acc[0, 0 : 8x8] += mxu.matmul(arg0[i, k : 8x8], arg1[k, j : 8x8])
+      }
+      out[i, j : 8x8] = vpu.add(acc[0, 0 : 8x8], EPI)
+    }
+  }
+}"""
+
+
+def _edge(shape, ref):
+    t = "x".join(map(str, shape))
+    return EDGE.replace("EPIT", f"tensor<{t}xfloat32>").replace("EPI", ref)
+
+
+def _ints(*shapes):
+    return lambda rng: [rng.integers(-9, 9, s).astype(np.float32)
+                        for s in shapes]
+
+
+def _floats(*shapes):
+    return lambda rng: [rng.standard_normal(s).astype(np.float32)
+                        for s in shapes]
+
+
+def _cast_inputs(rng):
+    a = (rng.standard_normal((8, 8)) * 200).astype(np.float32)
+    a[0, 0], a[1, 1], a[2, 2] = np.nan, 3e10, -3e10
+    b = rng.integers(-2 ** 31, 2 ** 31 - 1, (8, 8)).astype(np.int32)
+    return [a, b]
+
+
+# name -> (LoopIR text, inputs from a numpy Generator): every case the
+# port refused alone before (ROADMAP C's port-only refusals): element
+# types f16, int32 and int8 in both emitters; scratch above 227 KB; rank-3
+# matmul tiles; epilogue inputs other than (N,) or (M, N); a grid that
+# covers part of the problem
+REPAIRS = {
+    "f16_exp": (lambda: _lowered(fe.trace(
+        lambda a: fe.exp(a), [fe.spec((8, 8), "float16")], name="exp_f16"),
+        pipeline="lower{tile_m=4,tile_n=4,tile_k=4}"), _floats((8, 8))),
+    "f16_gemm": (lambda: _lowered(gemm_graph(fe, "float16"), tile={
+        "m": 16, "n": 16, "k": 8}), _floats((32, 16), (16, 48), (48,))),
+    "f16_gemm_kgrid": (lambda: _lowered(
+        gemm_graph(fe, "float16"), "tpu_mxu_kgrid",
+        tile={"m": 16, "n": 16, "k": 8}), _floats((32, 16), (16, 48), (48,))),
+    "int8_gemm": (lambda: _lowered(gemm_graph(fe, "int8"), tile={
+        "m": 16, "n": 16, "k": 8}), _ints((32, 16), (16, 48), (48,))),
+    "int32_gemm_kgrid": (lambda: _lowered(
+        gemm_graph(fe, "int32", bias=False), "tpu_mxu_kgrid",
+        tile={"m": 16, "n": 16, "k": 8}), _ints((32, 16), (16, 48))),
+    "int8_to_int32_kgrid": (lambda: KGRID.replace("DT", "int8").replace(
+        "OT", "int32"), lambda rng: [rng.integers(-100, 100, s).astype(
+            np.float32) for s in ((16, 32), (32, 16))]),
+    "int8_to_int8_kgrid": (lambda: KGRID.replace("DT", "int8").replace(
+        "OT", "int8"), lambda rng: [rng.integers(-100, 100, s).astype(
+            np.float32) for s in ((16, 32), (32, 16))]),
+    "f16_kgrid": (lambda: KGRID.replace("DT", "float16").replace(
+        "OT", "float16"), _floats((16, 32), (32, 16))),
+    "f16_chain": (lambda: _lowered(typed_chain(fe, "float16"), pipeline=
+                  "lower{tile_m=4,tile_n=4,tile_k=4}"),
+                  lambda rng: [x / 7 for x in _ints(*[(8, 8)] * 3)(rng)]),
+    "int32_chain": (lambda: _lowered(typed_chain(fe, "int32"), pipeline=
+                    "lower{tile_m=4,tile_n=4,tile_k=4}"),
+                    _ints(*[(8, 8)] * 3)),
+    "int8_chain": (lambda: _lowered(typed_chain(fe, "int8"), pipeline=
+                   "lower{tile_m=4,tile_n=4,tile_k=4}"),
+                   _ints(*[(8, 8)] * 3)),
+    "casts": (lambda: CASTS, _cast_inputs),
+    "big_scratch": (lambda: BIG_SCRATCH, _floats((256, 256))),
+    "rank3_stage": (lambda: rank3_text((2, 3)), _floats((2, 3, 8, 8),
+                                                        (8, 8))),
+    "rank3_gemm": (lambda: rank3_text((1,), "grid"), _floats((1, 8, 8),
+                                                            (8, 8))),
+    "epilogue_rows": (lambda: _edge((16, 1), "arg2[i, 0 : 8x1]"),
+                      _floats((20, 20), (20, 20), (16, 1))),
+    "epilogue_one_tile": (lambda: _edge((8, 8), "arg2[0, 0 : 8x8]"),
+                          _floats((20, 20), (20, 20), (8, 8))),
+    "epilogue_transposed": (lambda: _edge((16, 16), "arg2[j, i : 8x8]"),
+                            _floats((20, 20), (20, 20), (16, 16))),
+    "edge": (lambda: _edge((20, 20), "arg2[i, j : 8x8]"),
+             _floats((20, 20), (20, 20), (20, 20))),
+}

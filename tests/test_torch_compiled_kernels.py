@@ -286,8 +286,11 @@ def test_gemma_width_without_a_grid(pipe, refused):
 
 def test_emit_dispatch_keeps_the_gemm_template_first():
     """A contraction the classifier takes gets the GEMM template (its own
-    launch counter); a contraction the template refuses gets no kernel,
-    not the general path."""
+    launch counter), in every element type the reference emits (f16 here,
+    which the template once refused); a contraction whose tiles the
+    template cannot index (a rank-3 lhs tile, which the reference's GEMM
+    emitter reads as jnp.dot does) goes to the general path, which sums
+    the same k tiles in the same order."""
     ck = compile_gemm(16, 16, 16, schedule="tpu_mxu", device="cpu")
     assert ck.run_cuda.plan is not None and not hasattr(ck.run_cuda,
                                                         "stages")
@@ -300,43 +303,82 @@ def test_emit_dispatch_keeps_the_gemm_template_first():
                      [ref_fe.spec((16, 16), "float16"),
                       ref_fe.spec((16, 16), "float16")], name="mm_f16"),
         schedule="tpu_mxu", want_jax=False)
-    # a port-only refusal (the template's element types)
-    assert ck.run_cuda is None and rck.run_pallas is not None
-    with pytest.raises(backend_cuda.EmitError, match="float16"):
-        backend_cuda.emit(ck.kernel, device="cpu")
+    assert ck.run_cuda.plan is not None and rck.run_pallas is not None
+    assert "launch<16, 16, 16, false, __half, __half, float>" in \
+        ck.run_cuda.source
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal((16, 16)).astype(np.float32) for _ in range(2)]
+    np.testing.assert_allclose(ck.run_cuda(*xs).numpy(),
+                               np.asarray(rck.run_pallas(*xs)), **TOL)
+    fn, rfn = _both(cases.rank3_text((1,), "grid"))
+    assert rfn.plan is not None and fn.plan is None and fn.stages
+    with pytest.raises(backend_cuda.EmitError, match="rank other than 2"):
+        backend_cuda._emit_gemm(ir_text.parse_ir(
+            cases.rank3_text((1,), "grid")), device="cpu")
 
 
-def test_port_only_refusals():
-    """Element types other than f32 / bf16 and scratch beyond a block's
-    shared memory refuse in the port alone (ROADMAP C); a row split that
-    leaves each block a part of the scratch lifts the second."""
-    g = fe.trace(lambda a: fe.exp(a), [fe.spec((8, 8), "float16")],
-                 name="exp_f16")
-    k = PassManager.parse("lower{tile_m=4,tile_n=4,tile_k=4}").run(g) \
-        .artifact
-    with pytest.raises(backend_cuda.EmitError, match="float16"):
-        backend_cuda.emit_general(k, device="cpu")
-    # a 256 x 256 f32 scratch (256 KB) that a scan keeps whole in one
-    # block exceeds its 227 KB
-    big = """\
-stagecc.kernel @big(arg0: tensor<256x256xfloat32> @hbm, out: tensor<256x256xfloat32> @hbm) -> (out) {
-  alloc acc: tensor<256x256xfloat32> @vmem
-  alloc c: tensor<1x256xfloat32> @vreg
-  for %i in [0,1) @seq {
-    scan<cumsum> acc[0, 0 : 256x256], c[0, 0 : 1x256], arg0[0, 0 : 256x256]
-    out[0, 0 : 256x256] = vpu.copy(acc[0, 0 : 256x256])
-  }
-}"""
-    with pytest.raises(backend_cuda.EmitError, match="shared memory"):
-        backend_cuda.emit_general(ir_text.parse_ir(big), device="cpu")
-    # a 256 x 256 matmul accumulator is row-local: each block keeps only
-    # its part's rows, so it fits
+def _placement(fn):
+    """Where each repaired kernel went: the GEMM template's route on the
+    CPU inputs' strides, or the general path."""
+    return "gemm" if fn.plan is not None else "general"
+
+
+@pytest.mark.parametrize("case", sorted(cases.REPAIRS))
+def test_port_only_refusals(case):
+    """Each kernel the port once refused where the reference did not
+    (ROADMAP C: f16, int32 and int8 elements in both emitters; scratch
+    above a block's 227 KB; rank-3 matmul tiles; the GEMM template's
+    epilogue layouts other than (N,) or (M, N) and grids that cover part
+    of the problem) has a kernel in both packages now, in the same
+    emitter, and the port's plain version, which CPU tensors run, agrees
+    with the reference's Pallas kernel in interpret mode within 1e-4, its
+    dtype and its unwritten elements included."""
+    text, inputs = cases.REPAIRS[case]
+    fn, rfn = _both(text())
+    assert fn is not None and rfn is not None
+    assert _placement(fn) == ("general" if case == "rank3_gemm" else
+                              "gemm" if rfn.plan is not None else "general")
+    xs = inputs(np.random.default_rng(0))
+    want = np.asarray(rfn(*xs))
+    launches = (backend_cuda.emit_general.launches, gemm.cuda_gemm.launches)
+    got = fn(*xs)
+    assert (backend_cuda.emit_general.launches,
+            gemm.cuda_gemm.launches) == launches        # plain on CPU
+    assert str(got.dtype).split(".")[1] == want.dtype.name
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               **TOL)
+    if case == "big_scratch":
+        # the 256 KB accumulator in the block's global workspace, the
+        # 1 KB carry in shared memory
+        st = fn.stages[0]
+        assert st.ws_bytes == 256 * 256 * 4 and st.ws_blocks == 1
+        assert "wsp" in fn.source
+
+
+def test_row_split_keeps_scratch_in_shared_memory():
+    """A 256 x 256 matmul accumulator is row-local: each block keeps only
+    its part's rows, so it fits in shared memory and needs no
+    workspace."""
     g = fe.trace(lambda a, b: fe.exp(fe.matmul(a, b)),
                  [fe.spec((256, 256)), fe.spec((256, 256))], name="big")
     k = PassManager.parse("lower{tile_m=256,tile_n=256,tile_k=4}") \
         .run(g).artifact
     st = backend_cuda.emit_general(k, device="cpu").stages[0]
     assert (st.parts, [b.shape for b in st.block_scratch]) == (32, [(8, 256)])
+    assert st.ws_bytes == 0
+
+
+@pytest.mark.parametrize("dtypes,want", [
+    (("float32",), "float32"), (("bfloat16", "float32"), "float32"),
+    (("bfloat16", "float16"), "float32"), (("int32", "float16"), "float16"),
+    (("int8", "bfloat16"), "bfloat16"), (("int8", "int32"), "int32"),
+    (("int8",), "int8")])
+def test_promotion_is_the_references(dtypes, want):
+    """The stage and epilogue renderers type each value by JAX's
+    promotion lattice over TensorIR's five types."""
+    import jax.numpy as jnp
+    assert backend_cuda._promote(*dtypes) == want
+    assert jnp.result_type(*(getattr(jnp, d) for d in dtypes)).name == want
 
 
 # --------------------------------------------------------------------------

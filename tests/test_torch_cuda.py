@@ -215,6 +215,118 @@ def test_engine_serves_past_one_tile(cuda):
     np.testing.assert_array_equal(got, want)
 
 
+def _bf16_models(cuda):
+    cfg = dataclasses.replace(reduced(get_config("qwen2_7b")), num_heads=14,
+                              num_kv_heads=2, head_dim=8)
+    run = dict(param_dtype="bfloat16", cache_dtype="bfloat16")
+    m = Model(cfg, RunConfig(backend="cuda", **run), cuda)
+    plain = Model(cfg, RunConfig(backend="torch", **run), cuda)
+    return cfg, m, plain, m.init(torch.Generator(device=cuda).manual_seed(0))
+
+
+def _rows_at(m, params, prompts, depth):
+    """A cache whose rows hold ``prompts`` (of different lengths), each
+    prefilled at B=1 and copied in, with per-row lengths; and the B=1
+    caches."""
+    from repro_torch.models.transformer import cache_leaves
+    batch = m.cache_init(len(prompts), depth)
+    ones = []
+    for b, pr in enumerate(prompts):
+        one = m.cache_init(1, depth)
+        m.apply(params, pr[None], cache=one)
+        for leaf, src in zip(cache_leaves(batch), cache_leaves(one)):
+            leaf[:, b] = src[:, 0]
+        ones.append(one)
+    batch["len"] = np.array([len(p) for p in prompts])
+    return batch, ones
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_model_per_row_decode_runs_the_kernel(cuda, bf16):
+    """One decode step whose rows sit at different lengths (the continuous
+    engine's step) launches the kernel once a layer with a per-row
+    ``valid``, and gives each row its B=1 decode's logits (bf16 params
+    and caches: within tests/test_kernels.py's bf16 bound of the logits'
+    largest magnitude, and of the plain version's)."""
+    cfg, m, plain, params = (_bf16_models if bf16 else _models)(cuda)
+    tol = TOL_BF16 if bf16 else 1e-4
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), device=cuda,
+                             generator=gen) for n in (5, 12, 1, 9)]
+    nxt = torch.randint(0, cfg.vocab_size, (4, 1), device=cuda,
+                        generator=gen)
+    batch, ones = _rows_at(m, params, prompts, 16)
+    twin, _ = _rows_at(plain, params, prompts, 16)
+    before = da.decode_attention.launches
+    got, _ = m.apply(params, nxt, cache=batch)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + cfg.num_layers
+    want, _ = plain.apply(params, nxt, cache=twin)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    for b, one in enumerate(ones):
+        row, _ = m.apply(params, nxt[b:b + 1], cache=one)
+        err = (got[b].float() - row[0].float()).abs().max().item()
+        assert err <= tol * scale, (b, err)
+
+
+def test_continuous_engine_on_the_card(cuda):
+    """The continuous engine on the card completes a mixed request set
+    (max_new 1 among it), one kernel launch a layer per batched step; its
+    greedy streams are the serial engine's except where a batched product
+    rounds a near tie another way than a B=1 one (counted, not
+    asserted)."""
+    from repro_torch.serve.engine import (ContinuousEngine, Request,
+                                          SerialSlotEngine)
+    cfg, m, _, params = _models(cuda)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (4 + i,)).astype(
+        np.int32), int(rng.integers(1, 8))) for i in range(6)]
+    eng = ContinuousEngine(m, params, slots=3, max_len=64)
+    before = da.decode_attention.launches
+    got = eng.serve([Request(r.rid, r.prompt, r.max_new) for r in reqs])
+    assert da.decode_attention.launches == before + cfg.num_layers * \
+        eng.steps
+    assert sorted(got) == [r.rid for r in reqs]
+    for r in reqs:
+        assert len(got[r.rid]) == r.max_new
+    serial = SerialSlotEngine(m, params, slots=3, max_len=64).serve(reqs)
+    same = sum(np.array_equal(got[r.rid], serial[r.rid]) for r in reqs)
+    print(f"{same} of {len(reqs)} greedy streams bit-identical")
+
+
+# ---- the general emitter's and the GEMM template's repaired refusals --------
+
+
+@pytest.mark.parametrize("case", sorted(stage_cases.REPAIRS))
+def test_repaired_emitters_match_plain(cuda, case):
+    """Each kernel the port once refused (f16, int32 and int8 elements;
+    scratch above a block's 227 KB, in a global workspace; rank-3 matmul
+    tiles; the GEMM template's epilogue layouts and partial grids) runs
+    on the card and matches its plain version on the same inputs within
+    1e-4, its unwritten elements included."""
+    text, inputs = stage_cases.REPAIRS[case]
+    fn = backend_cuda.emit(ir_text.parse_ir(text()), device="cuda")
+    xs = inputs(np.random.default_rng(0))
+    counter = (gemm.cuda_gemm if fn.plan is not None
+               else backend_cuda.emit_general)
+    before = counter.launches
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    assert counter.launches == before + (1 if fn.plan is not None
+                                         else len(fn.stages))
+    if fn.plan is not None:
+        want = backend_cuda.gemm_plain(fn.plan, *(
+            torch.as_tensor(x).to(cuda, dtype=backend_cuda._TORCH_DTYPE[
+                fn.plan.dtypes[n]])
+            for x, n in zip(xs, fn.plan.in_buffers)))
+    else:
+        want = backend_cuda.general_plain(fn, *xs)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.double(), want.double(), rtol=1e-4,
+                               atol=1e-4, equal_nan=True)
+
+
 # ---- the compiler-emitted GEMM ----------------------------------------------
 
 # tests/test_kernels.py's GEMM bound in f32.  compile_gemm's bf16 products
