@@ -12,29 +12,38 @@ Phases, each printing its own lines; any failure exits nonzero:
      then build every CUDA kernel, one nvcc per source, all at once:
      decode_attention, flash_attention, flash_attention_sm90,
      flash_attention_ffma and ssd_scan from src/repro_torch/kernels/csrc/,
-     the emitted GEMMs and the general emitter's four sources; print the
+     the emitted GEMMs (phase 8's and phase 8b's searched ones) and the
+     general emitter's four sources; print the
      tensor-core, register-tiled (ffma), decode attention and SSD kernels'
      registers, shared memory and spills (ptxas);
   3. decode_attention against its plain PyTorch version at the serving
      path's shapes, in float32 and bfloat16, with its launch plan (splits,
      blocks, kernels a call);
   4. serve qwen2-7b at full width (random weights from a seed) through
-     repro_torch.launch.serve.main, counting the kernel's launches, then
-     profile a few decode steps for the device's busy time;
+     repro_torch.launch.serve.main, whose Engine replays each decode step
+     as a CUDA graph, counting the kernel's launches (a replay adds the
+     launches its capture recorded); an eager Engine's warm decode time
+     and greedy streams beside it; profile a few eager decode steps for
+     the device's busy time; then the captured step against the eager one
+     from one state: logits, wall ms, device busy ms and idle share, host
+     launch calls a step;
   5. the full-width decode step with the kernels against the plain versions;
   6. full-width prefill + decode against one full forward (teacher forcing);
  6a. bf16 serving: qwen2-7b with RunConfig(param_dtype="bfloat16",
      cache_dtype="bfloat16"), weights from the launcher's seed, through
      Engine at B=4, 128 + 32 tokens, counting decode_attention's launches;
-     tok/s, ms per step beside the bf16 weight-bytes bound, peak memory, a
-     profiled step; then the decode logits with the kernels against the
-     plain versions;
+     tok/s, ms per step beside the bf16 weight-bytes bound, peak memory;
+     the eager Engine and the captured step against the eager one as in
+     phase 4, a profiled eager step; then the decode logits with the
+     kernels against the plain versions;
  6b. continuous batching: repro_torch.launch.serve --continuous (f32, 16
      requests of the load generator at rate 4, 4 slots) and the bf16 model
-     through ContinuousEngine on the same stream, counting the kernel's
-     launches per batched step; each with one batched step against B=1
-     steps of its slots, the greedy streams against SerialSlotEngine's,
-     and the metrics snapshot; the f32 batched step's time;
+     through ContinuousEngine on the same stream, both on captured batched
+     steps, counting the kernel's launches per batched step; each again
+     with eager steps (its snapshot), its greedy streams against the
+     captured ones and SerialSlotEngine's (captured and eager), one
+     batched step against B=1 steps of its slots, and the captured batched
+     step against the eager one as in phase 4;
  6c. the repaired emitters: an f16 GEMM and a kernel whose scratch exceeds
      a block's shared memory through compile_traced, and a batched product
      with rank-3 matmul tiles through backend_cuda.emit, each launched once
@@ -53,6 +62,10 @@ Phases, each printing its own lines; any failure exits nonzero:
      a 16-byte boundary, which only the plain CUDA-core route (simt,
      stagecc_gemm.cuh) reads; each against its plain version and the
      bracket of its roundings, then timed like phase 7;
+  8b. ops.matmul(backend="cuda_auto") on the MLP products, f32 and bf16,
+     at the schedule and tiles the cost-model search picks (tpu_mxu, 256 x
+     256 x K), with the counts reset: its route, held to phase 8's gates
+     and timed likewise;
   9. blocked attention through repro_torch.kernels.ops.attention (backend
      "cuda": flash_attention_sm90 for bf16, flash_attention_ffma for f32) at
      qwen2-7b's widths (causal) and gemma3-4b's (causal, local window
@@ -74,6 +87,9 @@ Phases, each printing its own lines; any failure exits nonzero:
      its plain version, a float64 oracle and the hand kernel on the same
      slice, then timed per call and per stage, beside each stage's launch
      layout (grid, spread loops, row split, blocks x threads);
+ 11b. python -m repro_torch.core.reproc in three subprocesses (the whole
+     stack to Verilog, a host-coupled transaction, a small design-space
+     exploration), each of which must exit 0 without importing jax;
  12. a JSON line with the rows of phases 6c-11 (phase 7 adds
      decode_attention's rows on the paths of 6a-6b).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -94,6 +110,7 @@ import concurrent.futures
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -121,6 +138,11 @@ BF16_ROUND = 2.0 ** -8
 TOL_BACKENDS = 1e-3
 TOL_TEACHER = 1e-3
 TOL_LIBRARY = 1e-4   # a library's f32 attention, another sum order
+# the CUDA runtime and driver calls by which the host puts work on the
+# card: what a captured decode step cuts from ~2,000 to a few
+HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+              "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+              "cudaMemsetAsync")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -143,6 +165,9 @@ GEMMS = ([(p, s, d, "none") for p in MLP for s in ("tpu_mxu",
             ("up", "tpu_mxu_kgrid", "bf16-acc", "none")])
 GEMM_OP = (512, 1024, 768)      # gemm_op forward + backward, (M, N, K)
 SIMT_GEMM = ("up", "tpu_mxu", "float32", "none")   # run again unaligned
+# ops.matmul(backend="cuda_auto") on these products (phase 8b), at the
+# schedule and tiles the cost-model search picks for them
+AUTO_PRODUCTS = ("up", "down")
 GEMM_SOURCE = {"wgmma": "stagecc_gemm_sm90.cuh",
                "ffma": "stagecc_gemm_ffma.cuh", "simt": "stagecc_gemm.cuh"}
 # Emitted GEMM vs gemm_plain: tests/test_kernels.py's bounds, f32 (rtol,
@@ -296,10 +321,12 @@ def engine_step(eng, toks):
 def profile_steps(step, steps: int = 4):
     """Device time per call of ``step``, from torch.profiler's kernel times
     over a few calls, the wall time per call of that same window (the
-    profiler slows the host, so it is longer than an unprofiled step), and
-    the largest kernels (ms per step, launches per step, name).  Returns
-    (busy ms per step or None where the profiler records no device time,
-    window ms per step, rows)."""
+    profiler slows the host, so it is longer than an unprofiled step), the
+    largest kernels (ms per step, launches per step, name) and the host's
+    launch calls per step (``HOST_CALLS`` the profiler saw: kernel and
+    graph launches, asynchronous copies and fills).  Returns (busy ms per
+    step or None where the profiler records no device time, window ms per
+    step, rows, host calls per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -310,18 +337,19 @@ def profile_steps(step, steps: int = 4):
             step()
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) / steps * 1e3
-    rows = []
+    rows, calls = [], 0
     for e in prof.key_averages():
         # device-side events only: the CPU operators that launched them
         # report the same device time again
         if e.device_type == DeviceType.CPU:
+            calls += e.count if e.key in HOST_CALLS else 0
             continue
         us = e.self_device_time_total
         if us > 0:
             rows.append((us / 1e3 / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return (busy if busy > 0 else None), window, rows
+    return (busy if busy > 0 else None), window, rows, calls / steps
 
 
 def roofline(nbytes, flops, peak):
@@ -1279,6 +1307,61 @@ def gemm_phase(gemms, dev, flush, smi):
     return rows
 
 
+def compile_autos(dev):
+    """Phase 8b's kernels: qwen2-7b's MLP products through
+    ``ops.matmul(backend="cuda_auto")``'s compiler (``gemm._build_auto``:
+    the cost-model search's schedule and tiles, priced on the TPU_V5E
+    machine model), f32 and bf16."""
+    from repro_torch.core.autotune import best_schedule
+    from repro_torch.kernels import gemm
+    out = []
+    for prod in AUTO_PRODUCTS:
+        m, n, k = MLP[prod]
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            ck = gemm._build_auto(m, n, k, dtype)
+            name = f"stagecc_gemm cuda_auto {prod} {dtype}"
+            check(ck.run_cuda is not None, f"{name}: no CUDA emission")
+            print(f"[compile] {name}: M={m} N={n} K={k}, searched "
+                  f"{best_schedule(m, n, k)}: schedule {ck.schedule}, tiles "
+                  f"{ck.run_cuda.plan.tiles}, {ck.cycles.total:,} cycles "
+                  f"modelled on TPU_V5E (a machine model, not a time), "
+                  f"compiled in {time.perf_counter() - t0:.2f}s")
+            out.append((prod, name, ck))
+    return out
+
+
+def auto_phase(autos, dev, flush, smi):
+    """Phase 8b: ``ops.matmul(backend="cuda_auto")`` on qwen2-7b's up and
+    down products, f32 and bf16, with the counts reset: each one launch on
+    the route ``_gemm_route`` picks for the searched tiles, held to phase
+    8's gates and timed beside its bound, gemm_plain and torch.matmul.
+    Returns the JSON rows."""
+    from repro_torch.kernels import gemm, ops
+    cg = gemm.cuda_gemm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = {prod: [torch.randn(s, generator=gen, device=dev)
+                   for s in ((m, k), (k, n))]
+            for prod, (m, n, k) in MLP.items() if prod in AUTO_PRODUCTS}
+    rows = []
+    for g in autos:
+        prod, name, ck = g
+        a = [x.to(getattr(torch, name.split()[-1])) for x in data[prod]]
+        cg.launches = cg.wgmma_launches = cg.ffma_launches = 0
+        got = ops.matmul(*a, backend="cuda_auto")
+        torch.cuda.synchronize()
+        path = route_of(cg, (0, 0))
+        why = ck.run_cuda.route(*a)[1]
+        print(f"[auto] {name}: cuda_gemm launches {cg.launches}, route "
+              f"{path} ({why}); tiles {ck.run_cuda.plan.tiles}")
+        check(cg.launches == 1, f"{name}: {cg.launches} launches")
+        check(path == ("wgmma" if "bfloat16" in name else "ffma"),
+              f"{name}: route {path}")
+        rows.append(gemm_row(g, a, got, 1, path, flush, smi))
+        del got
+    return rows
+
+
 def gemm_margin(gemms, dev, seeds: int) -> int:
     """The bf16 products of phase 8 on the inputs of seeds 0..seeds-1:
     each variant's gates per seed, then its worst share of each over the
@@ -1316,7 +1399,7 @@ def serving_profile(label, step, steps, bound_ms, step_ms):
     """Print a profiled window of ``step`` (device busy, idle share beside
     the unprofiled ``step_ms``, the weight-bytes bound, the top kernels);
     returns the busy ms per step, or None."""
-    busy, window, rows = profile_steps(step, steps)
+    busy, window, rows, _ = profile_steps(step, steps)
     if busy is None:
         print(f"[profile] {label}: device time not measured (the profiler "
               f"recorded no device time)")
@@ -1330,6 +1413,131 @@ def serving_profile(label, step, steps, bound_ms, step_ms):
         print(f"[profile]   {ms:8.3f} ms/step  {n:4d} launches/step"
               f"  {name[:90]}")
     return busy
+
+
+def wall_ms(step, steps: int = 8) -> float:
+    """Host wall ms per call of ``step`` over ``steps`` calls that end in
+    one synchronise, after one call to warm up."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def event_ms(step) -> float:
+    """Device ms between CUDA events around one call of ``step``, with
+    the card idle before it: the step's device time plus any gap the
+    host leaves between its launches."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
+    """The decode step from one state (``cache`` with its lengths, an int
+    or per-row, and the next tokens ``tok``) eagerly (``model.apply``) and
+    captured (``serve.graphs.DecodeGraph``, as the engines replay it),
+    each on its own copy of the cache, greedy tokens fed back: first their
+    logits over four steps side by side (bit-equal expected; held to
+    ``tol(scale)``, the gate of the dtype, and the greedy tokens must be
+    the same), then per path the wall ms a step, the device's busy ms (the
+    profiler; a captured step's also from CUDA events around one replay)
+    and idle share, and the host's launch calls a step.  Returns the rows
+    of both paths."""
+    from repro_torch.serve.graphs import DecodeGraph
+    ce, cg = clone(cache), clone(cache)
+    graph = DecodeGraph(model, params, cg, tok.shape[0])
+    st = {"eager": tok.to(torch.int32), "captured": tok.to(torch.int32)}
+
+    def eager():
+        logits, _ = model.apply(params, st["eager"], cache=ce)
+        st["eager"] = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        return logits[:, -1]
+
+    def captured():
+        logits = graph(st["captured"], cg["len"])
+        cg["len"] = cg["len"] + 1
+        st["captured"] = logits.argmax(-1, keepdim=True).to(torch.int32)
+        return logits
+
+    worst, scale, same = 0.0, 0.0, True
+    with torch.no_grad():
+        for _ in range(4):
+            a, b = eager().float(), captured().float()
+            worst = max(worst, (a - b).abs().max().item())
+            scale = max(scale, a.abs().max().item())
+            same &= torch.equal(st["eager"], st["captured"])
+    print(f"[graphs] {label}: captured vs eager step over 4 steps from one "
+          f"state: logits max_abs_diff {worst:.3e} "
+          f"({'bit-equal' if worst == 0 else 'NOT bit-equal'}; limit "
+          f"{tol(scale):.3g}), greedy tokens "
+          f"{'identical' if same else 'DIFFERENT'}")
+    check(same, f"{label}: captured and eager steps chose other tokens")
+    check(worst <= tol(scale), f"{label}: captured step off by {worst}")
+    rows = {}
+    with torch.no_grad():
+        for name, step in (("eager", eager), ("captured", captured)):
+            ms = wall_ms(step)
+            busy, window, krows, calls = profile_steps(step, 3)
+            ev = event_ms(step)
+            how = "profiler"
+            if busy is None and name == "captured":
+                busy, how = ev, "CUDA events around one replay"
+            check(busy is not None, f"{label} {name}: no device time")
+            rows[name] = {"ms": ms, "busy": busy, "events": ev,
+                          "calls": calls,
+                          "kernels": sum(r[1] for r in krows)}
+            print(f"[graphs] {label} {name} step: {ms:.2f} ms wall a step; "
+                  f"device busy {busy:.2f} ms ({how}; {ev:.2f} ms between "
+                  f"events around one step), idle share "
+                  f"{max(0.0, 1 - busy / ms):.1%}; {calls:.0f} host launch "
+                  f"calls a step, {rows[name]['kernels']} kernels a step on "
+                  f"the device; weight-bytes bound {bound_ms:.2f} ms")
+    print(f"[graphs] {label}: captured step {rows['captured']['ms']:.2f} ms "
+          f"against eager {rows['eager']['ms']:.2f} ms wall "
+          f"({rows['eager']['ms'] / rows['captured']['ms']:.2f}x); host "
+          f"launch calls {rows['captured']['calls']:.0f} against "
+          f"{rows['eager']['calls']:.0f}")
+    return rows
+
+
+def engines_agree(label, model, params, prompts, captured_eng):
+    """The captured ``Engine``'s greedy streams and warm decode time
+    against an eager ``Engine``'s (``cuda_graphs=False``) on the same
+    prompts, in the same call; the streams must be identical.  Returns
+    the eager engine's warm stats."""
+    from repro_torch.serve.engine import Engine, EngineConfig, \
+        throughput_stats
+    eager = Engine(model, params, EngineConfig(max_len=PROMPT + GEN + 1,
+                                               cuda_graphs=False))
+    throughput_stats(eager, prompts, GEN)
+    warm = throughput_stats(eager, prompts, GEN)
+    got = captured_eng.generate(prompts, GEN)
+    want = eager.generate(prompts, GEN)
+    same = int(sum(np.array_equal(g, w) for g, w in zip(got, want)))
+    print(f"[{label}] eager Engine (cuda_graphs=False), warm rerun: decode "
+          f"{warm['decode_tok_per_s']:.1f} tok/s "
+          f"({warm['decode_s'] / GEN * 1e3:.2f} ms/step); greedy streams "
+          f"of the captured Engine: {same} of {len(want)} rows identical "
+          f"to the eager Engine's")
+    check(same == len(want), f"{label}: captured Engine streams differ")
+    return warm
+
+
+def prefilled(model, params, toks):
+    """A cache of the serving depth holding ``toks``' first PROMPT tokens
+    (one length for every row), and the next tokens."""
+    cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+    with torch.no_grad():
+        model.apply(params, toks[:, :PROMPT], cache=cache)
+    return cache, toks[:, PROMPT:PROMPT + 1]
 
 
 def bf16_serving_phase(cfg, dev, toks):
@@ -1366,13 +1574,18 @@ def bf16_serving_phase(cfg, dev, toks):
     warm = throughput_stats(eng, prompts, GEN)
     step_ms = warm["decode_s"] / GEN * 1e3
     bound = model.param_count() * 2 / HBM_BYTES_PER_S * 1e3
-    print(f"[bf16] warm rerun: prefill {warm['prefill_tok_per_s']:.1f} "
+    print(f"[bf16] warm rerun (captured decode steps): prefill "
+          f"{warm['prefill_tok_per_s']:.1f} "
           f"tok/s, decode {warm['decode_tok_per_s']:.1f} tok/s "
           f"({step_ms:.2f} ms/step; weight-bytes bound {bound:.2f} ms), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    eager_warm = engines_agree("bf16", model, params, prompts, eng)
+    graph_vs_eager("bfloat16 Engine", model, params,
+                   *prefilled(model, params, toks), bound,
+                   lambda scale: TOL_BF16_LOGITS * scale)
     with torch.no_grad():
-        serving_profile("bf16 decode step", engine_step(eng, toks), 4,
-                        bound, step_ms)
+        serving_profile("bf16 eager decode step", engine_step(eng, toks), 4,
+                        bound, eager_warm["decode_s"] / GEN * 1e3)
         # decode logits, kernels vs plain versions, same params and cache
         plain = Model(cfg, RunConfig(backend="torch", **BF16_RUN), dev)
         cache = model.cache_init(BATCH, PROMPT + GEN + 1)
@@ -1443,31 +1656,67 @@ def batched_vs_single(model, params, tol, label):
     return err, scale
 
 
-def same_streams(label, got, model, params):
-    """How many of ``got``'s greedy streams the serial B=1 engine
-    reproduces bit for bit, on the same stream."""
+def same_streams(label, got, eager, model, params):
+    """The continuous engine's greedy streams from captured steps
+    (``got``) against its eager ones (``eager``, which must be the same
+    bit for bit), and against the serial B=1 engine's on the same stream,
+    captured (B=1 graphs, one a slot) and eager (which must agree with
+    each other).  Returns how many of ``got`` the serial engine
+    reproduces."""
     from repro_torch.serve.engine import SerialSlotEngine
-    want = SerialSlotEngine(model, params, slots=BATCH,
-                            max_len=PROMPT + GEN + 1).serve(
-                                continuous_stream(model.cfg))
-    same = sum(np.array_equal(got[r], want[r]) for r in want)
-    print(f"[continuous] {label}: {same} of {len(want)} greedy streams "
-          f"bit-identical to SerialSlotEngine's (B=1 steps)")
-    return same
+    serial = {g: SerialSlotEngine(model, params, slots=BATCH,
+                                  max_len=PROMPT + GEN + 1,
+                                  cuda_graphs=g).serve(
+                                      continuous_stream(model.cfg))
+              for g in (True, False)}
+    n = len(serial[True])
+    agree = {what: sum(np.array_equal(a[r], b[r]) for r in serial[True])
+             for what, (a, b) in {
+                 "continuous": (got, eager),
+                 "serial": (serial[True], serial[False]),
+                 "vs serial": (got, serial[True])}.items()}
+    print(f"[continuous] {label}: greedy streams from captured steps: "
+          f"{agree['continuous']} of {n} bit-identical to the eager "
+          f"ContinuousEngine's; SerialSlotEngine captured vs eager "
+          f"{agree['serial']} of {n}; continuous vs SerialSlotEngine (B=1 "
+          f"steps) {agree['vs serial']} of {n}")
+    check(agree["continuous"] == n and agree["serial"] == n,
+          f"{label}: captured streams differ from eager ones: {agree}")
+    return agree["vs serial"]
+
+
+def continuous_run(model, params, cuda_graphs):
+    """The launcher's --continuous stream through a ContinuousEngine with
+    a wall clock, submitting under backpressure as the launcher does.
+    Returns (engine, metrics snapshot, decode_attention launches)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.metrics import ServeMetrics, WallClock
+    metrics = ServeMetrics(WallClock(), slots=BATCH)
+    eng = ContinuousEngine(model, params, slots=BATCH,
+                           max_len=PROMPT + GEN + 1, metrics=metrics,
+                           cuda_graphs=cuda_graphs)
+    da.decode_attention.launches = 0
+    for r in continuous_stream(model.cfg):
+        while not eng.submit(r):
+            eng.step()
+    eng.drain()
+    return eng, metrics.snapshot(), da.decode_attention.launches
 
 
 def continuous_phase(cfg, bmodel, bparams, dev):
     """Phase 6b: serve the load generator's stream through
-    ``launch.serve --continuous`` (f32, the launcher's default), then the
-    bf16 model of phase 6a through ContinuousEngine on the same stream;
-    every request completes, decode_attention launches once a layer per
-    batched step, one batched step matches B=1 steps of its slots, and the
-    greedy streams are compared with the serial engine's.  Returns the
-    launches of each run."""
+    ``launch.serve --continuous`` (f32, the launcher's default: captured
+    batched steps), then the bf16 model of phase 6a through
+    ContinuousEngine on the same stream; each again with eager steps
+    (``cuda_graphs=False``) in the same call.  Every request completes,
+    decode_attention launches once a layer per batched step (counted at
+    each replay), the captured streams are the eager ones and the serial
+    engine's are compared, one batched step matches B=1 steps of its
+    slots, and the batched step is timed captured and eager.  Returns the
+    launches of each captured run."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.launch import serve
-    from repro_torch.serve.continuous import ContinuousEngine
-    from repro_torch.serve.metrics import ServeMetrics, WallClock
     da.decode_attention.launches = 0
     res = serve.main(["--arch", ARCH, "--continuous", "--slots", str(BATCH),
                       "--requests", str(CONT_REQUESTS), "--rate",
@@ -1475,7 +1724,7 @@ def continuous_phase(cfg, bmodel, bparams, dev):
                       str(GEN)])
     launches = {"float32": da.decode_attention.launches}
     eng = res.pop("engine")
-    snapshot_line("float32 (launch.serve --continuous)", res)
+    snapshot_line("float32 (launch.serve --continuous, captured steps)", res)
     check(res["requests"]["completed"] == CONT_REQUESTS,
           f"{res['requests']['completed']} of {CONT_REQUESTS} completed")
     print(f"[continuous] float32: decode_attention launches "
@@ -1483,27 +1732,11 @@ def continuous_phase(cfg, bmodel, bparams, dev):
           f"batched steps")
     check(launches["float32"] == cfg.num_layers * eng.steps,
           f"continuous: {launches['float32']} launches, {eng.steps} steps")
-    model, params = eng.model, eng.params
-    results = dict(eng.results)
+    runs = {"float32": (eng.model, eng.params, dict(eng.results),
+                        lambda s: TOL_BACKENDS)}
     del eng, res
-    batched_vs_single(model, params, lambda s: TOL_BACKENDS,
-                      "float32")
-    same_streams("float32", results, model, params)
-    step_time(model, params)
-    del model, params
-    torch.cuda.empty_cache()
-
-    metrics = ServeMetrics(WallClock(), slots=BATCH)
-    beng = ContinuousEngine(bmodel, bparams, slots=BATCH,
-                            max_len=PROMPT + GEN + 1, metrics=metrics)
-    da.decode_attention.launches = 0
-    for r in continuous_stream(cfg):
-        while not beng.submit(r):
-            beng.step()
-    beng.drain()
-    launches["bfloat16"] = da.decode_attention.launches
-    snap = metrics.snapshot()
-    snapshot_line("bfloat16 (ContinuousEngine)", snap)
+    beng, snap, launches["bfloat16"] = continuous_run(bmodel, bparams, True)
+    snapshot_line("bfloat16 (ContinuousEngine, captured steps)", snap)
     check(snap["requests"]["completed"] == CONT_REQUESTS,
           f"bf16: {snap['requests']['completed']} of {CONT_REQUESTS}")
     check(launches["bfloat16"] == cfg.num_layers * beng.steps,
@@ -1512,27 +1745,44 @@ def continuous_phase(cfg, bmodel, bparams, dev):
     print(f"[continuous] bfloat16: decode_attention launches "
           f"{launches['bfloat16']} = {cfg.num_layers} layers x "
           f"{beng.steps} batched steps")
-    batched_vs_single(bmodel, bparams, lambda s: TOL_BF16_LOGITS * s,
-                      "bfloat16")
-    same_streams("bfloat16", beng.results, bmodel, bparams)
+    runs["bfloat16"] = (bmodel, bparams, dict(beng.results),
+                        lambda s: TOL_BF16_LOGITS * s)
+    del beng
+    for label, (model, params, results, tol) in runs.items():
+        eager, esnap, _ = continuous_run(model, params, False)
+        snapshot_line(f"{label} eager (ContinuousEngine, "
+                      f"cuda_graphs=False)", esnap)
+        same_streams(label, results, eager.results, model, params)
+        del eager
+        batched_vs_single(model, params, tol, label)
+        step_time(label, model, params, tol)
+        if label == "float32":
+            del model, params
+            runs[label] = None
+            torch.cuda.empty_cache()
     return launches
 
 
-def step_time(model, params, steps: int = 8):
+def step_time(label, model, params, tol, steps: int = 8):
     """The continuous engine's batched step with all four slots occupied
-    (per-row lengths, uploaded each step), wall ms per step over
-    ``steps`` steps that end in one synchronise, beside the same rows'
-    uniform-length step (Engine's path: one int length, nothing uploaded)
-    in the same call; then a profiled window of the batched step."""
+    (per-row lengths): captured against eager from the same state
+    (``graph_vs_eager``); and the eager batched step beside the same rows'
+    uniform-length eager step (Engine's eager path: one int length,
+    nothing uploaded), wall ms per step over ``steps`` steps that end in
+    one synchronise, in the same call."""
     from repro_torch.models.transformer import cache_leaves
     from repro_torch.serve.continuous import ContinuousEngine, Request
     eng = ContinuousEngine(model, params, slots=BATCH,
-                           max_len=PROMPT + GEN + 1)
+                           max_len=PROMPT + GEN + 1, cuda_graphs=False)
     rng = np.random.default_rng(4)
     for i in range(BATCH):
         eng.submit(Request(i, rng.integers(0, model.cfg.vocab_size,
                                            (PROMPT,)).astype(np.int32), GEN))
     eng.step()
+    size = 4 if model.pdtype == torch.float32 else 2
+    graph_vs_eager(f"{label} continuous batched step", model, params,
+                   eng._cache, eng._tok,
+                   model.param_count() * size / HBM_BYTES_PER_S * 1e3, tol)
     uniform = model.cache_init(BATCH, eng.depth)
     toks = []
     for s in range(BATCH):
@@ -1542,26 +1792,13 @@ def step_time(model, params, steps: int = 8):
         uniform["len"] = one["len"]
         toks.append(tok)
     toks = torch.cat(toks)
-
-    def wall(step):
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / steps * 1e3
-
     with torch.no_grad():
-        ms = wall(eng.decode_step)
-        uni = wall(lambda: model.apply(params, toks, cache=uniform))
-    print(f"[continuous] float32 batched step, 4 slots at {PROMPT + 2}-"
-          f"{PROMPT + 2 + steps} cached positions: {ms:.2f} ms/step wall; "
-          f"the same rows at one length through Engine's path: {uni:.2f} "
-          f"ms/step")
-    with torch.no_grad():
-        serving_profile("float32 continuous step", eng.decode_step, 4,
-                        model.param_count() * 4 / HBM_BYTES_PER_S * 1e3, ms)
+        ms = wall_ms(eng.decode_step, steps)
+        uni = wall_ms(lambda: model.apply(params, toks, cache=uniform), steps)
+    print(f"[continuous] {label} eager batched step, 4 slots at "
+          f"{PROMPT + 2}-{PROMPT + 2 + steps} cached positions: {ms:.2f} "
+          f"ms/step wall; the same rows at one length through Engine's "
+          f"eager path: {uni:.2f} ms/step")
 
 
 def compile_repaired(dev):
@@ -1677,6 +1914,48 @@ def repaired_phase(repaired, flush, smi):
         rows.append(row)
         del got, want
     return rows
+
+
+# phase 11b: the search and system layer's driver, each in a subprocess
+# of its own: the whole stack to Verilog, a host-coupled transaction, a
+# small design-space exploration
+REPROC_RUNS = (["--emit=verilog"],
+               ["--gemm", "8x8x8", "--pipeline", "lower", "--simulate",
+                "host"],
+               ["--gemm", "8x8x8", "--epilogue", "none", "--dse", "2"])
+# runs the driver as ``python -m`` does, then fails if it imported jax
+REPROC_MAIN = ("import runpy, sys\n"
+               "code = 0\n"
+               "try:\n"
+               "    runpy.run_module('repro_torch.core.reproc', "
+               "run_name='__main__')\n"
+               "except SystemExit as e:\n"
+               "    code = e.code\n"
+               "sys.exit(code or (3 if 'jax' in sys.modules else 0))\n")
+
+
+def reproc_phase():
+    """Phase 11b: ``python -m repro_torch.core.reproc`` three times, in
+    parallel subprocesses, on this machine, which has no JAX: each must
+    exit 0 without importing jax.  The DSE's cache goes to build/, inside
+    the checkout."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "STAGECC_DSE_CACHE": str(ROOT / "build" / "dse-cache")}
+    jax_here = importlib.util.find_spec("jax") is not None
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", REPROC_MAIN, *argv],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in REPROC_RUNS]
+    for argv, proc in zip(REPROC_RUNS, procs):
+        out, err = proc.communicate(timeout=600)
+        lines = out.strip().splitlines()
+        print(f"[reproc] {' '.join(argv)}: exit {proc.returncode}, "
+              f"{len(lines)} lines; last: {lines[-1][:100] if lines else ''}")
+        check(proc.returncode == 0,
+              f"reproc {argv} exited {proc.returncode}: {err[-2000:]}")
+    print(f"[reproc] {len(procs)} runs in {time.perf_counter() - t0:.1f} s, "
+          f"none imported jax (jax installed here: {jax_here})")
 
 
 # the kernels whose resources phase 2 prints: (mangled name, kind)
@@ -1813,7 +2092,8 @@ def main() -> int:
         return 1 if failed else 0
     compiled = compile_graphs(dev)
     repaired = compile_repaired(dev)
-    sources = sorted({ck.run_cuda.source for _, _, ck in gemms})
+    autos = compile_autos(dev)
+    sources = sorted({ck.run_cuda.source for _, _, ck in gemms + autos})
     general = [ck.run_cuda.source for *_, ck in compiled]
     general += [fn.source for _, fn, *_ in repaired]
     t0 = time.perf_counter()
@@ -1879,27 +2159,30 @@ def main() -> int:
     check(launches == cfg.num_layers * steps,
           f"decode_attention launched {launches} times, expected "
           f"{cfg.num_layers} x {steps}")
-    warm = throughput_stats(eng, np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32), GEN)
-    print(f"[serve] warm rerun: prefill {warm['prefill_tok_per_s']:.1f} "
-          f"tok/s, decode {warm['decode_tok_per_s']:.1f} tok/s "
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    warm = throughput_stats(eng, prompts, GEN)
+    print(f"[serve] warm rerun (captured decode steps): prefill "
+          f"{warm['prefill_tok_per_s']:.1f} tok/s, decode "
+          f"{warm['decode_tok_per_s']:.1f} tok/s "
           f"({warm['decode_s'] / GEN * 1e3:.2f} ms/step)")
+    eager_warm = engines_agree("serve", model, params, prompts, eng)
 
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         BATCH, PROMPT + 4)).astype(np.int64)).to(dev)
     plain = Model(cfg, RunConfig(backend="torch"), dev)
     with torch.no_grad():
-        busy, window, rows = profile_decode(eng, toks)
-        step_ms = warm["decode_s"] / GEN * 1e3
+        busy, window, rows, _ = profile_decode(eng, toks)
+        step_ms = eager_warm["decode_s"] / GEN * 1e3
         if busy is None:
             print("[profile] decode step device time: not measured (the "
                   "profiler recorded no device time)")
         else:
-            print(f"[profile] decode step: device busy {busy:.2f} ms of "
+            print(f"[profile] eager decode step: device busy {busy:.2f} ms of "
                   f"{window:.2f} ms wall in the same profiled window (idle "
                   f"share {1 - busy / window:.1%}); of {step_ms:.2f} ms in "
-                  f"the unprofiled warm rerun, idle share "
+                  f"the eager Engine's unprofiled warm rerun, idle share "
                   f"{1 - busy / step_ms:.1%}; weight-bytes bound "
                   f"{model.param_count() * 4 / HBM_BYTES_PER_S * 1e3:.2f} ms"
                   f"; {sum(r[1] for r in rows)} kernel launches a step")
@@ -1914,6 +2197,10 @@ def main() -> int:
                   f"{sum(r[1] for r in ours)} kernel launches/step (" +
                   ", ".join(f"{name[name.index('decode_'):].split('(')[0]}"
                             f" {ms:.3f} ms" for ms, _, name in ours) + ")")
+        graph_vs_eager("float32 Engine", model, params,
+                       *prefilled(model, params, toks),
+                       model.param_count() * 4 / HBM_BYTES_PER_S * 1e3,
+                       lambda scale: TOL_BACKENDS)
 
         # 5. decode logits, kernels vs plain versions, same params and cache
         cache = model.cache_init(BATCH, PROMPT + GEN + 1)
@@ -1965,8 +2252,10 @@ def main() -> int:
                                 cont_launches, errs[torch.bfloat16])
     torch.cuda.empty_cache()
 
-    # 8. the compiled-GEMM path
+    # 8. the compiled-GEMM path; 8b. the searched GEMM (cuda_auto)
     rows += gemm_phase(gemms, dev, flush, smi)
+    rows += auto_phase(autos, dev, flush, smi)
+    torch.cuda.empty_cache()
 
     # 9. blocked attention; 10. the SSD scan
     rows += attention_phase(dev, flush, smi)
@@ -1976,6 +2265,8 @@ def main() -> int:
 
     # 11. the compiled serving kernels through the general emitter
     rows += compiled_phase(compiled, dev, flush, smi)
+    # 11b. the search and system layer's driver, without jax
+    reproc_phase()
 
     # 12. every kernel's row
     print(json.dumps({"kernels": rows}))

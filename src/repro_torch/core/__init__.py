@@ -7,13 +7,19 @@ Levels (Fig. 1 of the paper):
             generated kernel per loop nest) + Verilog-style text
 with cycle/resource models derived structurally from the HwIR module
 (the Vivado-report role), priced on the modelled TPU v5e as in the JAX
-package.  Design-space exploration and autotuning are not ported yet.
+package, and the search over them: autotuning (``best_schedule``),
+design-space exploration (``dse``), resource sharing (``sharing``) and
+the multi-accelerator fabric (``fabric``).
 
 See docs/ARCHITECTURE.md for the stage-by-stage map,
 docs/LOWERING.md (generated) for one GEMM walked through every level,
 and docs/PASSES.md (generated) for the pass reference.
 """
 
+from .autotune import best_schedule, compile_gemm_autotuned
+from .dse import (DseCandidate, DsePoint, DseResult, DseValidation,
+                  ResourceBudget, enumerate_points, explore,
+                  pareto_frontier)
 from .frontend import spec, trace
 from .host_bridge import (AXI4, AXI4_LITE, Crossbar, TransactionReport,
                           csr_map, run_transaction)
@@ -49,6 +55,8 @@ __all__ = [
     "print_graph", "print_hw_module", "print_ir", "print_kernel",
     "SCHEDULES", "CompiledKernel", "compile_gemm", "compile_traced",
     "Graph", "OP_REGISTRY", "TensorType", "register_op",
+    "DseCandidate", "DsePoint", "DseResult", "DseValidation",
+    "ResourceBudget", "enumerate_points", "explore", "pareto_frontier",
     "CANONICAL_PATTERNS", "OneShotPattern", "Pattern", "RewriteDriver",
     "RewriteError", "RewriteStats", "canonicalize",
     "register_canonical_pattern",

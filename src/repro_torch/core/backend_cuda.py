@@ -810,12 +810,28 @@ def _apply_epilogue(plan: _Plan, acc: torch.Tensor,
     return local.get(plan.out_buffer, val)
 
 
+def _sum_block(tk: int, kgrid: bool) -> int:
+    """The k columns the emitted kernels sum into one fresh f32 partial
+    (``sum_block`` of ``kernels/csrc/stagecc_gemm.cuh``): the k tile, or
+    for a ``tpu_mxu`` tile longer than 128 (whose end rounds nothing) its
+    largest divisor up to 128 that is a multiple of 16, else of 8, else
+    of 1, where the tile is."""
+    if kgrid or tk <= 128:
+        return tk
+    g = 16 if tk % 16 == 0 else 8 if tk % 8 == 0 else 1
+    b = 128 - 128 % g
+    while tk % b:
+        b -= g
+    return b
+
+
 def gemm_plain(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
                *epi: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the emitted kernel: the same k tiles,
     in the same order, with the same roundings, on whole (M, N) slabs.
 
-    ``tpu_mxu`` sums the tiles' f32 products in f32; ``tpu_mxu_kgrid``
+    ``tpu_mxu`` sums the tiles' f32 products in f32 (a tile longer than
+    128 in the kernels' sum blocks, ``_sum_block``); ``tpu_mxu_kgrid``
     rounds each tile's product to the output dtype and adds it to the
     output-typed sum.  The epilogue then runs, and the result is cast to
     the output dtype.  That is K / tk products of f32 operands, which run
@@ -829,8 +845,9 @@ def gemm_plain(plan: _Plan, a: torch.Tensor, b: torch.Tensor,
     a, b = a[:gm * tm, :nk * tk], b[:nk * tk, :gn * tn]
     acc = torch.zeros((a.shape[0], b.shape[1]), device=a.device,
                       dtype=out_dtype if kgrid else torch.float32)
-    for k0 in range(0, a.shape[1], tk):
-        p = a[:, k0:k0 + tk].float() @ b[k0:k0 + tk].float()
+    ts = _sum_block(tk, kgrid)
+    for k0 in range(0, a.shape[1], ts):
+        p = a[:, k0:k0 + ts].float() @ b[k0:k0 + ts].float()
         acc = acc + (_cast(p, out_dtype) if kgrid else p)
     val = _cast(_apply_epilogue(plan, acc, _epilogue_inputs(plan, epi)),
                 out_dtype)

@@ -234,6 +234,46 @@ def _set_sequencer(mod: HwModule, counter: str, kind: str) -> HwModule:
     return hw_ir.set_sequencer(mod, counter, kind)
 
 
+@register_pass("outline-subcircuits", "hw",
+               "outline repeated control subtrees into sub-modules",
+               patterns=("outline-subcircuits",))
+def _outline_subcircuits(mod: HwModule) -> HwModule:
+    """Hash the canonical anonymised form of every control subtree and
+    outline structural repeats into one sub-module definition + one
+    :class:`~repro_torch.core.hw_ir.HwInstance` call state per occurrence, so
+    the repeated datapath is declared (and priced) once.  Orphaned unit
+    declarations of the outlined occurrences are pruned under
+    ``prune-unused-unit``."""
+    from . import sharing
+
+    return sharing.outline_subcircuits(mod)
+
+
+@register_pass("share-units", "hw",
+               "time-multiplex datapath units across FSM states")
+def _share_units(mod: HwModule, max_copies: int = 0) -> HwModule:
+    """Run the port-conflict-aware binding scheduler: same-kind unit
+    declarations whose activations sit in different FSM states fold onto
+    one shared physical unit via the binding table; ``max_copies`` > 0
+    clamps the physical copies, serialising wider virtual users into
+    rounds that ``cycles``/``hw_sim`` both price."""
+    from . import sharing
+
+    return sharing.share_units(mod, max_copies=max_copies)
+
+
+@register_pass("set-sharing", "hw",
+               "apply a sharing policy: none / share / serialize")
+def _set_sharing(mod: HwModule, mode: str = "share") -> HwModule:
+    """The DSE's sharing knob: ``none`` keeps the flat form, ``share``
+    outlines subcircuits and folds units without serialising, and
+    ``serialize`` additionally clamps each shared unit to one physical
+    copy, trading serial rounds for the smallest datapath."""
+    from . import sharing
+
+    return sharing.set_sharing(mod, mode=mode)
+
+
 @register_pass("canonicalize", ("tensor", "loop", "hw"),
                "apply the level's canonicalization patterns to a fixpoint",
                patterns=rewrite.canonical_pattern_names)
@@ -247,6 +287,34 @@ def _canonicalize(art, max_iterations: int = 32):
     unit/sub-module declarations.  The one pass registered at all three
     levels; per-pattern hit counts surface on the ``PassRecord``."""
     return rewrite.canonicalize(art, max_iterations=max_iterations)
+
+
+@register_pass("dse", "tensor",
+               "design-space exploration: search schedule programs and "
+               "return the Pareto-fastest kernel")
+def _dse(g: Graph, validate: int = 0, top: int = 4) -> Kernel:
+    """Run :func:`repro_torch.core.dse.explore` over the module and lower the
+    winning (feasible, Pareto-fastest) schedule program's loop-level
+    pipeline; with ``validate=1`` the ``top`` fastest frontier points
+    are co-simulated against the numpy oracle first and the pass FAILS
+    if any of them diverges (numerics or modeled cycles).  HwIR-level
+    knobs of the winner are dropped (the pass must yield a Kernel so
+    the rest of the pipeline can keep lowering); replay the winner's
+    full spec through ``reproc`` to keep them."""
+    from . import dse
+
+    res = dse.explore(g, validate_top=top if validate else 0)
+    bad = [v for v in res.validations if not v.ok]
+    if bad:
+        raise ValueError(
+            f"dse: {len(bad)} frontier point(s) failed co-simulation, "
+            f"first: {bad[0].point.spec}: "
+            f"{bad[0].detail or f'max|err|={bad[0].max_abs_err:.2e}'}")
+    best = res.best()
+    if best is None:
+        raise ValueError(f"dse: no feasible schedule for {g.name}")
+    art = PassManager.parse(best.point.pipeline).run(g).artifact
+    return art
 
 
 @register_pass("simulate", "hw",

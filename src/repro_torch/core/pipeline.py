@@ -81,6 +81,56 @@ class CompiledKernel:
             self.hw_module, list(inputs), machine=self.machine,
             crossbar=crossbar, poll_interval=poll_interval, trace=trace)
 
+    # ---- design-space exploration -----------------------------------------
+
+    def explore(self, **kwargs):
+        """Design-space exploration around this kernel's source graph:
+        search schedule programs × HwIR knobs on this kernel's machine
+        and return the priced/validated Pareto frontier
+        (:class:`repro_torch.core.dse.DseResult`).  Keyword arguments forward
+        to :func:`repro_torch.core.dse.explore` (``validate_top``, ``budget``,
+        ``tiles``, ``workers``, ``cache_dir``, ...)."""
+        from . import dse
+
+        kwargs.setdefault("machine", self.machine)
+        return dse.explore(self.graph, **kwargs)
+
+    def explore_fleet(self, others: Sequence["CompiledKernel"] = (),
+                      mix=None, **kwargs):
+        """Fleet-level DSE: optimize this kernel *plus* ``others`` as
+        one multi-accelerator fabric behind a shared crossbar — which
+        kernel gets which frontier schedule, how many copies — against
+        a traffic mix, ranked on a requests/s × total-area frontier
+        (:class:`repro_torch.core.fabric.FleetResult`).  With no ``mix``, an
+        even mix over the kernel set is generated at ~2× the fleet's
+        serialized capacity so contention is visible.  Keyword arguments
+        forward to :func:`repro_torch.core.fabric.explore_fleet`
+        (``budget``, ``crossbar``, ``max_copies``, ``validate_top``,
+        ...)."""
+        import dataclasses as _dc
+
+        from . import fabric
+
+        kernels = [self, *others]
+        graphs = {ck.name: ck.graph for ck in kernels}
+        if len(graphs) != len(kernels):
+            raise ValueError("explore_fleet: kernel names must be unique, "
+                             f"got {[ck.name for ck in kernels]}")
+        kwargs.setdefault("machine", self.machine)
+        if mix is None:
+            crossbar = kwargs.get("crossbar", host_bridge.AXI4)
+            mix = fabric.TrafficMix(
+                "even", tuple((ck.name, 1.0) for ck in kernels),
+                num_requests=8 * len(kernels), rate=1.0)
+            mean = sum(fabric.transaction_cost(
+                ck.hw_module, crossbar, ck.cycles.total).total
+                for ck in kernels) / len(kernels)
+            mix = _dc.replace(mix, cycles_per_unit=fabric.
+                              saturating_cycles_per_unit(
+                                  mix, mean,
+                                  load_factor=2.0 * len(kernels)))
+        return fabric.explore_fleet(graphs, mix, **kwargs)
+
 
 def _pipeline_for(schedule: str, tile: Dict[str, int]) -> str:
     t = f"tile_m={tile['m']},tile_n={tile['n']},tile_k={tile['k']}"

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel that src/repro/core/backend_pallas.py::_emit_gemm
 // emits (pallas_call at line 298).  repro_torch/core/backend_cuda.py renders
 // one small .cu source per scheduled contraction.  The source fixes the
-// tile sizes TM, TN, TK (any divisors of the problem up to 128, such as 96,
-// or 1 for a prime dimension), the schedule, the element types and a
+// tile sizes TM, TN, TK (any divisors of the problem, such as 96, or 1 for
+// a prime dimension; a tile above 128 runs as several blocks), the schedule, the element types and a
 // generated epilogue functor; it includes this file and exports one
 // extern "C" launcher.  M, N and K stay runtime arguments, so products
 // that share tiles, types and epilogue share one build.
@@ -18,7 +18,8 @@
 // (toward zero, saturating); its kgrid running sum is an int that wraps.  As in the reference, each k tile's product is summed on its
 // own in f32 and then added to the running sum, with the k tiles walked in
 // order inside the block (the TPU grid's sequential k axis); there is no
-// split-K, which would move the roundings below.
+// split-K, which would move the roundings below.  (A tpu_mxu tile longer
+// than 128 is summed in blocks, sum_block below: its end rounds nothing.)
 //   kKGrid = false (tpu_mxu): the running sum is f32; the epilogue runs
 //     on it, then one rounding to the output type.
 //   kKGrid = true (tpu_mxu_kgrid): each tile's product is rounded to the
@@ -31,8 +32,9 @@
 // moved, above the f32 CUDA-core ridge (~20) and near the bf16 tensor-core
 // one (~295), so the least time is the flops over the peak rate.  This
 // first version reaches neither peak.  It is the plain shared-memory tiled
-// form: a TM x TN tile per block, a 16 x 16 thread grid, each thread a
-// strided ceil(TM/16) x ceil(TN/16) register tile, K staged through shared
+// form: a block per BM x BN part of a TM x TN tile (BM, BN the largest
+// divisors up to 128), a 16 x 16 thread grid, each thread a
+// strided ceil(BM/16) x ceil(BN/16) register tile, K staged through shared
 // memory kChunk columns at a time.  It has no tensor cores, no
 // asynchronous copies and no double buffering.  backend_cuda._gemm_route
 // sends what the faster templates take elsewhere (bf16 with tk a multiple
@@ -56,6 +58,34 @@ namespace stagecc {
 constexpr int kDim = 16;  // threads per side of the block's thread grid
 constexpr int kThreads = kDim * kDim;
 constexpr int kChunk = 32;  // K columns staged in shared memory per step
+constexpr int kMaxBlock = 128;  // the longest block edge, in rows or columns
+
+// A block's edge for a tile edge t: the largest divisor of t up to
+// kMaxBlock, so that a tile wider than that (256, say) runs as several
+// blocks and the staging arrays stay inside 48 KB of static shared memory.
+// Each element's sum is one thread's, in k order, so the blocks a tile is
+// cut into do not move a rounding.
+__host__ __device__ constexpr int block_edge(int t) {
+  int b = t < kMaxBlock ? t : kMaxBlock;
+  while (t % b) --b;
+  return b;
+}
+
+// The k columns each kernel sums into one fresh f32 partial before adding
+// it to the running sum.  With kKGrid that is the k tile, whose end is a
+// rounding of the reference's.  Without, the running sum is f32 and a
+// tile's end rounds nothing, so a tile longer than kMaxBlock is summed in
+// blocks of its largest divisor up to kMaxBlock that is a multiple of 16
+// (else of 8, else of 1) where the tile is: an order the reference leaves
+// open (its hardware sums a tile in its own), the same in all three
+// templates, and one backend_cuda.gemm_plain follows (_sum_block).
+__host__ __device__ constexpr int sum_block(int tk, bool kgrid) {
+  if (kgrid || tk <= kMaxBlock) return tk;
+  const int g = tk % 16 == 0 ? 16 : tk % 8 == 0 ? 8 : 1;
+  int b = kMaxBlock - kMaxBlock % g;
+  while (tk % b) b -= g;
+  return b;
+}
 
 // An operand element widened to float (an integer converted, as the
 // reference's jnp.dot(..., preferred_element_type=float32) does).
@@ -144,23 +174,25 @@ __global__ void __launch_bounds__(kThreads)
                 TO* __restrict__ out, int n, int k, long long sam,
                 long long sak, long long sbk, long long sbn, long long ldo,
                 Epilogue epi) {
-  constexpr int RM = (TM + kDim - 1) / kDim;  // rows per thread
-  constexpr int RN = (TN + kDim - 1) / kDim;  // columns per thread
-  constexpr int KC = TK < kChunk ? TK : kChunk;
-  constexpr bool kFullM = TM % kDim == 0;
-  constexpr bool kFullN = TN % kDim == 0;
-  constexpr bool kFullK = TK % KC == 0;
+  constexpr int BM = block_edge(TM), BN = block_edge(TN);  // block tile
+  constexpr int RM = (BM + kDim - 1) / kDim;  // rows per thread
+  constexpr int RN = (BN + kDim - 1) / kDim;  // columns per thread
+  constexpr int TS = sum_block(TK, kKGrid);   // k columns a partial sums
+  constexpr int KC = TS < kChunk ? TS : kChunk;
+  constexpr bool kFullM = BM % kDim == 0;
+  constexpr bool kFullN = BN % kDim == 0;
+  constexpr bool kFullK = TS % KC == 0;
   // k-major staging, each row padded by one word so that neither fill
   // pattern below (k fastest, or m / n fastest) conflicts on a bank
-  __shared__ float as[KC][TM + 1];
-  __shared__ float bs[KC][TN + 1];
+  __shared__ float as[KC][BM + 1];
+  __shared__ float bs[KC][BN + 1];
 
   const int tx = threadIdx.x % kDim;
   const int ty = threadIdx.x / kDim;
-  // one block per output tile, the tiles of a row of tiles in a row
-  const int col_tiles = n / TN;
-  const long long row0 = static_cast<long long>(blockIdx.x / col_tiles) * TM;
-  const long long col0 = static_cast<long long>(blockIdx.x % col_tiles) * TN;
+  // one block per BM x BN part of the tiles, a row of them in a row
+  const int col_tiles = n / TN * (TN / BN);
+  const long long row0 = static_cast<long long>(blockIdx.x / col_tiles) * BM;
+  const long long col0 = static_cast<long long>(blockIdx.x % col_tiles) * BN;
   const TA* a_blk = a + row0 * sam;
   const TB* b_blk = b + col0 * sbn;
 
@@ -173,37 +205,37 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[i][j] = 0;
 
-  for (int k0 = 0; k0 < k; k0 += TK) {  // the k tiles, in order
+  for (int k0 = 0; k0 < k; k0 += TS) {  // the k tiles (sum blocks), in order
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < RN; ++j) part[i][j] = 0.f;
-    for (int kc = 0; kc < TK; kc += KC) {
-      const int kw = kFullK ? KC : (TK - kc < KC ? TK - kc : KC);
+    for (int kc = 0; kc < TS; kc += KC) {
+      const int kw = kFullK ? KC : (TS - kc < KC ? TS - kc : KC);
       const long long kq = static_cast<long long>(k0) + kc;
       __syncthreads();  // every thread is done with the previous chunk
       // A[row0 + r, kq + q] -> as[q][r]; B[kq + q, col0 + c] -> bs[q][c].
       // Neighbouring threads take neighbouring addresses along whichever
       // axis has unit stride.
       if (sak == 1) {
-        for (int t = threadIdx.x; t < TM * kw; t += kThreads) {
+        for (int t = threadIdx.x; t < BM * kw; t += kThreads) {
           const int r = t / kw, q = t % kw;
           as[q][r] = to_f32(a_blk[r * sam + kq + q]);
         }
       } else {
-        for (int t = threadIdx.x; t < TM * kw; t += kThreads) {
-          const int r = t % TM, q = t / TM;
+        for (int t = threadIdx.x; t < BM * kw; t += kThreads) {
+          const int r = t % BM, q = t / BM;
           as[q][r] = to_f32(a_blk[r * sam + (kq + q) * sak]);
         }
       }
       if (sbk == 1) {
-        for (int t = threadIdx.x; t < TN * kw; t += kThreads) {
+        for (int t = threadIdx.x; t < BN * kw; t += kThreads) {
           const int c = t / kw, q = t % kw;
           bs[q][c] = to_f32(b_blk[kq + q + c * sbn]);
         }
       } else {
-        for (int t = threadIdx.x; t < TN * kw; t += kThreads) {
-          const int c = t % TN, q = t / TN;
+        for (int t = threadIdx.x; t < BN * kw; t += kThreads) {
+          const int c = t % BN, q = t / BN;
           bs[q][c] = to_f32(b_blk[(kq + q) * sbk + c * sbn]);
         }
       }
@@ -214,12 +246,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
           const int r = ty + kDim * i;
-          af[i] = (kFullM || r < TM) ? as[q][r] : 0.f;
+          af[i] = (kFullM || r < BM) ? as[q][r] : 0.f;
         }
 #pragma unroll
         for (int j = 0; j < RN; ++j) {
           const int c = tx + kDim * j;
-          bf[j] = (kFullN || c < TN) ? bs[q][c] : 0.f;
+          bf[j] = (kFullN || c < BN) ? bs[q][c] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < RM; ++i)
@@ -248,18 +280,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int r = ty + kDim * i;
-    if (!kFullM && r >= TM) continue;
+    if (!kFullM && r >= BM) continue;
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
       const int c = tx + kDim * j;
-      if (!kFullN && c >= TN) continue;
+      if (!kFullN && c >= BN) continue;
       const long long gr = row0 + r, gc = col0 + c;
       store(out + gr * ldo + gc, epi(acc[i][j], gr, gc, ldo));
     }
   }
 }
 
-// Launch on `stream`, one block per output tile.  m, n and k are what the
+// Launch on `stream`, one block per BM x BN part of each output tile.  m, n
+// and k are what the
 // reference's grid covers (its tiles times its extents), which may fall
 // short of the arrays: the output's rows are `ldo` apart, and the caller
 // has filled what no tile writes.  The tiles number below 2^31.  Returns
@@ -269,7 +302,8 @@ template <int TM, int TN, int TK, bool kKGrid, typename TA, typename TB,
 int launch(const void* a, const void* b, void* out, int m, int n, int k,
            long long sam, long long sak, long long sbk, long long sbn,
            long long ldo, Epilogue epi, void* stream) {
-  const dim3 grid(static_cast<unsigned>((n / TN) * (m / TM)));
+  const dim3 grid(static_cast<unsigned>(
+      (n / TN) * (TN / block_edge(TN)) * ((m / TM) * (TM / block_edge(TM)))));
   gemm_kernel<TM, TN, TK, kKGrid, TA, TB, TO, Epilogue>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const TA*>(a), static_cast<const TB*>(b),

@@ -271,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<TK>())
         for (int j = 0; j < 8; ++j)
           part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
-    if ((c + 1) % (TK / KC) == 0) {  // the end of a k tile
+    if ((c + 1) % (sum_block(TK, kKGrid) / KC) == 0) {  // a k tile's end
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll

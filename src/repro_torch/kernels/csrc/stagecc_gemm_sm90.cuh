@@ -150,7 +150,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc2[i] = __floats2bfloat162_rn(0.f, 0.f);
   const int steps = k / 16;            // k16 steps; TK divides K
-  constexpr int kSpt = TK / 16;        // k16 steps per k tile
+  // k16 steps per k tile (per sum block of a long tpu_mxu tile)
+  constexpr int kSpt = sum_block(TK, kKGrid) / 16;
   constexpr int kSpc = kBK / 16;       // k16 steps per stage
   // a tile's steps touch at most this many stages
   constexpr bool kTileWait = (kSpt + 2 * kSpc - 2) / kSpc < kStages;

@@ -10,8 +10,11 @@ sits on the hot path.  Both block schedules exist:
     output block);
   * ``tpu_mxu``       — all of K summed in one f32 accumulator.
 
+``auto_gemm`` runs the same template at the schedule and tiles the
+cost-model search picks (``core.autotune.best_schedule``).
+
 ``cuda_gemm.launches`` counts the launches of every emitted GEMM kernel,
-whichever entry point (``cuda_gemm``, ``CompiledKernel.run_cuda``,
+whichever entry point (``cuda_gemm``, ``auto_gemm``, ``CompiledKernel.run_cuda``,
 ``integrate.gemm_op``) made them; ``cuda_gemm.wgmma_launches`` those of
 them on the tensor-core route (``backend_cuda._gemm_route``: bf16
 operands, tk a multiple of 16, operands TMA can read) and
@@ -26,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.core.autotune import compile_gemm_autotuned
 from repro_torch.core.pipeline import compile_gemm
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -47,6 +51,29 @@ def _build(m: int, n: int, k: int, schedule: str, dtype: str,
     if ck.run_cuda is None:
         raise RuntimeError(f"stagecc failed to emit cuda for {ck.name}")
     return ck
+
+
+@functools.lru_cache(maxsize=256)
+def _build_auto(m: int, n: int, k: int, dtype: str):
+    """The emitted GEMM at the schedule and tiles the cost-model search
+    picks (``core.autotune``), compiled once per (m, n, k, dtype)."""
+    ck = compile_gemm_autotuned(m, n, k, dtype=dtype)
+    if ck.run_cuda is None:
+        raise RuntimeError(f"stagecc failed to emit cuda for {ck.name}")
+    return ck
+
+
+def auto_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m,k) @ (k,n) through the emitted CUDA kernel at the searched
+    schedule and tiles (its plain version for CPU tensors): the port of
+    the reference's ``pallas_auto``.  f32 and bf16 operands keep their
+    dtype; others are computed in f32."""
+    m, kdim = a.shape
+    k2, n = b.shape
+    if kdim != k2:
+        raise ValueError(f"auto_gemm: {tuple(a.shape)} @ {tuple(b.shape)}")
+    ck = _build_auto(m, n, kdim, _DTYPES.get(a.dtype, "float32"))
+    return ck.run_cuda(a, b)
 
 
 def cuda_gemm(a: torch.Tensor, b: torch.Tensor, *,

@@ -4,7 +4,10 @@ The port of ``repro/kernels/ops.py``.  ``backend`` selects the path:
   * "torch" — plain PyTorch (runs on any device);
   * "cuda"  — the CUDA kernel on CUDA tensors (compiler-emitted for
               ``matmul``, hand-written for ``attention`` and ``ssd``), its
-              plain version on CPU tensors.
+              plain version on CPU tensors;
+  * "cuda_auto" (``matmul`` only) — the emitted GEMM at the schedule and
+              tiles the cost-model search picks (``core/autotune.py``),
+              as the reference's ``pallas_auto``.
 """
 
 from __future__ import annotations
@@ -15,10 +18,10 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention
-from .gemm import cuda_gemm
+from .gemm import auto_gemm, cuda_gemm
 from .ssd_scan import ssd_chunked, ssd_scan
 
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "cuda_auto")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, backend: str = "torch",
@@ -27,6 +30,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, backend: str = "torch",
         return ref.gemm_ref(a, b)
     if backend == "cuda":
         return cuda_gemm(a, b, schedule=schedule)
+    if backend == "cuda_auto":
+        return auto_gemm(a, b)
     raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
 
 

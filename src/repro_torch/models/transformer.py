@@ -14,6 +14,7 @@ naming the kind.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -173,18 +174,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache=None: training forward.  cache given: prefill (S>1, fresh cache)
     or decode (S==1); the cache is updated in place (new keys and values
     written, ``len`` advanced) and the same dict is returned.  ``len`` is
-    an int, the length of every row, or a (B,) numpy array of per-row
+    an int, the length of every row; or a (B,) numpy array of per-row
     lengths (the continuous engine's slots), which the host checks
     against the cache's depth and uploads once for every layer of the
-    step.
+    step; or a (B,) int32 tensor on the tokens' device, which is read
+    where it lies (a captured step's lengths buffer,
+    ``serve.graphs.DecodeGraph``; its caller checks the depth).  Both
+    per-row forms write each row at its own positions.
     """
     plan = _check_supported(cfg)
     B, S = tokens.shape
     kv_len = cache["len"] if cache is not None else None
 
     x = params["embed"][tokens.long()]
-    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
-                         device=x.device).to(x.dtype)
+    x = x * _embed_scale(cfg.d_model, x.dtype, x.device)
     steps = torch.arange(S, device=x.device)
     if isinstance(kv_len, np.ndarray):
         smax = _depth(cache)
@@ -192,6 +195,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             raise ValueError(f"KV cache full: {int(kv_len.max())} + {S} > "
                              f"{smax}")
         lens = torch.as_tensor(kv_len, device=x.device).to(torch.int32)
+        positions = lens[:, None] + steps
+    elif torch.is_tensor(kv_len):
+        if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
+            raise TypeError(f"len: a ({B},) int32 tensor, not "
+                            f"{tuple(kv_len.shape)} {kv_len.dtype}")
+        lens = kv_len
         positions = lens[:, None] + steps
     else:
         lens = kv_len
@@ -209,6 +218,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cache is not None:
         cache["len"] = kv_len + S
     return logits, cache
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """sqrt(d_model) as a 0-d tensor of ``dtype`` on ``device``, made once:
+    an upload from the host cannot be captured in a CUDA graph."""
+    return torch.tensor(math.sqrt(d_model), dtype=torch.float32,
+                        device=device).to(dtype)
 
 
 def _depth(cache: Params) -> int:

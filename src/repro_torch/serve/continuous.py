@@ -18,6 +18,12 @@ copies the prefilled cache into the slot's rows, so greedy decode token
 streams match the serial engine's wherever a batched product gives each
 row the sums a B=1 product gives it.
 
+With ``cuda_graphs`` (the default) the batched step is captured as a
+CUDA graph over the engine's cache (``serve.graphs.DecodeGraph``) and
+replayed each step, with the step's tokens and per-row lengths copied
+into its static buffers first; admission's B=1 prefill, sampling and the
+token readback stay outside the graph.
+
 Sampling at a temperature draws from one ``torch.Generator`` per request,
 seeded from ``(seed, rid)``, so a request's tokens never depend on its
 slot or on what else is resident.  JAX's ``fold_in`` streams cannot be
@@ -37,6 +43,7 @@ import torch
 from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
 from repro_torch.models.transformer import cache_leaves
+from repro_torch.serve.graphs import DecodeGraph
 from repro_torch.serve.metrics import ServeMetrics
 
 # prefill / decode step costs for deterministic VirtualClock runs (time
@@ -96,7 +103,8 @@ class ContinuousEngine:
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
                  seed: int = 0, queue_limit: Optional[int] = None,
-                 metrics: Optional[ServeMetrics] = None):
+                 metrics: Optional[ServeMetrics] = None,
+                 cuda_graphs: bool = True):
         self.model = model
         self.params = params
         self.slots = int(slots)
@@ -119,6 +127,8 @@ class ContinuousEngine:
         self._cache["len"] = np.zeros(self.slots, np.int64)
         self._tok = torch.zeros((self.slots, 1), dtype=torch.int32,
                                 device=model.device)
+        self._step = (DecodeGraph(model, params, self._cache, self.slots)
+                      if cuda_graphs else None)
 
     # ---- queue / admission -------------------------------------------------
 
@@ -208,13 +218,19 @@ class ContinuousEngine:
         """ONE decode step for all slots, each row at its own length: the
         (slots, V) logits.  Every row writes its key and value; an empty
         slot's length stays frozen (the next admission overwrites its
-        rows), and it samples token 0."""
+        rows), and it samples token 0.  With ``cuda_graphs`` on the card
+        the logits are the captured step's static output, which the next
+        step overwrites."""
         lens = self._cache["len"]
-        logits, _ = self.model.apply(self.params, self._tok,
-                                     cache=self._cache)
+        if self._step is not None:
+            logits = self._step(self._tok, lens)
+        else:
+            logits, _ = self.model.apply(self.params, self._tok,
+                                         cache=self._cache)
+            logits = logits[:, -1]
         active = np.asarray([r is not None for r in self._slot_req])
         self._cache["len"] = np.where(active, lens + 1, lens)
-        return logits[:, -1]
+        return logits
 
     @torch.no_grad()
     def step(self) -> int:

@@ -1,9 +1,14 @@
 """Batched serving engine: prefill + decode steps.
 
 The PyTorch counterpart of ``repro/serve/engine.py``.  ``make_prefill_step``
-/ ``make_decode_step`` are the step functions; ``Engine`` drives them for
-real generation, greedy or with temperature sampling.  PyTorch runs
-eagerly, so the steps are called as they are (the reference jits them).
+/ ``make_decode_step`` are the step functions, run eagerly; ``Engine``
+drives them for real generation, greedy or with temperature sampling.
+Where the reference jits its steps, the engines here replay each decode
+step as a CUDA graph (``serve.graphs.DecodeGraph``, ``cuda_graphs=True``,
+the default): an engine owns a static KV cache per (batch, depth), prefills
+into it eagerly (a prompt's length varies) and replays the captured step,
+one graph per cache.  Positions past a row's length may hold an earlier
+call's keys and values; attention gives them a weight of exactly 0.
 
 Continuous batching lives next door: the serving engine is
 :class:`repro_torch.serve.continuous.ContinuousEngine` (one batched
@@ -16,13 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
+from repro_torch.serve.graphs import DecodeGraph
 # ContinuousEngine and Request are re-exported, as the reference's module does
 from repro_torch.serve.continuous import (ContinuousEngine, Request,  # noqa: F401
                                          sample)
@@ -47,6 +53,7 @@ class EngineConfig:
     max_len: int = 256
     temperature: float = 0.0          # 0 = greedy
     seed: int = 0
+    cuda_graphs: bool = True          # replay captured decode steps
 
 
 class Engine:
@@ -62,6 +69,21 @@ class Engine:
         self.prefill = make_prefill_step(model)
         self.decode = make_decode_step(model)
         self.last_timing: Dict[str, float] = {}
+        # (batch, depth) -> the decode step captured over a static cache
+        self._steps: Dict[Tuple[int, int], DecodeGraph] = {}
+
+    def _static(self, batch: int, depth: int) -> DecodeGraph:
+        """The decode step captured over the engine's static cache of
+        ``batch`` rows and ``depth`` positions, which it empties (``len``
+        0); both made at first use."""
+        key = (batch, depth)
+        if key not in self._steps:
+            self._steps[key] = DecodeGraph(
+                self.model, self.params,
+                self.model.cache_init(batch, depth), batch)
+        step = self._steps[key]
+        step.cache["len"] = 0
+        return step
 
     def _sync(self) -> None:
         if self.model.device.type == "cuda":
@@ -90,7 +112,12 @@ class Engine:
         device = self.model.device
         B, P = prompts.shape
         gen = torch.Generator(device=device).manual_seed(self.cfg.seed)
-        cache = self.model.cache_init(B, cache_depth(self.cfg.max_len))
+        depth = cache_depth(self.cfg.max_len)
+        if self.cfg.cuda_graphs:
+            step = self._static(B, depth)
+            cache = step.cache
+        else:
+            cache = self.model.cache_init(B, depth)
         prompt = torch.as_tensor(np.asarray(prompts, np.int64), device=device)
         t0 = time.perf_counter()
         logits, cache = self.prefill(self.params, cache, prompt)
@@ -110,7 +137,11 @@ class Engine:
                 done = done | (tok[:, 0] == eos)
                 if bool(done.all()):
                     break
-            logits, cache = self.decode(self.params, cache, tok)
+            if self.cfg.cuda_graphs:
+                logits = step(tok, cache["len"])
+                cache["len"] += 1
+            else:
+                logits, cache = self.decode(self.params, cache, tok)
             decode_steps += 1
             tok = self._sample(logits, gen)[:, None]
         result = torch.cat(out, dim=1).cpu().numpy()
@@ -172,20 +203,25 @@ class SerialSlotEngine:
     the batched engine runs one), and the batched engine must produce the
     same greedy token streams.  Sampling at a temperature draws from one
     generator seeded with ``seed``, in scheduling order, as the
-    reference's single key stream does.
+    reference's single key stream does.  With ``cuda_graphs`` each slot
+    owns a static B=1 cache and a captured B=1 decode step over it.
     """
 
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
-                 seed: int = 0):
+                 seed: int = 0, cuda_graphs: bool = True):
         self.model = model
         self.params = params
         self.slots = slots
         self.max_len = max_len
         self.cfg = EngineConfig(max_len=max_len, temperature=temperature,
-                                seed=seed)
+                                seed=seed, cuda_graphs=cuda_graphs)
         self.decode = make_decode_step(model)
         self.prefill = make_prefill_step(model)
+        depth = cache_depth(max_len)
+        self._steps = ([DecodeGraph(model, params, model.cache_init(1, depth),
+                                    1) for _ in range(slots)]
+                       if cuda_graphs else None)
 
     @torch.no_grad()
     def serve(self, requests) -> Dict[int, np.ndarray]:
@@ -195,7 +231,8 @@ class SerialSlotEngine:
         depth = cache_depth(self.max_len)
         queue = list(requests)
         results: Dict[int, np.ndarray] = {}
-        # per-slot caches are allocated inside admit(); slots start empty
+        # eager per-slot caches are allocated inside admit(), captured
+        # ones are the slots' own; slots start empty
         slot_cache: list = [None] * self.slots
         slot_req: list = [None] * self.slots
         slot_tok: list = [None] * self.slots
@@ -214,7 +251,11 @@ class SerialSlotEngine:
         def admit(s):
             while queue:
                 req = queue.pop(0)
-                cache = self.model.cache_init(1, depth)
+                if self._steps is not None:
+                    cache = self._steps[s].cache
+                    cache["len"] = 0
+                else:
+                    cache = self.model.cache_init(1, depth)
                 prompt = torch.as_tensor(
                     np.asarray(req.prompt, np.int64)[None], device=dev)
                 logits, cache = self.prefill(self.params, cache, prompt)
@@ -240,8 +281,13 @@ class SerialSlotEngine:
                 if slot_req[s] is None:
                     admit(s)
                     continue
-                logits, slot_cache[s] = self.decode(
-                    self.params, slot_cache[s], slot_tok[s])
+                if self._steps is not None:
+                    logits = self._steps[s](slot_tok[s],
+                                            slot_cache[s]["len"])
+                    slot_cache[s]["len"] += 1
+                else:
+                    logits, slot_cache[s] = self.decode(
+                        self.params, slot_cache[s], slot_tok[s])
                 tok = draw(logits)
                 slot_tok[s] = tok[:, None]
                 slot_hist[s].append(int(tok[0]))

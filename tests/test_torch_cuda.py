@@ -177,6 +177,36 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         da.decode_attention(q, wide, wide, valid)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_captured_and_replayed(cuda, dtype):
+    """One decode_attention call alone, captured in a CUDA graph after a
+    warm-up and replayed on new inputs written into its buffers: each
+    replay equals an eager call on those inputs bit for bit.  The capture
+    counts one launch; a replay counts none."""
+    q, k, v, valid = _inputs(cuda, dtype, 4, 4, 7, 128, 161,
+                             [0, 1, 129, 161])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(q, k, v, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = da.decode_attention.launches
+    with torch.cuda.graph(graph, stream=side):
+        out = da.decode_attention(q, k, v, valid)
+    assert da.decode_attention.launches == before + 1
+    for seed, lens in ((1, [5, 60, 161, 100]), (2, [161, 0, 17, 128])):
+        q2, k2, v2, valid2 = _inputs(cuda, dtype, 4, 4, 7, 128, 161, lens,
+                                     seed=seed)
+        for dst, src in ((q, q2), (k, k2), (v, v2), (valid, valid2)):
+            dst.copy_(src)
+        graph.replay()
+        want = da.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert da.decode_attention.launches == before + 3
+
+
 def _models(cuda):
     cfg = dataclasses.replace(reduced(get_config("qwen2_7b")), num_heads=14,
                               num_kv_heads=2, head_dim=8)
@@ -1264,3 +1294,111 @@ def test_ssd_kernel_at_65536_sequences(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ss.ssd_scan_plain(x, dt, A, B, C, D,
                                                       chunk=16), **SSD_TOL)
+
+
+# ---- captured decode steps (serve/graphs.py) and the searched GEMM ----------
+
+
+def _requests_for(cfg, n=6, seed=1):
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, (3 + 4 * i,)).astype(
+        np.int32), int(rng.integers(1, 9))) for i in range(n)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_captured_step_logits_match_eager(cuda, bf16):
+    """The captured step at per-row lengths, replayed over several steps,
+    against the eager step from the same state (numpy lengths): within the
+    gates that apply (f32 1e-4, bf16 5e-2 of the largest magnitude; the
+    largest difference is printed, 0 expected); replays count
+    ``num_layers`` launches each."""
+    from repro_torch.serve.graphs import DecodeGraph
+    cfg, m, _, params = (_bf16_models if bf16 else _models)(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), device=cuda,
+                             generator=gen) for n in (5, 12, 1, 9)]
+    cap, _ = _rows_at(m, params, prompts, 32)
+    eager, _ = _rows_at(m, params, prompts, 32)
+    step = DecodeGraph(m, params, cap, 4)
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), device=cuda,
+                        generator=gen).to(torch.int32)
+    worst = 0.0
+    for i in range(5):
+        before = da.decode_attention.launches
+        got = step(tok, cap["len"]).clone()
+        cap["len"] = cap["len"] + 1
+        want, _ = m.apply(params, tok, cache=eager)
+        want = want[:, -1]
+        assert da.decode_attention.launches == before + 2 * cfg.num_layers
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err / scale)
+        assert err <= (TOL_BF16 * scale if bf16 else 1e-4), (i, err)
+        tok = want.float().argmax(-1, keepdim=True).to(torch.int32)
+    print(f"captured vs eager logits: worst {worst:.3g} of the largest "
+          f"magnitude over 5 steps")
+    assert step.graph is not None and step.replays == 4
+    assert step.moves == {"decode_attention.launches": cfg.num_layers}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_captured_engines_stream_what_eager_engines_stream(cuda, bf16):
+    """Engine (twice on one static cache), SerialSlotEngine (a captured
+    B=1 step per slot) and ContinuousEngine (one captured batched step,
+    per-row lengths) give the eager engines' greedy streams bit for bit;
+    decode_attention's counted launches are num_layers a decode step."""
+    from repro_torch.serve.engine import ContinuousEngine, SerialSlotEngine
+    cfg, m, _, params = (_bf16_models if bf16 else _models)(cuda)
+    rng = np.random.default_rng(2)
+    eng = Engine(m, params, EngineConfig(max_len=40))
+    eager = Engine(m, params, EngineConfig(max_len=40, cuda_graphs=False))
+    for width in (12, 5):       # the second call leaves stale positions
+        prompts = rng.integers(0, cfg.vocab_size, (4, width)).astype(
+            np.int32)
+        before = da.decode_attention.launches
+        got = eng.generate(prompts, 10)
+        assert da.decode_attention.launches == before + cfg.num_layers * 10
+        np.testing.assert_array_equal(got, eager.generate(prompts, 10))
+    assert eng._steps[(4, 40)].replays == 19    # the first step warms up
+    reqs = _requests_for(cfg)
+    serial = SerialSlotEngine(m, params, slots=3, max_len=48).serve(reqs)
+    serial_eager = SerialSlotEngine(m, params, slots=3, max_len=48,
+                                    cuda_graphs=False).serve(reqs)
+    cont = ContinuousEngine(m, params, slots=3, max_len=48)
+    before = da.decode_attention.launches
+    batched = cont.serve(_requests_for(cfg))
+    assert da.decode_attention.launches == before + \
+        cfg.num_layers * cont.steps
+    batched_eager = ContinuousEngine(m, params, slots=3, max_len=48,
+                                     cuda_graphs=False).serve(
+                                         _requests_for(cfg))
+    for r in reqs:
+        np.testing.assert_array_equal(serial[r.rid], serial_eager[r.rid])
+        np.testing.assert_array_equal(batched[r.rid], batched_eager[r.rid])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_auto_at_the_searched_tiles(cuda, dtype):
+    """ops.matmul(backend="cuda_auto") at gemm_op's 512 x 1024 x 768,
+    where the search picks tpu_mxu at 256 x 256 x 768: f32 on the
+    register-tiled route, bf16 on the tensor cores, each against
+    gemm_plain and its bracket; then the 256-tile source's plain
+    CUDA-core kernel (stagecc_gemm.cuh, 128 x 128 blocks of each tile)
+    on operands only it reads."""
+    from repro_torch.kernels import ops
+    m, n, k = 512, 1024, 768
+    ck = gemm._build_auto(m, n, k, dtype)
+    assert (ck.schedule, ck.run_cuda.plan.tiles) == ("tpu_mxu",
+                                                     (256, 256, 768))
+    a, b = (x.to(getattr(torch, dtype))
+            for x in _gemm_inputs(cuda, m, n, k, "none"))
+    before = (gemm.cuda_gemm.wgmma_launches, gemm.cuda_gemm.ffma_launches)
+    got = ops.matmul(a, b, backend="cuda_auto")
+    assert (gemm.cuda_gemm.wgmma_launches - before[0],
+            gemm.cuda_gemm.ffma_launches - before[1]) == (
+        (1, 0) if dtype == "bfloat16" else (0, 1))
+    assert torch.equal(got, _check_gemm(ck.run_cuda, [a, b]).to(got.dtype))
+    xs = [_shifted(a), b]
+    assert ck.run_cuda.route(*xs)[0] == "simt"
+    _check_gemm(ck.run_cuda, xs)
