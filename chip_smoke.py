@@ -48,6 +48,20 @@ Phases, each printing its own lines; any failure exits nonzero:
      a block's shared memory through compile_traced, and a batched product
      with rank-3 matmul tiles through backend_cuda.emit, each launched once
      with the counts reset, held to its plain version and timed;
+ 6d. the recurrent and MoE families at their published widths, weights
+     from the launcher's seed: mamba2-130m and recurrentgemma-2b whole (f32
+     and bf16), deepseek-v2-236b (f32 and bf16) and kimi-k2-1t (bf16) cut
+     to two layers (the dense prefix and one MoE layer with all its
+     experts), each through Engine at B=4, 128 + 32 tokens on captured
+     decode steps: decode_attention's launches (2 a step for kimi-k2, 0
+     for the others), tok/s, ms per step beside the weight-bytes bound,
+     peak memory; the eager Engine's streams; the captured step against
+     the eager one (bit-equal logits, idle share); a profiled eager step;
+     prefill + decode against one full forward; kimi-k2's decode logits
+     with the kernel against the plain versions; mamba2-130m and
+     recurrentgemma-2b (f32) through ContinuousEngine on the launcher's
+     stream, whose greedy streams must be SerialSlotEngine's and the
+     eager engine's; then decode_attention at kimi-k2's decode shapes;
   7. decode_attention's time per launch beside its bound, its plain
      version's time and one PyTorch library call's time, with its launch
      plan; then, each with the counts reset, one call at a prime cache
@@ -91,7 +105,8 @@ Phases, each printing its own lines; any failure exits nonzero:
      stack to Verilog, a host-coupled transaction, a small design-space
      exploration), each of which must exit 0 without importing jax;
  12. a JSON line with the rows of phases 6c-11 (phase 7 adds
-     decode_attention's rows on the paths of 6a-6b).
+     decode_attention's rows on the paths of 6a-6b, phase 6d its row on
+     kimi-k2's path).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 
@@ -226,6 +241,22 @@ TOL_BF16_LOGITS = 5e-2
 # decode kernel's timed continuous row (four slots at different depths)
 CONT_REQUESTS, CONT_RATE = 16, 4.0
 CONT_VALID = [129, 98, 65, 34]
+# the recurrent and MoE families (phase 6d) at their published widths:
+# (arch, depth or None for all layers, dtypes, decode_attention launches
+# a decode step).  deepseek-v2 and kimi-k2 do not fit the card at any
+# precision: two layers, the dense prefix and one MoE layer with all its
+# experts.  Only kimi-k2's attention (global GQA) reaches the kernel;
+# recurrentgemma's is windowed (2048), deepseek's latent (MLA), mamba2 has
+# none.  kimi-k2 needs ~40 GB in bf16 and ~80 in f32: bf16 only.
+FAMILY_RUNS = (("mamba2-130m", None, ("float32", "bfloat16"), 0),
+               ("recurrentgemma-2b", None, ("float32", "bfloat16"), 0),
+               ("deepseek-v2-236b", 2, ("float32", "bfloat16"), 0),
+               ("kimi-k2-1t", 2, ("bfloat16",), 2))
+# run through ContinuousEngine on the launcher's stream (f32), whose
+# greedy streams must be SerialSlotEngine's and the eager engine's
+FAMILY_CONTINUOUS = ("mamba2-130m", "recurrentgemma-2b")
+# decode_attention's per-row valid lengths at kimi-k2's decode shapes
+KIMI_VALID = [129, 145, 152, 161]
 # the repaired emitters (phase 6c): a product whose 256 x 256 f32
 # accumulator (256 KB) exceeds a block's 227 KB, on 256 programs, so no
 # row split frees it; and a batched product with rank-3 tiles
@@ -1453,7 +1484,7 @@ def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
     of both paths."""
     from repro_torch.serve.graphs import DecodeGraph
     ce, cg = clone(cache), clone(cache)
-    graph = DecodeGraph(model, params, cg, tok.shape[0])
+    graph = DecodeGraph(model, params, cg, tok.shape[0], PROMPT + GEN + 1)
     st = {"eager": tok.to(torch.int32), "captured": tok.to(torch.int32)}
 
     def eager():
@@ -1770,7 +1801,7 @@ def step_time(label, model, params, tol, steps: int = 8):
     uniform-length eager step (Engine's eager path: one int length,
     nothing uploaded), wall ms per step over ``steps`` steps that end in
     one synchronise, in the same call."""
-    from repro_torch.models.transformer import cache_leaves
+    from repro_torch.models.transformer import copy_rows
     from repro_torch.serve.continuous import ContinuousEngine, Request
     eng = ContinuousEngine(model, params, slots=BATCH,
                            max_len=PROMPT + GEN + 1, cuda_graphs=False)
@@ -1787,8 +1818,7 @@ def step_time(label, model, params, tol, steps: int = 8):
     toks = []
     for s in range(BATCH):
         one, tok = eng.slot_state(s)
-        for leaf, src in zip(cache_leaves(uniform), cache_leaves(one)):
-            leaf[:, s] = src[:, 0]
+        copy_rows(uniform, s, one, 0)
         uniform["len"] = one["len"]
         toks.append(tok)
     toks = torch.cat(toks)
@@ -1799,6 +1829,283 @@ def step_time(label, model, params, tol, steps: int = 8):
           f"{PROMPT + 2}-{PROMPT + 2 + steps} cached positions: {ms:.2f} "
           f"ms/step wall; the same rows at one length through Engine's "
           f"eager path: {uni:.2f} ms/step")
+
+
+# ---- phase 6d: the recurrent and MoE families --------------------------
+
+
+class RouterLog:
+    """While active, records the router logits of every MoE layer call
+    (``models.moe.apply_moe``), computed as the layer computes them
+    (the same product on the same shapes), as (B, S, E) float32."""
+
+    def __enter__(self):
+        from repro_torch.models import layers, moe
+        self.calls, self._moe = [], moe
+        self._orig = orig = moe.apply_moe
+
+        def apply(p, x, cfg):
+            B, S, d = x.shape
+            h = layers.rmsnorm(x, p["norm"], cfg.norm_eps).reshape(B * S, d)
+            self.calls.append((h @ p["router"]).float().reshape(B, S, -1))
+            return orig(p, x, cfg)
+        moe.apply_moe = apply
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.apply_moe = self._orig
+
+    def per_layer(self, layers: int):
+        """The logged calls as one (B, S, E) tensor per MoE layer, each
+        call's positions appended along S (a prefill, then decode
+        steps)."""
+        return [torch.cat(self.calls[i::layers], dim=1)
+                for i in range(layers)]
+
+
+def routed_compare(label, a, b, routes_a, routes_b, top_k, limit_of):
+    """Logits ``a`` against ``b`` (B, S, V), position by position, where
+    an MoE model's two runs may route a token to other experts: the
+    roundings of two computations of one function (bf16 products whose
+    kernels depend on the row count) move a router logit by a few ulps,
+    and where the K-th and (K+1)-th logits of a token lie closer than
+    that the top-K set flips, which changes that position's logits by
+    O(1).  The router logits of the two runs must agree within
+    ``limit_of(their largest magnitude)``, and a flip is accepted only
+    where that difference explains it: the gap between the K-th and
+    (K+1)-th logits (in either run) is at most twice the largest
+    difference of the token's router logits between the runs.  Every
+    position whose routing agrees in every MoE layer must be within
+    ``limit_of(the logits' largest magnitude)``.  ``routes_*``: per MoE
+    layer, (B, S, E) router logits.  Returns (max error over agreeing
+    positions, flips, positions)."""
+    err = (a.float() - b.float()).abs().amax(-1)                  # (B, S)
+    limit = limit_of(b.float().abs().max().item())
+    flipped = torch.zeros_like(err, dtype=torch.bool)
+    unexplained, router = 0, 0.0
+    for ra, rb in zip(routes_a, routes_b):
+        moved = (ra - rb).abs().max().item()
+        router = max(router, moved)
+        check(moved <= limit_of(rb.abs().max().item()),
+              f"{label}: router logits differ by {moved}")
+        sa = torch.sort(torch.softmax(ra, -1), dim=-1, descending=True,
+                        stable=True)[1]
+        sb = torch.sort(torch.softmax(rb, -1), dim=-1, descending=True,
+                        stable=True)[1]
+        flip = (sa[..., :top_k].sort(-1)[0] != sb[..., :top_k].sort(-1)[0]
+                ).any(-1)
+        delta = (ra - rb).abs().amax(-1)
+
+        def gap(r, order):
+            return (r.gather(-1, order[..., top_k - 1:top_k])
+                    - r.gather(-1, order[..., top_k:top_k + 1]))[..., 0]
+        near = torch.minimum(gap(ra, sa), gap(rb, sb)) <= 2 * delta
+        unexplained += int((flip & ~near).sum())
+        flipped |= flip
+    worst = err[~flipped].max().item() if (~flipped).any() else 0.0
+    n = int(flipped.sum())
+    print(f"[family] {label}: router logits max_abs_diff {router:.3e}; "
+          f"{n} of {err.numel()} positions routed to other experts by the "
+          f"two runs (each at a near-tie of the router, {unexplained} not);"
+          f" max_abs_diff {worst:.3e} over the others (limit {limit:.3g})"
+          + (
+              f"; at the re-routed positions up to "
+              f"{err[flipped].max().item():.3e}" if n else ""))
+    check(unexplained == 0, f"{label}: {unexplained} re-routed positions "
+          f"where the router was not at a near-tie")
+    check(worst <= limit, f"{label}: logits off by {worst}")
+    return worst, n, err.numel()
+
+
+def family_teacher(label, model, params, toks, f32):
+    """Prefill + 4 decode steps against one full forward on the same
+    params.  An MoE layer's capacity grows with the tokens of a call, so
+    the three calls would drop different tokens: the check runs with
+    capacity for every token (capacity_factor = experts / top_k, as
+    tests/test_decode_consistency.py raises it), which the serving runs
+    do not, and holds re-routed positions apart (``routed_compare``).
+    f32 within TOL_TEACHER, bf16 within TOL_BF16_LOGITS of the logits'
+    largest magnitude.  Returns (error, limit)."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import layer_kinds
+    cfg = model.cfg
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    teacher = Model(cfg, model.run, model.device)
+    with torch.no_grad(), RouterLog() as full_log:
+        full, _ = teacher.apply(params, toks)
+    with torch.no_grad(), RouterLog() as cached_log:
+        cache = teacher.cache_init(BATCH, PROMPT + GEN + 1)
+        pre, _ = teacher.apply(params, toks[:, :PROMPT], cache=cache)
+        steps = [pre]
+        for t in range(PROMPT, PROMPT + 4):
+            lg, _ = teacher.apply(params, toks[:, t:t + 1], cache=cache)
+            steps.append(lg)
+    check(tuple(full.shape) == (BATCH, PROMPT + 4, cfg.padded_vocab),
+          f"{label}: logits shape {tuple(full.shape)}")
+    check(bool(torch.isfinite(full).all()), f"{label}: non-finite logits")
+    limit_of = ((lambda scale: TOL_TEACHER) if f32 else
+                (lambda scale: TOL_BF16_LOGITS * scale))
+    moes = layer_kinds(cfg).count("moe")
+    err, _, _ = routed_compare(
+        f"{label} prefill {PROMPT} + 4 decode steps vs full forward (logits"
+        f" max |x| {full.float().abs().max().item():.2f})",
+        torch.cat(steps, dim=1), full, cached_log.per_layer(moes),
+        full_log.per_layer(moes), cfg.moe.top_k if cfg.moe else 0,
+        limit_of)
+    return err, limit_of(full.float().abs().max().item())
+
+
+def family_run(arch, depth, dtype, per_step, dev):
+    """One family model at full width (all layers, or ``depth`` of them)
+    in ``dtype``, weights from the launcher's seed, serving the launcher's
+    prompts through ``Engine`` on captured decode steps: decode_attention's
+    launches (``per_step`` a step, counted through the replays), prefill
+    and decode rates, ms per step beside the weight-bytes bound, peak
+    memory; the eager Engine's streams; the captured step against the
+    eager one from one state (bit-equal logits; device busy and idle
+    share); a profiled eager step; prefill + decode against a full
+    forward; for a model on the kernel, the decode logits with the kernels
+    against the plain versions; for FAMILY_CONTINUOUS in f32, the
+    continuous engine on the launcher's stream against the serial one.
+    Returns a summary dict."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.serve.engine import (Engine, EngineConfig,
+                                          throughput_stats)
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    f32 = dtype == "float32"
+    label = f"{arch} {dtype}" + (f" {depth} layers" if depth else "")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, RunConfig(param_dtype=dtype, cache_dtype=dtype), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n = model.param_count()
+    bound = n * (4 if f32 else 2) / HBM_BYTES_PER_S * 1e3
+    eng = Engine(model, params, EngineConfig(max_len=PROMPT + GEN + 1))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    da.decode_attention.launches = 0
+    res = throughput_stats(eng, prompts, GEN)
+    launches, steps = da.decode_attention.launches, res["decode_steps"]
+    print(f"[family] {label}: {cfg.num_layers} layers d_model {cfg.d_model}"
+          f", {n:,} params; decode_attention launches {launches} = "
+          f"{per_step} a step x {steps} decode steps")
+    check(steps == GEN, f"{label}: {steps} decode steps, expected {GEN}")
+    check(launches == per_step * steps,
+          f"{label}: decode_attention launched {launches} times, expected "
+          f"{per_step} x {steps}")
+    warm = throughput_stats(eng, prompts, GEN)
+    step_ms = warm["decode_s"] / GEN * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[family] {label} warm rerun (captured decode steps): prefill "
+          f"{warm['prefill_tok_per_s']:.1f} tok/s, decode "
+          f"{warm['decode_tok_per_s']:.1f} tok/s ({step_ms:.3f} ms/step; "
+          f"weight-bytes bound {bound:.3f} ms, {step_ms / bound:.2f}x it), "
+          f"peak memory {peak:.1f} GiB")
+    eager_warm = engines_agree(f"family {label}", model, params, prompts, eng)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT + 4)).astype(np.int64)).to(dev)
+    rows = graph_vs_eager(label, model, params,
+                          *prefilled(model, params, toks), bound,
+                          lambda scale: 0.0)
+    with torch.no_grad():
+        serving_profile(f"{label} eager decode step", engine_step(eng, toks),
+                        4, bound, eager_warm["decode_s"] / GEN * 1e3)
+    del eng
+    teacher = family_teacher(label, model, params, toks, f32)
+    out = {"label": label, "params": n, "launches": launches,
+           "prefill_tok_per_s": warm["prefill_tok_per_s"],
+           "decode_tok_per_s": warm["decode_tok_per_s"], "ms": step_ms,
+           "bound_ms": bound, "peak_gib": peak,
+           "captured_busy_ms": rows["captured"]["busy"],
+           "captured_idle": max(0.0, 1 - rows["captured"]["busy"] /
+                                rows["captured"]["ms"]),
+           "teacher": teacher}
+    if per_step:
+        from repro_torch.models.transformer import layer_kinds
+        plain = Model(cfg, RunConfig(backend="torch", param_dtype=dtype,
+                                     cache_dtype=dtype), dev)
+        with torch.no_grad():
+            cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+            model.apply(params, toks[:, :PROMPT], cache=cache)
+            twin = clone(cache)
+            with RouterLog() as got_log:
+                got, _ = model.apply(params, toks[:, PROMPT:PROMPT + 1],
+                                     cache=cache)
+            with RouterLog() as want_log:
+                want, _ = plain.apply(params, toks[:, PROMPT:PROMPT + 1],
+                                      cache=twin)
+        scale = want.float().abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+        moes = layer_kinds(cfg).count("moe")
+        routed_compare(f"{label} decode logits, cuda vs torch (logits max "
+                       f"|x| {scale:.2f})", got, want,
+                       got_log.per_layer(moes), want_log.per_layer(moes),
+                       cfg.moe.top_k,
+                       (lambda s: TOL_BACKENDS) if f32 else
+                       (lambda s: TOL_BF16_LOGITS * s))
+        del cache, twin
+    if arch in FAMILY_CONTINUOUS and f32:
+        ceng, snap, _ = continuous_run(model, params, True)
+        snapshot_line(f"{label} (ContinuousEngine, captured steps)", snap)
+        check(snap["requests"]["completed"] == CONT_REQUESTS,
+              f"{label}: {snap['requests']['completed']} of "
+              f"{CONT_REQUESTS} completed")
+        eager, esnap, _ = continuous_run(model, params, False)
+        snapshot_line(f"{label} eager (ContinuousEngine, "
+                      f"cuda_graphs=False)", esnap)
+        agree = same_streams(label, ceng.results, eager.results, model,
+                             params)
+        check(agree == CONT_REQUESTS,
+              f"{label}: {agree} of {CONT_REQUESTS} continuous streams are "
+              f"SerialSlotEngine's")
+        out["continuous_tok_per_s"] = snap["tokens_per_s"]
+        del ceng, eager
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(dev, flush, smi):
+    """Phase 6d: every run of FAMILY_RUNS (``family_run``), one model at a
+    time; then decode_attention's row at kimi-k2's decode shapes with the
+    launches of its run.  Returns the JSON rows."""
+    from repro_torch.kernels import decode_attention as da
+    runs = [family_run(arch, depth, dtype, per_step, dev)
+            for arch, depth, dtypes, per_step in FAMILY_RUNS
+            for dtype in dtypes]
+    print("[family] summary: run | ms/step | bound ms | x bound | decode "
+          "tok/s | prefill tok/s | captured idle | peak GiB")
+    for r in runs:
+        print(f"[family]   {r['label']} | {r['ms']:.3f} | "
+              f"{r['bound_ms']:.3f} | {r['ms'] / r['bound_ms']:.2f} | "
+              f"{r['decode_tok_per_s']:.1f} | {r['prefill_tok_per_s']:.1f} |"
+              f" {r['captured_idle']:.1%} | {r['peak_gib']:.1f}; card {smi}")
+    kimi = next(r for r in runs if r["label"].startswith("kimi-k2"))
+    B, KV, rep, hd, smax = BATCH, 8, 8, 128, PROMPT + GEN + 1
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((B, KV, rep, hd))).to(
+        dev, torch.bfloat16)
+    cache = torch.from_numpy(rng.standard_normal((2, B, smax, KV, hd))).to(
+        dev, torch.bfloat16)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    valid = torch.tensor(KIMI_VALID, dtype=torch.int32, device=dev)
+    err = (da.decode_attention(q, k, v, valid).float()
+           - da.decode_attention_ref(q, k, v, valid).float()
+           ).abs().max().item()
+    print(f"[kernel] decode_attention bfloat16 at kimi-k2's decode shapes "
+          f"(KV 8, rep 8) valid {KIMI_VALID}: max_abs_err {err:.3e} "
+          f"(limit {TOL_BF16:g})")
+    check(err <= TOL_BF16, f"decode_attention at kimi-k2's shapes: {err}")
+    return [decode_row("decode_attention [kimi-k2 bf16 serving]",
+                       (q, k, v, valid), 256, kimi["launches"], err, flush,
+                       smi, lib_tol=TOL_BF16)]
 
 
 def compile_repaired(dev):
@@ -2245,6 +2552,9 @@ def main() -> int:
     rows = repaired_phase(repaired, flush, smi)
     del repaired
     torch.cuda.empty_cache()
+
+    # 6d. the recurrent and MoE families at their published widths
+    rows += family_phase(dev, flush, smi)
 
     # 7. time per launch beside the bound, the plain version and SDPA
     rows += decode_phase(dev, flush, smi, launches, errs[torch.float32])

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the kernels of this package.
 
 The port of ``repro/kernels/ref.py``; each oracle lands with the kernel it
-checks: the GEMM's, attention's and the SSD scan's so far.  Unlike the
-reference's, ``attention_ref`` and ``ssd_ref`` also take leading batch
+checks: the GEMM's, attention's and the SSD scan's, and the recurrent
+layers' ``rglru_ref`` and ``rmsnorm_ref``.  Unlike the reference's,
+``attention_ref``, ``ssd_ref`` and ``rglru_ref`` also take leading batch
 dimensions, in place of ``jax.vmap``.
 """
 
@@ -77,3 +78,32 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if D is not None:
         y = y + D[:, None] * x32
     return y.to(x.dtype)
+
+
+def rglru_ref(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
+              a_param: torch.Tensor, c: float = 8.0) -> torch.Tensor:
+    """RG-LRU (RecurrentGemma) oracle, the sequential recurrence.
+
+    x, a_gate, i_gate: (..., S, D), inputs and pre-sigmoid gates; a_param:
+    (D,), the recurrence parameter (pre-softplus).
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t), with
+    log a_t = -c * softplus(a_param) * sigmoid(a_gate_t); h_{-1} = 0."""
+    log_a = -c * torch.nn.functional.softplus(a_param.float()) * \
+        torch.sigmoid(a_gate.float())
+    a = torch.exp(log_a)
+    gated = torch.sigmoid(i_gate.float()) * x.float()
+    mult = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9))
+    h = torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.float32,
+                    device=x.device)
+    hs = []
+    for t in range(x.shape[-2]):
+        h = a[..., t, :] * h + mult[..., t, :] * gated[..., t, :]
+        hs.append(h)
+    return torch.stack(hs, dim=-2).to(x.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                ) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)

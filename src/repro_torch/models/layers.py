@@ -1,11 +1,12 @@
 """Shared model primitives: params maker, norms, rope, attention, MLP.
 
-The PyTorch counterpart of ``repro/models/layers.py``, dense-attention
-subset.  Every ``init_*`` function takes a ``Maker``; the same code path
-produces real tensors (mode="init") or meta tensors that carry shape and
-dtype only (mode="shape", nothing allocated).  Layouts are the reference's:
-``wq`` is (d, H*hd), caches are (B, Smax, KV, hd), so params converted from
-the JAX package compute the same function here.
+The PyTorch counterpart of ``repro/models/layers.py``, less the
+encoder-decoder's cross attention.  Every ``init_*`` function takes a
+``Maker``; the same code path produces real tensors (mode="init") or meta
+tensors that carry shape and dtype only (mode="shape", nothing
+allocated).  Layouts are the reference's: ``wq`` is (d, H*hd), caches are
+(B, Smax, KV, hd), so params converted from the JAX package compute the
+same function here.
 
 On one device the reference's ``shard(...)`` annotations are identities,
 so they are dropped.
@@ -14,6 +15,7 @@ so they are dropped.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -54,10 +56,28 @@ class Maker:
         if init == "normal":
             fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
             s = min(scale, (1.0 / fan_in) ** 0.5) if len(shape) > 1 else scale
+            if full[0] > 1 and math.prod(full) > _DRAW_LIMIT:
+                # drawn slice by slice along the first axis, so a bf16
+                # param never has a whole f32 twin (kimi-k2's expert
+                # stacks are 22 GB in f32); the slicing depends on the
+                # shape alone, so the bf16 param is still the cast of the
+                # f32 one of the same seed
+                out = torch.empty(full, dtype=self.dtype, device=self.device)
+                step = max(1, _DRAW_LIMIT // math.prod(full[1:]))
+                for i in range(0, full[0], step):
+                    n = min(step, full[0] - i)
+                    t = torch.randn((n,) + full[1:], generator=self.generator,
+                                    dtype=torch.float32, device=self.device)
+                    out[i:i + n] = t.mul_(s)
+                return out
             t = torch.randn(full, generator=self.generator,
                             dtype=torch.float32, device=self.device)
             return t.mul_(s).to(self.dtype)
         raise ValueError(init)
+
+
+# largest normal draw made in one piece, in elements (1 GiB of f32)
+_DRAW_LIMIT = 1 << 28
 
 
 # --------------------------------------------------------------------------
@@ -303,8 +323,9 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def init_mlp(cfg, mk: Maker) -> Params:
-    d, ff = cfg.d_model, cfg.d_ff
+def init_mlp(cfg, mk: Maker, ff: Optional[int] = None) -> Params:
+    d = cfg.d_model
+    ff = ff or cfg.d_ff
     p = {"norm": mk((d,), "embed", init="zeros")}
     if cfg.mlp.startswith("gated"):
         p["w_gate"] = mk((d, ff), "fsdp ff")

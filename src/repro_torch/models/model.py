@@ -5,8 +5,9 @@ picks the attention decode path: ``"cuda"`` (default) runs the hand-written
 kernels, ``"torch"`` their plain PyTorch versions (the counterparts of the
 reference's ``pallas`` and ``xla``).  On CPU tensors ``"cuda"`` runs the
 plain versions too, as the reference's ``pallas`` runs in interpret mode.
-``param_dtype`` and ``cache_dtype`` make the params and KV caches float32
-or bfloat16; activations follow the params' type, as in the reference.
+``param_dtype`` and ``cache_dtype`` make the params and caches float32
+or bfloat16 (a cache's recurrent states stay float32, as in the
+reference); activations follow the params' type, as in the reference.
 """
 
 from __future__ import annotations

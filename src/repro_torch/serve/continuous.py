@@ -1,8 +1,9 @@
 """Continuous batching: one batched decode step for all slots.
 
 The PyTorch counterpart of ``repro/serve/continuous.py``.  The engine's
-slots are the batch axis of one KV cache, (groups, slots, depth, KV, hd)
-per leaf, whose per-slot lengths live on the host as a numpy array
+slots are the batch axis of one cache tree (axis 1 of a leaf stacked on
+the group axis, axis 0 of an unrolled layer's: ``transformer.copy_rows``
+copies a slot), whose per-slot lengths live on the host as a numpy array
 (``cache["len"]``).  Every occupied slot decodes in ONE batched forward
 with per-row lengths: each row writes its key and value at its own
 position, takes its own RoPE positions and attends its own valid prefix
@@ -42,7 +43,7 @@ import torch
 
 from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
-from repro_torch.models.transformer import cache_leaves
+from repro_torch.models.transformer import copy_rows
 from repro_torch.serve.graphs import DecodeGraph
 from repro_torch.serve.metrics import ServeMetrics
 
@@ -127,8 +128,8 @@ class ContinuousEngine:
         self._cache["len"] = np.zeros(self.slots, np.int64)
         self._tok = torch.zeros((self.slots, 1), dtype=torch.int32,
                                 device=model.device)
-        self._step = (DecodeGraph(model, params, self._cache, self.slots)
-                      if cuda_graphs else None)
+        self._step = (DecodeGraph(model, params, self._cache, self.slots,
+                                  self.depth) if cuda_graphs else None)
 
     # ---- queue / admission -------------------------------------------------
 
@@ -181,9 +182,7 @@ class ContinuousEngine:
                 if self.metrics:
                     self.metrics.on_finish(req.rid)
                 continue
-            for big, one in zip(cache_leaves(self._cache),
-                                cache_leaves(cache)):
-                big[:, s] = one[:, 0]
+            copy_rows(self._cache, s, cache, 0)
             self._cache["len"][s] = len(req.prompt)
             self._tok[s] = tok0
             self._slot_req[s] = req
@@ -208,8 +207,7 @@ class ContinuousEngine:
         copy of its cache rows with its length, and its next input token
         (1, 1)."""
         one = self.model.cache_init(1, self.depth)
-        for big, leaf in zip(cache_leaves(self._cache), cache_leaves(one)):
-            leaf[:, 0] = big[:, s]
+        copy_rows(one, 0, self._cache, s)
         one["len"] = int(self._cache["len"][s])
         return one, self._tok[s:s + 1].clone()
 

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
+from repro_torch.models.transformer import reset
 from repro_torch.serve.graphs import DecodeGraph
 # ContinuousEngine and Request are re-exported, as the reference's module does
 from repro_torch.serve.continuous import (ContinuousEngine, Request,  # noqa: F401
@@ -74,15 +75,16 @@ class Engine:
 
     def _static(self, batch: int, depth: int) -> DecodeGraph:
         """The decode step captured over the engine's static cache of
-        ``batch`` rows and ``depth`` positions, which it empties (``len``
-        0); both made at first use."""
+        ``batch`` rows and ``depth`` positions, which it empties
+        (``transformer.reset``: ``len`` 0, recurrent states zeroed); both
+        made at first use."""
         key = (batch, depth)
         if key not in self._steps:
             self._steps[key] = DecodeGraph(
                 self.model, self.params,
-                self.model.cache_init(batch, depth), batch)
+                self.model.cache_init(batch, depth), batch, depth)
         step = self._steps[key]
-        step.cache["len"] = 0
+        reset(step.cache)
         return step
 
     def _sync(self) -> None:
@@ -220,7 +222,7 @@ class SerialSlotEngine:
         self.prefill = make_prefill_step(model)
         depth = cache_depth(max_len)
         self._steps = ([DecodeGraph(model, params, model.cache_init(1, depth),
-                                    1) for _ in range(slots)]
+                                    1, depth) for _ in range(slots)]
                        if cuda_graphs else None)
 
     @torch.no_grad()
@@ -252,8 +254,7 @@ class SerialSlotEngine:
             while queue:
                 req = queue.pop(0)
                 if self._steps is not None:
-                    cache = self._steps[s].cache
-                    cache["len"] = 0
+                    cache = reset(self._steps[s].cache)
                 else:
                     cache = self.model.cache_init(1, depth)
                 prompt = torch.as_tensor(

@@ -32,7 +32,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import cuda_gemm
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.transformer import cache_leaves
+from repro_torch.models.transformer import depth
 
 # every kernel wrapper's launch counters: (wrapper, attribute)
 COUNTERS = tuple((fn, attr) for fn, attrs in (
@@ -66,17 +66,25 @@ def add(moves: Dict[str, int], times: int = 1) -> None:
 class DecodeGraph:
     """One decode step of ``model`` with ``params`` over ``cache`` (a cache
     tree whose ``len`` is ignored: the lengths come with each call), for
-    ``batch`` rows.  ``step(tok, lens)`` returns the (B, V) last-position
-    logits and leaves the lengths to the caller, which advances them.  On
-    the card the logits of a replay are the graph's static output, which
-    the next replay overwrites: use them (or clone them) before it."""
+    ``batch`` rows, each of which may hold up to the cache's depth (or
+    ``max_len`` where the cache has no sequence axis) positions.
+    ``step(tok, lens)`` returns the (B, V) last-position logits and
+    leaves the lengths to the caller, which advances them.  On the card
+    the logits of a replay are the graph's static output, which the next
+    replay overwrites: use them (or clone them) before it."""
 
-    def __init__(self, model, params, cache, batch: int):
+    def __init__(self, model, params, cache, batch: int,
+                 max_len: Optional[int] = None):
         self.model = model
         self.params = params
         self.cache = cache
         self.batch = batch
-        self.depth = next(cache_leaves(cache)).shape[2]
+        # positions a row may reach: the cache's depth, or for a cache of
+        # constant-size states (an attention-free model) the engine's own
+        # ``max_len``
+        self.depth = depth(cache) or max_len
+        if self.depth is None:
+            raise ValueError("a cache with no sequence axis needs max_len")
         dev = model.device
         self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
         self.lens = torch.zeros((batch,), dtype=torch.int32, device=dev)

@@ -2,8 +2,12 @@
 generation exactly (greedy), whatever the slot scheduling order, and the
 batched engine (one decode step across all slots, per-row lengths) must
 give the serial per-slot engine's token streams.  The port of
-``tests/test_continuous_batching.py`` (its attention-model cases; the
-SSM ones wait for the port's Mamba-2 layers)."""
+``tests/test_continuous_batching.py``, its SSM cases included, with
+recurrentgemma (a suffix of unrolled layers, recurrent states and a
+windowed attention cache) and deepseek-v2 (a dense prefix layer, MLA
+latents written per row, MoE) besides."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,6 +26,38 @@ def setup():
     model = Model(cfg, RunConfig(max_seq=64), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     return cfg, model, params
+
+
+def _family(arch, **kw):
+    cfg = reduced(get_config(arch), **kw)
+    if cfg.moe is not None:
+        # an expert's capacity grows with the tokens of a step, so a
+        # batched step may drop what B=1 steps keep: with capacity for
+        # every token (as tests/test_decode_consistency.py sets it) the
+        # slots' rows are independent
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    model = Model(cfg, RunConfig(max_seq=64), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    return cfg, model, params
+
+
+@pytest.fixture(scope="module")
+def setup_ssm():
+    return _family("mamba2_130m")
+
+
+@pytest.fixture(scope="module")
+def setup_rglru():
+    return _family("recurrentgemma_2b", layers=5)
+
+
+@pytest.fixture(scope="module")
+def setup_mla():
+    return _family("deepseek_v2_236b", layers=3)
+
+
+FAMILIES = ["setup_ssm", "setup_rglru", "setup_mla"]
 
 
 def _mixed_requests(cfg, n=6, seed=1):
@@ -186,3 +222,73 @@ def test_batched_step_equals_b1_steps_of_its_slots(setup):
             np.testing.assert_allclose(got[s].numpy(), want[0, -1].numpy(),
                                        rtol=1e-5, atol=1e-5)
     assert [eng.slot_state(s)[0]["len"] for s in range(4)] == [11, 6, 8, 0]
+
+
+@pytest.mark.parametrize("fixture", FAMILIES)
+def test_families_batched_bit_identical_to_serial(fixture, request):
+    """The reference's setup_ssm case of the test above, and the
+    recurrentgemma and deepseek-v2 ones: the batched step's greedy
+    streams are the serial B=1 engine's, bit for bit."""
+    cfg, model, params = request.getfixturevalue(fixture)
+    reqs = _mixed_requests(cfg)
+    batched = ContinuousEngine(model, params, slots=2, max_len=64).serve(
+        [Request(r.rid, r.prompt, r.max_new) for r in reqs])
+    serial = SerialSlotEngine(model, params, slots=2, max_len=64).serve(
+        [Request(r.rid, r.prompt, r.max_new) for r in reqs])
+    assert sorted(batched) == sorted(serial) == [r.rid for r in reqs]
+    for r in reqs:
+        np.testing.assert_array_equal(batched[r.rid], serial[r.rid],
+                                      err_msg=f"request {r.rid}")
+        assert len(batched[r.rid]) == r.max_new
+
+
+@pytest.mark.parametrize("fixture", FAMILIES)
+def test_families_continuous_matches_sequential(fixture, request):
+    cfg, model, params = request.getfixturevalue(fixture)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, (4 + i,)).astype(np.int32), max_new=5)
+        for i in range(4)]
+    got = ContinuousEngine(model, params, slots=2, max_len=64).serve(
+        list(reqs))
+    eng = Engine(model, params, EngineConfig(max_len=64))
+    for r in reqs:
+        want = eng.generate(r.prompt[None, :], r.max_new)[0, len(r.prompt):]
+        np.testing.assert_array_equal(got[r.rid][:r.max_new], want,
+                                      err_msg=f"request {r.rid}")
+
+
+@pytest.mark.parametrize("fixture", FAMILIES)
+def test_families_slot_state_round_trips(fixture, request):
+    """Each slot's cache rows, copied out by ``slot_state``, hold what a
+    B=1 prefill of its prompt leaves in every leaf, prefix and suffix
+    layers (batch axis 0) and stacked groups (batch axis 1) alike; one
+    batched step then gives each slot a B=1 step's logits (1e-5)."""
+    from repro_torch.models.transformer import cache_items
+    cfg, model, params = request.getfixturevalue(fixture)
+    eng = ContinuousEngine(model, params, slots=3, max_len=32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (7, 3, 5)]
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(i, pr, 8))
+    for s in range(3):
+        eng._admit(s)
+    for s, pr in enumerate(prompts):
+        one, _ = eng.slot_state(s)
+        want = model.cache_init(1, eng.depth)
+        model.apply(params, torch.from_numpy(pr[None].astype(np.int64)),
+                    cache=want)
+        assert one["len"] == want["len"] == len(pr)
+        leaves = list(zip(cache_items(one), cache_items(want)))
+        assert {ax for (_, _, ax), _ in leaves} == (
+            {1} if fixture == "setup_ssm" else {0, 1})
+        for (name, a, _), (_, b, _) in leaves:
+            assert torch.equal(a, b), (s, name)
+    states = [eng.slot_state(s) for s in range(3)]
+    with torch.no_grad():
+        got = eng.decode_step()
+        for s, (one, tok) in enumerate(states):
+            want, _ = model.apply(params, tok, cache=one)
+            np.testing.assert_allclose(got[s].numpy(), want[0, -1].numpy(),
+                                       rtol=1e-5, atol=1e-5)

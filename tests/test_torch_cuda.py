@@ -325,6 +325,72 @@ def test_continuous_engine_on_the_card(cuda):
     print(f"{same} of {len(reqs)} greedy streams bit-identical")
 
 
+# the recurrent and MoE families, reduced so that each stack part exists,
+# with the decode kernel's launches a step: kimi-k2's attention is global
+# GQA in every layer; recurrentgemma's is windowed, deepseek-v2's latent
+# (MLA), mamba2 has none
+FAMILIES = {"mamba2_130m": ({}, 0), "recurrentgemma_2b": (dict(layers=5), 0),
+            "deepseek_v2_236b": (dict(layers=3), 0),
+            "kimi_k2_1t": (dict(layers=3), 3)}
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else
+            (v.clone() if torch.is_tensor(v) else v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_family_on_the_card(cuda, arch):
+    """A reduced model of each family on the card (MoE with capacity for
+    every token, as tests/test_decode_consistency.py sets it): prefill +
+    decode against one full forward (1e-4), the decode step with the
+    kernels against the plain versions (1e-4), decode_attention launched
+    once a global GQA layer a step, and two steps of ``DecodeGraph`` (an
+    eager warm-up with the capture, then a replay) against two eager
+    steps from the same state: logits and every cache leaf bit-equal, so
+    recurrent states advance once a step."""
+    from repro_torch.models.transformer import cache_leaves
+    from repro_torch.serve.graphs import DecodeGraph
+    kw, per_step = FAMILIES[arch]
+    cfg = reduced(get_config(arch), **kw)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    m = Model(cfg, RunConfig(backend="cuda"), cuda)
+    plain = Model(cfg, RunConfig(backend="torch"), cuda)
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    full, _ = m.apply(params, toks)
+    cache = m.cache_init(3, 16)
+    pre, _ = m.apply(params, toks[:, :8], cache=cache)
+    errs = [(pre - full[:, :8]).abs().max().item()]
+    base = _clone_tree(cache)
+    twin = _clone_tree(cache)
+    before = da.decode_attention.launches
+    for t in range(8, 12):
+        lg, _ = m.apply(params, toks[:, t:t + 1], cache=cache)
+        errs.append((lg[:, 0] - full[:, t]).abs().max().item())
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 4 * per_step
+    assert max(errs) < 1e-4, errs
+    a, _ = m.apply(params, toks[:, 8:9], cache=_clone_tree(base))
+    b, _ = plain.apply(params, toks[:, 8:9], cache=twin)
+    assert (a - b).abs().max().item() < 1e-4
+    eager, captured = _clone_tree(base), _clone_tree(base)
+    graph = DecodeGraph(m, params, captured, 3, 16)
+    with torch.no_grad():
+        for t in (8, 9):
+            want, _ = m.apply(params, toks[:, t:t + 1], cache=eager)
+            got = graph(toks[:, t:t + 1].to(torch.int32), captured["len"])
+            captured["len"] += 1
+            assert torch.equal(got, want[:, -1]), t
+    assert graph.replays == 1
+    assert all(torch.equal(x, y) for x, y in zip(cache_leaves(eager),
+                                                 cache_leaves(captured)))
+
+
 # ---- the general emitter's and the GEMM template's repaired refusals --------
 
 

@@ -20,6 +20,7 @@ from repro.serve import continuous as jax_continuous
 from repro.serve import engine as jax_engine
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import gemm
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import cache_leaves
 from repro_torch.serve import continuous, graphs
 from repro_torch.serve.engine import Engine, EngineConfig, SerialSlotEngine
@@ -267,3 +268,108 @@ def test_launch_accounting():
 class _FakeCuda:
     """A lengths buffer that says it lies on the card."""
     device = torch.device("cuda")
+
+
+# ---- the recurrent and MoE families --------------------------------------
+
+
+def _family(arch, bf16=False, **kw):
+    """A port model of a reduced family config with its own seeded
+    params (no reference needed: these hold the port to itself)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import Model, RunConfig
+    dt = "bfloat16" if bf16 else "float32"
+    cfg = reduced(get_config(arch), **kw)
+    m = Model(cfg, RunConfig(param_dtype=dt, cache_dtype=dt), device="cpu")
+    return m, m.init(torch.Generator().manual_seed(2))
+
+
+FAMILIES = {"mamba2_130m": {}, "recurrentgemma_2b": dict(layers=5),
+            "deepseek_v2_236b": dict(layers=3), "kimi_k2_1t": dict(layers=3)}
+
+
+def test_cache_depth_of_each_family():
+    """The depth comes from a leaf with a sequence axis, wherever it sits
+    (stacked keys, an unrolled layer's MLA latents); a mamba2 cache has
+    none, and its captured step is bounded by the engine's max_len."""
+    from repro_torch.models import transformer as T
+    for arch, kw in FAMILIES.items():
+        m, p = _family(arch, **kw)
+        cache = m.cache_init(2, 24)
+        assert T.depth(cache) == (None if arch == "mamba2_130m" else 24)
+    m, p = _family("mamba2_130m")
+    cache = m.cache_init(2, 24)
+    with pytest.raises(ValueError, match="max_len"):
+        graphs.DecodeGraph(m, p, cache, 2)
+    step = graphs.DecodeGraph(m, p, cache, 2, 20)
+    assert step.depth == 20
+    tok = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="KV cache full"):
+        step(tok, np.array([3, 20]))
+    step(tok, np.array([3, 19]))
+    # a deepseek step is bounded by its latents' depth, not max_len
+    m, p = _family("deepseek_v2_236b", layers=3)
+    assert graphs.DecodeGraph(m, p, m.cache_init(2, 24), 2, 99).depth == 24
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_family_captured_body_equals_model_apply(arch, bf16):
+    """One captured step at per-row lengths against one eager step from
+    the same state: logits and every cache leaf bit-equal, so the step
+    advances recurrent states once, in the cache's own tensors."""
+    m, p = _family(arch, bf16=bf16, **FAMILIES[arch])
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, m.cfg.vocab_size, (n,)) for n in (5, 2, 7)]
+    batch = m.cache_init(3, DEPTH)
+    for b, pr in enumerate(prompts):
+        one = m.cache_init(1, DEPTH)
+        m.apply(p, torch.from_numpy(pr[None]), cache=one)
+        T.copy_rows(batch, b, one, 0)
+    batch["len"] = np.array([len(pr) for pr in prompts])
+    twin = _clone(batch)
+    ptrs = [leaf.data_ptr() for leaf in cache_leaves(batch)]
+    before = _clone(batch)
+    tok = torch.from_numpy(rng.integers(0, m.cfg.vocab_size, (3, 1)))
+    step = graphs.DecodeGraph(m, p, batch, 3, DEPTH)
+    got = step(tok.to(torch.int32), batch["len"])
+    want, _ = m.apply(p, tok, cache=twin)
+    assert torch.equal(got, want[:, -1])
+    assert _same_cache(batch, twin)
+    assert ptrs == [leaf.data_ptr() for leaf in cache_leaves(batch)]
+    for (name, leaf, _), (_, old, _) in zip(T.cache_items(batch),
+                                            T.cache_items(before)):
+        if name in ("h", "state", "conv"):
+            assert not torch.equal(leaf, old), name
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "recurrentgemma_2b"])
+def test_family_engine_reuses_its_static_cache(arch):
+    """A second ``generate`` on one engine starts from zeroed recurrent
+    states (``transformer.reset``), not the first call's: its streams are
+    a fresh engine's and the eager engine's; so are the serial slot
+    engine's, whose slots reuse their static caches."""
+    m, p = _family(arch, **FAMILIES[arch])
+    rng = np.random.default_rng(10)
+    first = rng.integers(0, m.cfg.vocab_size, (2, 9)).astype(np.int32)
+    second = rng.integers(0, m.cfg.vocab_size, (2, 5)).astype(np.int32)
+    eng = Engine(m, p, EngineConfig(max_len=24))
+    eng.generate(first, 6)
+    got = eng.generate(second, 6)
+    fresh = Engine(m, p, EngineConfig(max_len=24))
+    np.testing.assert_array_equal(got, fresh.generate(second, 6))
+    for (name, a, _), (_, b, _) in zip(
+            T.cache_items(eng._steps[(2, 24)].cache),
+            T.cache_items(fresh._steps[(2, 24)].cache)):
+        if name in ("h", "state", "conv"):
+            assert torch.equal(a, b), name
+    np.testing.assert_array_equal(got, Engine(m, p, EngineConfig(
+        max_len=24, cuda_graphs=False)).generate(second, 6))
+    reqs = _requests(continuous, m.cfg)
+    serial = SerialSlotEngine(m, p, slots=2, max_len=40)
+    serial.serve(reqs)
+    again = serial.serve(reqs)
+    want = SerialSlotEngine(m, p, slots=2, max_len=40,
+                            cuda_graphs=False).serve(reqs)
+    for rid in want:
+        np.testing.assert_array_equal(again[rid], want[rid])

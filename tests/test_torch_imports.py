@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.ops",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan",
-            "repro_torch.examples.quickstart"} <= set(mods)
+            "repro_torch.examples.quickstart",
+            "repro_torch.models.recurrent", "repro_torch.models.moe",
+            "repro_torch.models.mla"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -42,6 +44,33 @@ def test_every_module_imports_without_jax_or_repro():
            or m == "repro" or m.startswith("repro.")]
     assert not bad, bad
     assert set(mods) <= set(loaded)
+
+
+def test_model_modules_run_with_jax_blocked():
+    """With ``jax`` and ``repro`` unimportable, the recurrent, MoE and MLA
+    modules import and a reduced model of each family runs a step."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'): sys.modules[name] = None\n"
+        "import torch, repro_torch\n"
+        "from repro_torch.models import recurrent, moe, mla\n"
+        "from repro_torch.configs.base import get_config, reduced\n"
+        "from repro_torch.models.model import Model\n"
+        "for arch in ('mamba2-130m', 'recurrentgemma-2b', "
+        "'deepseek-v2-236b', 'kimi-k2-1t'):\n"
+        "    m = Model(reduced(get_config(arch)), device='cpu')\n"
+        "    p = m.init(torch.Generator().manual_seed(0))\n"
+        "    c = m.cache_init(1, 8)\n"
+        "    m.apply(p, torch.zeros((1, 3), dtype=torch.long), cache=c)\n"
+        "    lg, _ = m.apply(p, torch.zeros((1, 1), dtype=torch.long), "
+        "cache=c)\n"
+        "    assert bool(torch.isfinite(lg).all()) and c['len'] == 4\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def _imports(path):
