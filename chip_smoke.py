@@ -62,6 +62,21 @@ Phases, each printing its own lines; any failure exits nonzero:
      recurrentgemma-2b (f32) through ContinuousEngine on the launcher's
      stream, whose greedy streams must be SerialSlotEngine's and the
      eager engine's; then decode_attention at kimi-k2's decode shapes;
+ 6e. the stub-frontend models whole, f32 and bf16, weights from the
+     launcher's seed: whisper-base (a 6-layer encoder over 1,500 stub
+     frames, 6 decoder layers with cross attention) and pixtral-12b (1,024
+     stub patches in place of the first token embeddings), f32 through
+     repro_torch.launch.serve.main, each through Engine with the
+     launcher's stub embeddings at B=4, 128 + 32 tokens on captured
+     decode steps: decode_attention's launches (one a decoder layer a
+     step), tok/s, ms per step beside the bytes bound (whisper's adds the
+     cross K/V a step reads), idle share, peak memory; the eager Engine's
+     streams; the captured step against the eager one; prefill + decode
+     against one full forward; the decode logits with the kernel against
+     the plain versions; a B=1 prefill of 1,152 tokens for pixtral (all
+     1,024 patches) against its full forward; then decode_attention at
+     both models' decode shapes, f32 and bf16, held to the plain version
+     and timed;
   7. decode_attention's time per launch beside its bound, its plain
      version's time and one PyTorch library call's time, with its launch
      plan; then, each with the counts reset, one call at a prime cache
@@ -106,7 +121,19 @@ Phases, each printing its own lines; any failure exits nonzero:
      exploration), each of which must exit 0 without importing jax;
  12. a JSON line with the rows of phases 6c-11 (phase 7 adds
      decode_attention's rows on the paths of 6a-6b, phase 6d its row on
-     kimi-k2's path).
+     kimi-k2's path, phase 6e its rows on whisper-base's and
+     pixtral-12b's paths);
+ 13. training: minicpm-2b whole, f32, through repro_torch.launch.train
+     (8 steps of 8 x 256 tokens, WSD, AdamW, remat full): finite losses,
+     the last below the first, step ms, tokens/s, peak memory, model
+     FLOPs a step against the f32 peak, one more step profiled; then at
+     full width cut to two layers: microbatches 2 against the full batch
+     and remat full / dots against none (loss and every gradient leaf),
+     save + restore into a fresh state + 2 steps against 4 straight
+     steps (bit-equal losses), and the first three losses of a batch of
+     2 x 64 against the same steps on the CPU.  The training forward
+     reaches no kernel (the reference's is jnp code): it runs plain
+     PyTorch attention.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 
@@ -257,6 +284,21 @@ FAMILY_RUNS = (("mamba2-130m", None, ("float32", "bfloat16"), 0),
 FAMILY_CONTINUOUS = ("mamba2-130m", "recurrentgemma-2b")
 # decode_attention's per-row valid lengths at kimi-k2's decode shapes
 KIMI_VALID = [129, 145, 152, 161]
+# the stub-frontend models (phase 6e), whole, f32 and bf16, and their
+# decode_attention shapes (KV groups, heads a group, head dim): whisper's
+# decoder attends KV 8 = H 8 heads of 64, pixtral's 8 groups of 4 heads
+# of 128; pixtral also prefills PIXTRAL_LONG tokens at B=1, so all 1,024
+# stub patches land (the serving prompts hold 128)
+FRONTEND_RUNS = ("whisper-base", "pixtral-12b")
+FRONTEND_DECODE = {"whisper-base": (8, 1, 64), "pixtral-12b": (8, 4, 128)}
+PIXTRAL_LONG = 1152
+# training (phase 13): minicpm-2b whole, f32, through the launcher; then
+# at full width cut to TRAIN_CUT layers, the equality checks and a
+# TRAIN_SMALL (batch, seq) run on the card against the CPU
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "minicpm-2b", 8, 8, 256
+TRAIN_CUT, TRAIN_SMALL = 2, (2, 64)
+# kernel names of the products in a profile (cuBLAS, cuBLASLt, CUTLASS)
+PRODUCT_KERNELS = ("gemm", "gemv", "cutlass", "nvjet", "splitK")
 # the repaired emitters (phase 6c): a product whose 256 x 256 f32
 # accumulator (256 KB) exceeds a block's 227 KB, on 256 programs, so no
 # row split frees it; and a batched product with rank-3 tiles
@@ -335,11 +377,13 @@ def profile_decode(eng, toks, steps: int = 4):
     return profile_steps(engine_step(eng, toks), steps)
 
 
-def engine_step(eng, toks):
+def engine_step(eng, toks, extra_embeds=None):
     """A decode step of ``Engine`` ``eng`` after a prefill of ``toks``'
-    prompts, as a callable (each call decodes one more position)."""
+    prompts (with a stub frontend's ``extra_embeds``), as a callable (each
+    call decodes one more position)."""
     cache = eng.model.cache_init(BATCH, PROMPT + GEN + 1)
-    logits, cache = eng.prefill(eng.params, cache, toks[:, :PROMPT])
+    logits, cache = eng.prefill(eng.params, cache, toks[:, :PROMPT],
+                                extra_embeds)
     state = {"tok": logits.argmax(-1, keepdim=True), "cache": cache}
 
     def step():
@@ -1539,19 +1583,22 @@ def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
     return rows
 
 
-def engines_agree(label, model, params, prompts, captured_eng):
+def engines_agree(label, model, params, prompts, captured_eng,
+                  extra_embeds=None):
     """The captured ``Engine``'s greedy streams and warm decode time
     against an eager ``Engine``'s (``cuda_graphs=False``) on the same
-    prompts, in the same call; the streams must be identical.  Returns
-    the eager engine's warm stats."""
+    prompts (and a stub frontend's ``extra_embeds``), in the same call;
+    the streams must be identical.  Returns the eager engine's warm
+    stats."""
     from repro_torch.serve.engine import Engine, EngineConfig, \
         throughput_stats
     eager = Engine(model, params, EngineConfig(max_len=PROMPT + GEN + 1,
                                                cuda_graphs=False))
-    throughput_stats(eager, prompts, GEN)
-    warm = throughput_stats(eager, prompts, GEN)
-    got = captured_eng.generate(prompts, GEN)
-    want = eager.generate(prompts, GEN)
+    ee = dict(extra_embeds=extra_embeds)
+    throughput_stats(eager, prompts, GEN, **ee)
+    warm = throughput_stats(eager, prompts, GEN, **ee)
+    got = captured_eng.generate(prompts, GEN, **ee)
+    want = eager.generate(prompts, GEN, **ee)
     same = int(sum(np.array_equal(g, w) for g, w in zip(got, want)))
     print(f"[{label}] eager Engine (cuda_graphs=False), warm rerun: decode "
           f"{warm['decode_tok_per_s']:.1f} tok/s "
@@ -1562,12 +1609,14 @@ def engines_agree(label, model, params, prompts, captured_eng):
     return warm
 
 
-def prefilled(model, params, toks):
+def prefilled(model, params, toks, extra_embeds=None):
     """A cache of the serving depth holding ``toks``' first PROMPT tokens
-    (one length for every row), and the next tokens."""
+    (one length for every row; with a stub frontend's ``extra_embeds``),
+    and the next tokens."""
     cache = model.cache_init(BATCH, PROMPT + GEN + 1)
     with torch.no_grad():
-        model.apply(params, toks[:, :PROMPT], cache=cache)
+        model.apply(params, toks[:, :PROMPT], extra_embeds=extra_embeds,
+                    cache=cache)
     return cache, toks[:, PROMPT:PROMPT + 1]
 
 
@@ -2108,6 +2157,457 @@ def family_phase(dev, flush, smi):
                        smi, lib_tol=TOL_BF16)]
 
 
+# ---- phase 6e: the stub frontends, whisper-base and pixtral-12b --------
+
+
+def frontend_teacher(label, model, params, toks, ee, f32):
+    """Prefill + 4 decode steps against one full forward, both with the
+    stub frontend's ``ee`` (the full forward with the patches the prefill
+    placed); f32 within TOL_TEACHER, bf16 within
+    TOL_BF16_LOGITS of the logits' largest magnitude.  Returns (error,
+    limit)."""
+    cfg = model.cfg
+    # decode steps add no patches: the full forward gets the patches the
+    # prefill placed (the first PROMPT), not patches over the decoded
+    # positions too (whisper's frames feed the encoder either way)
+    full_ee = ee[:, :PROMPT] if cfg.frontend == "image_patches" else ee
+    with torch.no_grad():
+        full, _ = model.apply(params, toks, extra_embeds=full_ee)
+        cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+        pre, _ = model.apply(params, toks[:, :PROMPT], extra_embeds=ee,
+                             cache=cache)
+        errs = [(pre.float() - full[:, :PROMPT].float()).abs().max().item()]
+        for t in range(PROMPT, PROMPT + 4):
+            lg, _ = model.apply(params, toks[:, t:t + 1], cache=cache)
+            errs.append((lg[:, 0].float() - full[:, t].float()).abs().max()
+                        .item())
+    check(tuple(full.shape) == (BATCH, PROMPT + 4, cfg.padded_vocab),
+          f"{label}: logits shape {tuple(full.shape)}")
+    check(bool(torch.isfinite(full).all()), f"{label}: non-finite logits")
+    scale = full.float().abs().max().item()
+    limit = TOL_TEACHER if f32 else TOL_BF16_LOGITS * scale
+    print(f"[frontend] {label}: prefill {PROMPT} + 4 decode steps vs full "
+          f"forward, with the stub embeddings: max_abs_diff {max(errs):.3e} "
+          f"(limit {limit:.3g}; logits max |x| {scale:.2f})")
+    check(max(errs) <= limit, f"{label}: decode drift {errs}")
+    return max(errs), limit
+
+
+def decode_read_params(model):
+    """The params a decode step reads: all but the encoder's (the prefill
+    ran it) and, of a learned position table, the one row that every
+    sequence of the batch is at (an untied embedding table is counted
+    whole, as the other phases' bounds count it)."""
+    tree = model.param_shapes()
+    n = sum(t.numel() for k, t in _flat(tree)
+            if not k.startswith(("encoder/", "pos_embed")))
+    return n + (tree["pos_embed"].shape[1] if "pos_embed" in tree else 0)
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def frontend_run(arch, dtype, dev):
+    """One stub-frontend model at full width in ``dtype``, weights from the
+    launcher's seed, serving the launcher's prompts with its stub
+    embeddings (``launch.serve.stub_embeds``) through ``Engine`` on
+    captured decode steps (f32 through ``launch.serve.main`` itself):
+    decode_attention's launches (one a decoder layer a step), rates, ms
+    per step beside the bytes bound, peak memory; the eager Engine's
+    streams; the captured step against the eager one (bit-equal logits,
+    idle share); a profiled eager step; prefill + decode against a full
+    forward; the decode logits with the kernel against the plain
+    versions; for pixtral-12b one B=1 prefill of PIXTRAL_LONG tokens, so
+    that every patch lands, against its full forward.  Returns a summary
+    dict."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.serve.engine import (Engine, EngineConfig,
+                                          throughput_stats)
+    from repro_torch.configs.base import get_config
+    f32 = dtype == "float32"
+    label = f"{arch} {dtype}"
+    cfg = get_config(arch)
+    # the launcher's prompts and stub embeddings
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    ee = serve.stub_embeds(cfg, BATCH, dev)
+    torch.cuda.reset_peak_memory_stats()
+    da.decode_attention.launches = 0
+    if f32:
+        res = serve.main(["--arch", arch, "--batch", str(BATCH),
+                          "--prompt-len", str(PROMPT), "--gen", str(GEN)])
+        eng = res["engine"]
+        model, params = eng.model, eng.params
+    else:
+        model = Model(cfg, RunConfig(max_seq=PROMPT + GEN + 1, **BF16_RUN),
+                      dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        eng = Engine(model, params, EngineConfig(max_len=PROMPT + GEN + 1))
+        res = throughput_stats(eng, prompts, GEN, extra_embeds=ee)
+    launches, steps = da.decode_attention.launches, res["decode_steps"]
+    n = model.param_count()
+    read = decode_read_params(model)
+    el = 4 if f32 else 2
+    cross = (cfg.num_layers * 2 * BATCH * cfg.encoder.context * cfg.num_heads
+             * cfg.resolved_head_dim if cfg.encoder is not None else 0)
+    bound = (read + cross) * el / HBM_BYTES_PER_S * 1e3
+    print(f"[frontend] {label}: {cfg.num_layers} decoder layers d_model "
+          f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} hd "
+          f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}"
+          + (f", encoder {cfg.encoder.num_layers} layers over "
+             f"{cfg.encoder.context} stub frames" if cfg.encoder else
+             f", {cfg.frontend_len} stub patches") +
+          f"; {n:,} params; decode_attention launches {launches} = "
+          f"{cfg.num_layers} layers x {steps} decode steps")
+    check(steps == GEN, f"{label}: {steps} decode steps, expected {GEN}")
+    check(launches == cfg.num_layers * steps,
+          f"{label}: decode_attention launched {launches} times, expected "
+          f"{cfg.num_layers} x {steps}")
+    warm = throughput_stats(eng, prompts, GEN, extra_embeds=ee)
+    step_ms = warm["decode_s"] / GEN * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[frontend] {label} warm rerun (captured decode steps): prefill "
+          f"{warm['prefill_tok_per_s']:.1f} tok/s, decode "
+          f"{warm['decode_tok_per_s']:.1f} tok/s ({step_ms:.3f} ms/step; "
+          f"bound {bound:.3f} ms = {read:,} params a step reads"
+          + (f" (of {n:,})" if read != n else "")
+          + (f" + {cross:,} cross K/V elements" if cross else "") +
+          f" x {el} bytes at 3.35 TB/s, {step_ms / bound:.2f}x it), peak "
+          f"memory {peak:.1f} GiB")
+    eager_warm = engines_agree(f"frontend {label}", model, params, prompts,
+                               eng, extra_embeds=ee)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT + 4)).astype(np.int64)).to(dev)
+    rows = graph_vs_eager(label, model, params,
+                          *prefilled(model, params, toks, ee), bound,
+                          lambda scale: 0.0)
+    with torch.no_grad():
+        serving_profile(f"{label} eager decode step",
+                        engine_step(eng, toks, ee), 4, bound,
+                        eager_warm["decode_s"] / GEN * 1e3)
+    del eng
+    teacher = frontend_teacher(label, model, params, toks, ee, f32)
+    plain = Model(cfg, RunConfig(backend="torch", max_seq=model.run.max_seq,
+                                 param_dtype=dtype, cache_dtype=dtype), dev)
+    with torch.no_grad():
+        cache, nxt = prefilled(model, params, toks, ee)
+        twin = clone(cache)
+        got, _ = model.apply(params, nxt, cache=cache)
+        want, _ = plain.apply(params, nxt, cache=twin)
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    limit = TOL_BACKENDS if f32 else TOL_BF16_LOGITS * scale
+    print(f"[backends] {label} decode logits, cuda vs torch: max_abs_diff "
+          f"{err:.3e} (limit {limit:.3g}; logits max |x| {scale:.2f})")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    check(err <= limit, f"{label}: backends differ by {err}")
+    del cache, twin, got, want
+    if cfg.frontend == "image_patches":
+        long_prefill(label, model, params, f32, dev)
+    out = {"label": label, "arch": arch, "dtype": dtype, "params": n,
+           "launches": launches,
+           "prefill_tok_per_s": warm["prefill_tok_per_s"],
+           "decode_tok_per_s": warm["decode_tok_per_s"], "ms": step_ms,
+           "bound_ms": bound, "peak_gib": peak,
+           "captured_idle": max(0.0, 1 - rows["captured"]["busy"] /
+                                rows["captured"]["ms"]),
+           "teacher": teacher}
+    del model, params, plain, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_prefill(label, model, params, f32, dev):
+    """One B=1 prefill of PIXTRAL_LONG tokens with all frontend_len stub
+    patches in place, against one full forward of the same tokens (last
+    position's logits)."""
+    from repro_torch.launch import serve
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, PIXTRAL_LONG)).astype(np.int64)).to(dev)
+    ee = serve.stub_embeds(cfg, 1, dev)
+    with torch.no_grad():
+        cache = model.cache_init(1, PIXTRAL_LONG + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre, _ = model.apply(params, toks, extra_embeds=ee, cache=cache)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        full, _ = model.apply(params, toks, extra_embeds=ee)
+    scale = full[:, -1].float().abs().max().item()
+    err = (pre[:, -1].float() - full[:, -1].float()).abs().max().item()
+    limit = TOL_TEACHER if f32 else TOL_BF16_LOGITS * scale
+    print(f"[frontend] {label} B=1 prefill of {PIXTRAL_LONG} tokens, all "
+          f"{cfg.frontend_len} patches in place: {dt * 1e3:.1f} ms "
+          f"({PIXTRAL_LONG / dt:.1f} tok/s); last position vs one full "
+          f"forward max_abs_diff {err:.3e} (limit {limit:.3g})")
+    check(cache["len"] == PIXTRAL_LONG, f"{label}: cache len {cache['len']}")
+    check(bool(torch.isfinite(pre).all()), f"{label}: non-finite logits")
+    check(err <= limit, f"{label}: long prefill off by {err}")
+
+
+def frontend_phase(dev, flush, smi):
+    """Phase 6e: every run of FRONTEND_RUNS (``frontend_run``), one model
+    at a time; then decode_attention at whisper-base's and pixtral-12b's
+    decode shapes, f32 and bf16, held to the plain version and timed, with
+    the launches of their runs.  Returns the JSON rows."""
+    from repro_torch.kernels import decode_attention as da
+    runs = [frontend_run(arch, dtype, dev) for arch in FRONTEND_RUNS
+            for dtype in ("float32", "bfloat16")]
+    print("[frontend] summary: run | ms/step | bound ms | x bound | decode "
+          "tok/s | prefill tok/s | captured idle | peak GiB")
+    for r in runs:
+        print(f"[frontend]   {r['label']} | {r['ms']:.3f} | "
+              f"{r['bound_ms']:.3f} | {r['ms'] / r['bound_ms']:.2f} | "
+              f"{r['decode_tok_per_s']:.1f} | {r['prefill_tok_per_s']:.1f} |"
+              f" {r['captured_idle']:.1%} | {r['peak_gib']:.1f}; card {smi}")
+    rows = []
+    for r in runs:
+        KV, rep, hd = FRONTEND_DECODE[r["arch"]]
+        dtype = getattr(torch, r["dtype"])
+        rng = np.random.default_rng(7)
+        smax = PROMPT + GEN + 1
+        q = torch.from_numpy(rng.standard_normal((BATCH, KV, rep, hd))).to(
+            dev, dtype)
+        cache = torch.from_numpy(rng.standard_normal(
+            (2, BATCH, smax, KV, hd))).to(dev, dtype)
+        k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        valid = torch.tensor([0, 1, 129, 161], dtype=torch.int32,
+                             device=dev)
+        err = (da.decode_attention(q, k, v, valid).float()
+               - da.decode_attention_ref(q, k, v, valid).float()
+               ).abs().max().item()
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        print(f"[kernel] decode_attention {r['dtype']} at {r['arch']}'s "
+              f"decode shapes (KV {KV}, rep {rep}, hd {hd}) valid "
+              f"{valid.tolist()}: max_abs_err {err:.3e} (limit {tol:g})")
+        check(err <= tol, f"decode_attention at {r['label']}: {err}")
+        rows.append(decode_row(
+            f"decode_attention [{r['label']} serving]", (q, k, v, valid),
+            161, r["launches"], err, flush, smi,
+            lib_tol=TOL_LIBRARY if dtype == torch.float32 else TOL_BF16))
+    return rows
+
+
+# ---- phase 13: training, minicpm-2b whole ------------------------------
+
+
+def recorded_grads(model, params, batch, microbatches=1):
+    """(loss, gradient leaves) of one train step of ``model`` on ``batch``
+    (``microbatches`` slices), through ``make_train_step`` with an
+    optimizer that only records the gradients it is given."""
+    from repro_torch.optim.optimizer import Optimizer, OptState, tree_leaves
+    from repro_torch.train.step import (TrainConfig, TrainState, new_rng,
+                                        make_train_step)
+    seen = {}
+
+    def update(grads, state, p):
+        seen["grads"] = tree_leaves(grads)
+        return p, state, {}
+    rec = Optimizer(init=lambda p: OptState(torch.zeros((), dtype=torch.int32),
+                                            {}, ()), update=update)
+    fn = make_train_step(model, rec, TrainConfig(microbatches))
+    _, metrics = fn(TrainState(params, rec.init(params), new_rng(0, 1)), batch)
+    return metrics["loss"].item(), seen["grads"]
+
+
+def grads_agree(label, a, b, tol):
+    """Two (loss, gradient leaves) within ``tol`` relative: the loss, and
+    each leaf's largest difference against its largest magnitude."""
+    (la, ga), (lb, gb) = a, b
+    loss_err = abs(la - lb) / abs(la)
+    worst = max((x - y).abs().max().item() / max(x.abs().max().item(), 1e-30)
+                for x, y in zip(ga, gb))
+    print(f"[train] {label}: loss {la:.6f} vs {lb:.6f} (relative "
+          f"{loss_err:.2e}); gradients, worst leaf's max |diff| / max |g| "
+          f"{worst:.2e} over {len(ga)} leaves (limit {tol:g})")
+    check(loss_err <= tol and worst <= tol, f"{label}: off by "
+          f"{loss_err} / {worst}")
+
+
+def train_losses(model, opt, state, pipe, steps, start=0):
+    """Run ``steps`` train steps from ``state`` on the pipeline's batches
+    ``start``..; returns (state, losses)."""
+    from repro_torch.train.step import make_train_step
+    fn = make_train_step(model, opt)
+    dev = model.device
+    losses = []
+    for i in range(start, start + steps):
+        state, metrics = fn(state, pipe.torch_batch(i, dev))
+        losses.append(metrics["loss"].item())
+    return state, losses
+
+
+def train_phase(dev, smi):
+    """Phase 13: minicpm-2b whole, f32, through ``launch.train.main``
+    (TRAIN_STEPS steps of global batch TRAIN_BATCH x TRAIN_SEQ, the
+    launcher's WSD schedule and AdamW, remat full): finite losses, the last
+    below the first; step ms, tokens/s, peak memory, model FLOPs a step
+    against the f32 peak.  Then at full width cut to TRAIN_CUT layers:
+    microbatches 2 against the full batch, remat none / full / dots,
+    save + restore + 2 steps against an uninterrupted run (bit-equal
+    losses), and the first three losses against the port's own CPU run
+    from the same params and batches."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.optim import schedule as sched
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.train.step import (TrainState, new_rng, init_state,
+                                        make_train_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--seq-len", str(TRAIN_SEQ), "--global-batch",
+                      str(TRAIN_BATCH), "--remat", "full"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = res["model"].cfg
+    n = res["model"].param_count()
+    hist = res["trainer"].metrics_history
+    losses = [h["loss"] for h in hist]
+    ms = [h["step_time_s"] * 1e3 for h in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = sum(ms[1:]) / len(ms[1:])
+    flops = (6 * n * tokens + 12 * cfg.num_layers * cfg.num_heads
+             * cfg.resolved_head_dim * TRAIN_SEQ * tokens)
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} heads {cfg.num_heads} hd {cfg.resolved_head_dim} "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab_size} tied, {n:,} params, f32, "
+          f"remat full, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, WSD peak 3e-3, AdamW")
+    print(f"[train] losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[train] step ms: {', '.join(f'{x:.1f}' for x in ms)} (the first "
+          f"builds the allocator's pools); steps 2-{TRAIN_STEPS}: "
+          f"{warm:.1f} ms, {tokens / warm * 1e3:.1f} tokens/s; peak memory "
+          f"{peak:.1f} GiB; model FLOPs a step {flops / 1e12:.2f} T (6 x "
+          f"params x tokens + 12 x layers x heads x hd x seq x tokens; "
+          f"remat's recompute not counted) = {flops / (warm / 1e3) / 1e12:.1f}"
+          f" TFLOP/s, {flops / (warm / 1e3) / F32_FLOP_PER_S:.1%} of the "
+          f"67 TFLOP/s f32 peak (TF32 off); card {smi}")
+    check(len(losses) == TRAIN_STEPS, f"train: {len(losses)} steps")
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: loss rose {losses}")
+    out = {"losses": losses, "ms": warm, "peak_gib": peak, "params": n,
+           "tflops": flops / 1e12}
+    # where a step's time goes: one more step of the launcher's state,
+    # profiled
+    model = res["model"]
+    fn = make_train_step(model, adamw(sched.make(
+        "wsd", peak=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS),
+        weight_decay=0.01))
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=0))
+    state = {"s": res["state"]}
+    batch = pipe.torch_batch(TRAIN_STEPS, dev)
+
+    def step():
+        state["s"], metrics = fn(state["s"], batch)
+        metrics["loss"].item()
+    busy, window, krows, _ = profile_steps(step, 1)
+    if busy is None:
+        print("[train] profiled step: device time not measured (the "
+              "profiler recorded no device time)")
+    else:
+        products = sum(ms for ms, _, name in krows if any(
+            k in name for k in PRODUCT_KERNELS))
+        print(f"[train] profiled step: device busy {busy:.1f} ms of "
+              f"{window:.1f} ms wall (idle share {1 - busy / window:.1%}); "
+              f"products (cuBLAS / CUTLASS GEMMs) {products:.1f} ms, the "
+              f"rest {busy - products:.1f} ms over "
+              f"{sum(r[1] for r in krows)} kernels")
+        for ms, k, name in krows[:10]:
+            print(f"[train]   {ms:9.2f} ms  {k:5d} launches  {name[:90]}")
+    del res, hist, state, fn
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_CUT)
+
+    def model_of(remat="none", device=dev):
+        return Model(cut, RunConfig(max_seq=TRAIN_SEQ, remat=remat), device)
+
+    params = model_of().init(torch.Generator(device=dev).manual_seed(0))
+    pipe = Pipeline(DataConfig(vocab_size=cut.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=0))
+    batch = pipe.torch_batch(0, dev)
+    base = recorded_grads(model_of(), params, batch)
+    grads_agree(f"{TRAIN_CUT} layers, microbatches 2 vs the full batch",
+                base, recorded_grads(model_of(), params, batch, 2), 1e-5)
+    for remat in ("full", "dots"):
+        grads_agree(f"{TRAIN_CUT} layers, remat {remat} vs none", base,
+                    recorded_grads(model_of(remat), params, batch), 1e-6)
+    del base, params
+    torch.cuda.empty_cache()
+
+    model = model_of()
+    opt = adamw(sched.make("wsd", peak=3e-3, warmup_steps=1, total_steps=4),
+                weight_decay=0.01)
+    _, straight = train_losses(
+        model, opt, init_state(model, opt,
+                               torch.Generator(device=dev).manual_seed(0)),
+        pipe, 4)
+    torch.cuda.empty_cache()
+    state, first = train_losses(
+        model, opt, init_state(model, opt,
+                               torch.Generator(device=dev).manual_seed(0)),
+        pipe, 2)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 2, state)
+        del state
+        torch.cuda.empty_cache()
+        fresh = init_state(model, opt,
+                           torch.Generator(device=dev).manual_seed(1))
+        state, extra = ckpt.restore(d, target=fresh)
+    _, rest = train_losses(model, opt, state, pipe, 2, start=extra["step"])
+    resumed = first + rest
+    print(f"[train] {TRAIN_CUT} layers: 4 steps straight "
+          f"{[f'{x:.6f}' for x in straight]}; 2 + save, restore into a "
+          f"fresh state, 2: {[f'{x:.6f}' for x in resumed]} "
+          f"({'bit-equal' if resumed == straight else 'NOT bit-equal'})")
+    check(resumed == straight, f"train: resumed losses {resumed} against "
+          f"{straight}")
+    del state, fresh
+    torch.cuda.empty_cache()
+
+    # card against CPU: the same params (drawn on the card) and batches
+    small = Pipeline(DataConfig(vocab_size=cut.vocab_size,
+                                seq_len=TRAIN_SMALL[1],
+                                global_batch=TRAIN_SMALL[0], seed=0))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        drawn = model_of().init(torch.Generator(device=dev).manual_seed(0))
+        params = _to(drawn, device)
+        del drawn
+        state = TrainState(params, opt.init(params), new_rng(0, 1))
+        _, runs[device.type] = train_losses(model_of(device=device), opt,
+                                            state, small, 3)
+        del state, params
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    print(f"[train] {TRAIN_CUT} layers, batch {TRAIN_SMALL[0]} x "
+          f"{TRAIN_SMALL[1]}: card losses "
+          f"{[f'{x:.6f}' for x in runs['cuda']]}, CPU "
+          f"{[f'{x:.6f}' for x in runs['cpu']]}: relative {rel:.2e} "
+          f"(limit 1e-4)")
+    check(rel <= 1e-4, f"train: card against CPU {rel}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.detach().to(device)
+            for k, v in tree.items()}
+
+
 def compile_repaired(dev):
     """Phase 6c's kernels, each one the port once refused: an f16 GEMM
     (qwen2-7b's up product, f32 output) and a kernel whose matmul scratch
@@ -2555,6 +3055,8 @@ def main() -> int:
 
     # 6d. the recurrent and MoE families at their published widths
     rows += family_phase(dev, flush, smi)
+    # 6e. the stub frontends: whisper-base and pixtral-12b, whole
+    rows += frontend_phase(dev, flush, smi)
 
     # 7. time per launch beside the bound, the plain version and SDPA
     rows += decode_phase(dev, flush, smi, launches, errs[torch.float32])
@@ -2577,6 +3079,10 @@ def main() -> int:
     rows += compiled_phase(compiled, dev, flush, smi)
     # 11b. the search and system layer's driver, without jax
     reproc_phase()
+
+    # 13. training: minicpm-2b whole through the launcher, then the
+    # equality checks at two layers
+    train_phase(dev, smi)
 
     # 12. every kernel's row
     print(json.dumps({"kernels": rows}))

@@ -65,6 +65,21 @@ def _serve_continuous(cfg, model, params, args) -> Dict[str, Any]:
     return {**snap, "engine": engine}
 
 
+def stub_embeds(cfg, batch: int, device) -> Optional[torch.Tensor]:
+    """The stub frontends' input, as the reference's launcher makes it
+    (0.1 everywhere): patch embeddings (B, frontend_len, d_model) for
+    ``image_patches``, frame embeddings (B, context, encoder d_model) for
+    ``audio_frames``; None for a model without a frontend."""
+    if cfg.frontend == "image_patches":
+        shape = (batch, cfg.frontend_len, cfg.d_model)
+    elif cfg.frontend == "audio_frames":
+        shape = (batch, cfg.encoder.context,
+                 cfg.encoder.d_model or cfg.d_model)
+    else:
+        return None
+    return torch.full(shape, 0.1, dtype=torch.float32, device=device)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Serve one batch, or with ``--continuous`` a load-generator stream;
     returns the throughput stats or the metrics snapshot, plus the
@@ -107,7 +122,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     eng = Engine(model, params, EngineConfig(max_len=max_len,
                                              temperature=args.temperature,
                                              seed=args.seed))
-    stats = throughput_stats(eng, prompts, args.gen)
+    ee = stub_embeds(cfg, args.batch, device)
+    stats = throughput_stats(eng, prompts, args.gen, extra_embeds=ee)
     print(f"[serve] prefill {prompts.size} tokens in "
           f"{stats['prefill_s']:.4f}s = {stats['prefill_tok_per_s']:.1f} tok/s")
     print(f"[serve] decode {stats['decode_steps']} steps x {args.batch} rows "

@@ -1,7 +1,6 @@
 """Shared model primitives: params maker, norms, rope, attention, MLP.
 
-The PyTorch counterpart of ``repro/models/layers.py``, less the
-encoder-decoder's cross attention.  Every ``init_*`` function takes a
+The PyTorch counterpart of ``repro/models/layers.py``.  Every ``init_*`` function takes a
 ``Maker``; the same code path produces real tensors (mode="init") or meta
 tensors that carry shape and dtype only (mode="shape", nothing
 allocated).  Layouts are the reference's: ``wq`` is (d, H*hd), caches are
@@ -131,6 +130,19 @@ def init_attention(cfg, mk: Maker) -> Params:
     return p
 
 
+def init_cross_attention(cfg, mk: Maker) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H = cfg.num_heads
+    ed = cfg.encoder.d_model or d
+    return {
+        "norm": mk((d,), "embed", init="zeros"),
+        "wq": mk((d, H * hd), "fsdp heads"),
+        "wk": mk((ed, H * hd), "fsdp heads"),
+        "wv": mk((ed, H * hd), "fsdp heads"),
+        "wo": mk((H * hd, d), "heads fsdp"),
+    }
+
+
 def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor, scale: Optional[float] = None
                    ) -> torch.Tensor:
@@ -152,7 +164,25 @@ def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # threshold above which attention switches to the blockwise (flash-style)
 # path: never materialise an (Sq, Sk) logits tensor past this size.
 _DIRECT_LIMIT = 1 << 21
-_BLOCK_Q, _BLOCK_K = 512, 1024
+
+# Execution options of the blockwise path, module state as in the
+# reference:
+#   probs_dtype — dtype the softmax weights are rounded to before the PV
+#     product (which sums in f32); statistics (m, l) always stay f32.
+#   block_q/block_k — the blocks of the two loops.
+ATTN_OPTIONS = {"probs_dtype": torch.float32, "block_q": 512,
+                "block_k": 1024}
+
+
+def set_attention_options(probs_dtype=None, block_q=None, block_k=None):
+    if probs_dtype is not None:
+        ATTN_OPTIONS["probs_dtype"] = (
+            torch.bfloat16 if str(probs_dtype).split(".")[-1] in (
+                "bf16", "bfloat16") else torch.float32)
+    if block_q is not None:
+        ATTN_OPTIONS["block_q"] = int(block_q)
+    if block_k is not None:
+        ATTN_OPTIONS["block_k"] = int(block_k)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -176,8 +206,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
     scale = float(scale) if scale is not None else 1.0 / (hd ** 0.5)
-    block_q = block_q or _BLOCK_Q
-    block_k = block_k or _BLOCK_K
+    block_q = block_q or ATTN_OPTIONS["block_q"]
+    block_k = block_k or ATTN_OPTIONS["block_k"]
+    pdt = ATTN_OPTIONS["probs_dtype"]
 
     def mask_for(qp, kp):                       # (B, sq) x (B, sk) -> bool
         kk = kp[:, None, :]
@@ -216,8 +247,10 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + p.sum(-1)
+            # the product of ``pdt`` operands, summed in f32
             acc = acc * corr[..., None] + torch.einsum(
-                "bgrqk,bkgh->bgrqh", p, v[:, j:j + bk].float())
+                "bgrqk,bkgh->bgrqh", p.to(pdt).float(),
+                v[:, j:j + bk].to(pdt).float())
             m_run = m_new
         out = acc / torch.clamp(l_run, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, bq, H, hv))
@@ -252,9 +285,9 @@ def cache_depth(max_len: int) -> int:
 
 def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
                     window=None, cache: Optional[Params] = None,
-                    kv_len=None,
-                    backend: str = "cuda") -> Tuple[torch.Tensor,
-                                                    Optional[Params]]:
+                    kv_len=None, backend: str = "cuda",
+                    causal: bool = True) -> Tuple[torch.Tensor,
+                                                  Optional[Params]]:
     """Pre-norm GQA attention block with optional KV cache.
 
     Training/prefill: x is (B, S, d), cache None/fresh. Decode: x is
@@ -312,10 +345,34 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     else:
         kpos = positions if cache is None else torch.arange(
             k.shape[1], device=x.device).expand(B, k.shape[1])
-        out = attention_core(q, k, v, positions, kpos, valid, causal=True,
+        out = attention_core(q, k, v, positions, kpos, valid, causal=causal,
                              window=window)
     out = out.reshape(B, S, H * hd) @ p["wo"]
     return x + out, cache
+
+
+def apply_cross_attention(p: Params, x: torch.Tensor, cfg,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                          ) -> torch.Tensor:
+    """Decoder cross-attention; enc_kv = (k, v): (B, Senc, H, hd)."""
+    B, S, d = x.shape
+    hd, H = cfg.resolved_head_dim, cfg.num_heads
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(B, S, H, hd)
+    k, v = enc_kv
+    m = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = attention_math(q, k, v, m)
+    return x + out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def cross_kv(p: Params, cfg, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, Se, _ = enc_out.shape
+    hd, H = cfg.resolved_head_dim, cfg.num_heads
+    # the reference's products promote: f32 encoder output, bf16 weights
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, Se, H, hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, Se, H, hd)
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -5,15 +5,26 @@ grouped by the config's cyclic ``pattern`` exactly as in the reference, so
 the param and cache trees have the same keys and layouts: the repeated
 groups are stacked along a leading layer axis under ``params["scan"]``.
 Where the reference runs ``lax.scan`` over that axis, the port runs a
-Python loop that indexes it; a non-conforming prefix (deepseek's and
-kimi-k2's leading dense layer) or suffix (recurrentgemma's trailing
-recurrent pair) is unrolled around the groups under ``prefix`` /
-``suffix``, keyed by layer index.
+Python loop over it; a non-conforming prefix (deepseek's and kimi-k2's
+leading dense layer) or suffix (recurrentgemma's trailing recurrent pair)
+is unrolled around the groups under ``prefix`` / ``suffix``, keyed by
+layer index.
 
-Layer kinds ``attn``, ``dense_moe``, ``moe`` (MLA or GQA attention),
-``rglru`` and ``ssd`` are ported; the encoder-decoder's ``xdec``, the
-modality frontends and learned position tables raise
-NotImplementedError naming what is missing.
+Every layer kind of the registry is ported: ``attn``, ``dense_moe``,
+``moe`` (MLA or GQA attention), ``rglru``, ``ssd`` and the
+encoder-decoder's ``xdec`` (whisper: a stack of non-causal encoder layers
+over stub frame embeddings, cross attention over its output), with the
+learned position tables of ``rope_theta == 0`` and the ``image_patches``
+frontend (pixtral: stub patch embeddings replace the first token
+embeddings).
+
+Under autograd each stacked leaf is unbound once per forward, so its
+gradient is stacked once (an integer index per layer would write a
+zero tensor the size of the whole stack per layer), and ``remat``
+checkpoints each stacked group as the reference's ``jax.checkpoint`` of
+its scan body: ``"full"`` keeps only the group's input, ``"dots"`` also
+keeps the plain products (``aten.mm`` / ``addmm``), the counterpart of
+``dots_with_no_batch_dims_saveable``.
 """
 
 from __future__ import annotations
@@ -21,10 +32,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -33,7 +45,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import Maker, Params
 
-PORTED_KINDS = ("attn", "dense_moe", "moe", "rglru", "ssd")
+REMATS = ("none", "full", "dots")
 
 
 # --------------------------------------------------------------------------
@@ -68,15 +80,22 @@ def _init_layer(cfg: ModelConfig, kind: str, mk: Maker) -> Params:
                 "mlp": L.init_mlp(cfg, mk)}
     if kind == "ssd":
         return {"ssd": rec_mod.init_ssd(cfg, mk)}
+    if kind == "xdec":
+        return {"attn": L.init_attention(cfg, mk),
+                "cross": L.init_cross_attention(cfg, mk),
+                "mlp": L.init_mlp(cfg, mk)}
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def _apply_layer(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, window, cache, kv_len,
-                 backend: str) -> torch.Tensor:
-    """One layer; its cache (if any) is updated in place.  The MoE
-    layer's auxiliary loss is dropped: nothing here trains."""
-    if kind in ("attn", "dense_moe", "moe"):
+                 backend: str, enc_kv=None):
+    """One layer: (x, aux loss).  Its cache (if any) is updated in place.
+    ``enc_kv``: for ``xdec`` on a call that ran the encoder, a callable
+    building the cross keys and values from its output (they are also
+    written into the cache); without it they are read from the cache."""
+    aux = 0.0
+    if kind in ("attn", "dense_moe", "moe", "xdec"):
         c = cache["attn"] if cache else None
         if cfg.mla is not None and kind in ("moe", "dense_moe"):
             x, _ = mla_mod.apply_mla(p["attn"], x, cfg, positions, cache=c,
@@ -85,18 +104,26 @@ def _apply_layer(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
             x, _ = L.apply_attention(p["attn"], x, cfg, positions,
                                      window=window, cache=c, kv_len=kv_len,
                                      backend=backend)
+        if kind == "xdec":
+            if enc_kv is not None:           # the encoder ran this call
+                ekv = enc_kv(p["cross"])
+                if cache:
+                    cache["xk"].copy_(ekv[0])
+                    cache["xv"].copy_(ekv[1])
+            else:                            # decode: the cached cross K/V
+                ekv = (cache["xk"], cache["xv"])
+            x = L.apply_cross_attention(p["cross"], x, cfg, ekv)
         if kind == "moe":
-            x, _ = moe_mod.apply_moe(p["moe"], x, cfg)
-            return x
-        return L.apply_mlp(p["mlp"], x, cfg)
+            return moe_mod.apply_moe(p["moe"], x, cfg)
+        return L.apply_mlp(p["mlp"], x, cfg), aux
     if kind == "rglru":
         x, _ = rec_mod.apply_rglru(p["rec"], x, cfg,
                                    cache["rec"] if cache else None)
-        return L.apply_mlp(p["mlp"], x, cfg)
+        return L.apply_mlp(p["mlp"], x, cfg), aux
     if kind == "ssd":
         x, _ = rec_mod.apply_ssd(p["ssd"], x, cfg,
                                  cache["ssd"] if cache else None)
-        return x
+        return x, aux
     raise ValueError(kind)
 
 
@@ -105,9 +132,14 @@ def _layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """{block: {leaf: (shape, dtype)}} of one layer's cache, the
     reference's ``_layer_cache_spec``."""
     hd, KV = cfg.resolved_head_dim, cfg.num_kv_heads
-    if kind == "attn" or (kind in ("moe", "dense_moe") and cfg.mla is None):
+    if kind in ("attn", "xdec") or (kind in ("moe", "dense_moe")
+                                    and cfg.mla is None):
         kv = ((batch, max_len, KV, hd), dtype)
-        return {"attn": {"k": kv, "v": kv}}
+        spec = {"attn": {"k": kv, "v": kv}}
+        if kind == "xdec":
+            x = ((batch, cfg.encoder.context, cfg.num_heads, hd), dtype)
+            spec["xk"], spec["xv"] = x, x
+        return spec
     if kind in ("moe", "dense_moe"):         # MLA compressed cache
         a = cfg.mla
         return {"attn": {"ckv": ((batch, max_len, a.kv_lora), dtype),
@@ -153,22 +185,6 @@ def _period(cfg: ModelConfig) -> int:
     return len(cfg.pattern)
 
 
-def _check_supported(cfg: ModelConfig) -> StackPlan:
-    """The config's StackPlan, or NotImplementedError naming what the port
-    lacks: the encoder-decoder (``xdec``, ROADMAP A8b.4) and the modality
-    frontends and learned position tables (A8b.5)."""
-    for kind in layer_kinds(cfg):
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported to PyTorch "
-                f"yet (ported: {PORTED_KINDS}; ROADMAP A8b.4)")
-    if cfg.frontend is not None or not cfg.rope_theta:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends (extra_embeds) and learned position "
-            "tables are not ported to PyTorch yet (ROADMAP A8b.5)")
-    return stack_plan(cfg)
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
@@ -177,18 +193,22 @@ def _check_supported(cfg: ModelConfig) -> StackPlan:
 def init_params(cfg: ModelConfig, mode: str = "shape",
                 generator: Optional[torch.Generator] = None,
                 device: Any = "cuda",
-                dtype: torch.dtype = torch.float32) -> Params:
+                dtype: torch.dtype = torch.float32,
+                max_seq: int = 0) -> Params:
     """mode: "init" (tensors on ``device``, drawn from ``generator``) |
-    "shape" (meta tensors), every param in ``dtype``.  The random streams
-    differ from the reference's; ``repro_torch.convert`` carries its
-    params over instead."""
-    plan = _check_supported(cfg)
+    "shape" (meta tensors), every param in ``dtype``.  A learned position
+    table (``rope_theta == 0``) has max(max_seq, 2048) rows.  The random
+    streams differ from the reference's; ``repro_torch.convert`` carries
+    its params over instead."""
+    plan = stack_plan(cfg)
     kinds = layer_kinds(cfg)
 
     def mk(lead=()):
         return Maker(mode, generator, device, tuple(lead), dtype)
 
     p: Params = {"embed": mk()((cfg.padded_vocab, cfg.d_model), "vocab fsdp")}
+    if not cfg.rope_theta:
+        p["pos_embed"] = mk()((max(max_seq, 2048), cfg.d_model), "- fsdp")
     # prefix / suffix layers, unrolled, keyed by layer index
     for name, idxs in (("prefix", plan.prefix), ("suffix", plan.suffix)):
         if idxs:
@@ -200,7 +220,23 @@ def init_params(cfg: ModelConfig, mode: str = "shape",
     p["final_norm"] = mk()((cfg.d_model,), "embed", init="zeros")
     if not cfg.tie_embeddings:
         p["lm_head"] = mk()((cfg.d_model, cfg.padded_vocab), "fsdp vocab")
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        ecfg = _encoder_cfg(cfg)
+        p["encoder"] = {
+            "pos_embed": mk()((e.context, ecfg.d_model), "- fsdp"),
+            "scan": _init_layer(ecfg, "attn", mk((e.num_layers,))),
+            "final_norm": mk()((ecfg.d_model,), "embed", init="zeros")}
     return p
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: its own width and depth, plain
+    non-causal attention layers, learned positions."""
+    e = cfg.encoder
+    return dataclasses.replace(
+        cfg, d_model=e.d_model or cfg.d_model, num_layers=e.num_layers,
+        pattern=("attn",), rope_theta=0.0, moe=None, mla=None, encoder=None)
 
 
 # --------------------------------------------------------------------------
@@ -208,63 +244,117 @@ def init_params(cfg: ModelConfig, mode: str = "shape",
 # --------------------------------------------------------------------------
 
 
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked param or cache tree."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+def _cast(tree, dtype: torch.dtype):
+    """A tree with its leaves in ``dtype`` (the same tensors where they
+    already are)."""
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
             for k, v in tree.items()}
 
 
-def _layers(cfg: ModelConfig, plan: StackPlan, params: Params,
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked param or cache tree, each leaf unbound
+    once along its layer axis (views of the same storage): under autograd
+    each layer's gradient then lands in one stacked gradient
+    (``UnbindBackward``), where an index per layer would write a zero
+    tensor the size of the stack for each layer."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _groups(cfg: ModelConfig, plan: StackPlan, params: Params,
             cache: Optional[Params]):
-    """(kind, params, cache, window) of every layer in order: the prefix,
-    the stacked groups indexed along their layer axis (views, no copies),
-    the suffix."""
-    kinds = layer_kinds(cfg)
-    # a global layer gets window None, which lets decode take the kernel
-    # (the reference's scan carries a 1<<30 sentinel there, so its pallas
-    # decode path is never reached in a stack)
+    """The stacked groups in order, each a list of (kind, params, cache,
+    window) of its layers; a global layer gets window None, which lets
+    decode take the kernel (the reference's scan carries a 1<<30 sentinel
+    there, so its pallas decode path is never reached in a stack)."""
     windows = cfg.layer_windows()
-
-    def unrolled(name, idxs):
-        for i in idxs:
-            yield (kinds[i], params[name][str(i)],
-                   cache[name][str(i)] if cache is not None else None,
-                   windows[i])
-
-    yield from unrolled("prefix", plan.prefix)
-    start = len(plan.prefix)
+    start, period = len(plan.prefix), len(plan.pattern)
+    per = [_unstack(params["scan"][f"pos{pos}"], plan.groups)
+           for pos in range(period)]
+    cper = [_unstack(cache["scan"][f"pos{pos}"], plan.groups)
+            if cache is not None else [None] * plan.groups
+            for pos in range(period)]
     for g in range(plan.groups):
-        for pos, kind in enumerate(plan.pattern):
-            key = f"pos{pos}"
-            yield (kind, _index(params["scan"][key], g),
-                   _index(cache["scan"][key], g) if cache is not None
-                   else None,
-                   windows[start + g * len(plan.pattern) + pos])
-    yield from unrolled("suffix", plan.suffix)
+        yield [(kind, per[pos][g], cper[pos][g],
+                windows[start + g * period + pos])
+               for pos, kind in enumerate(plan.pattern)]
+
+
+# the products "dots" remat keeps: plain 2-D ones, as the reference's
+# dots_with_no_batch_dims_saveable (a batched product is recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def encode(params: Params, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (stub frontend).
+    It runs in the frames' and params' promoted dtype, as the reference's
+    products promote: f32 frames take bf16 params' encoder in f32."""
+    ecfg = _encoder_cfg(cfg)
+    enc = params["encoder"]
+    dt = torch.promote_types(frames.dtype, enc["pos_embed"].dtype)
+    enc = _cast(enc, dt)
+    x = frames.to(dt) + enc["pos_embed"][None, :frames.shape[1]]
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for p in _unstack(enc["scan"], ecfg.num_layers):
+        h, _ = L.apply_attention(p["attn"], x, ecfg, positions, window=None,
+                                 causal=False)
+        x = L.apply_mlp(p["mlp"], h, ecfg)
+    return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[Params] = None,
-            backend: str = "cuda") -> Tuple[torch.Tensor, Optional[Params]]:
-    """tokens: (B, S) -> (logits (B, S, V), cache).
+            extra_embeds: Optional[torch.Tensor] = None,
+            cache: Optional[Params] = None, backend: str = "cuda",
+            remat: str = "none"
+            ) -> Tuple[torch.Tensor, Optional[Params],
+                       Union[float, torch.Tensor]]:
+    """tokens: (B, S) -> (logits (B, S, V), cache, aux loss).
 
     cache=None: training forward.  cache given: prefill (S>1, fresh cache)
     or decode (S==1); the cache is updated in place (new keys and values,
-    latents and recurrent states written into its own tensors, ``len``
-    advanced) and the same dict is returned.  ``len`` is an int, the
-    length of every row; or a (B,) numpy array of per-row lengths (the
-    continuous engine's slots), which the host checks against the cache's
-    depth and uploads once for every layer of the step; or a (B,) int32
-    tensor on the tokens' device, which is read where it lies (a captured
-    step's lengths buffer, ``serve.graphs.DecodeGraph``; its caller checks
-    the depth).  Both per-row forms write each row at its own positions.
+    latents, recurrent states and cross keys and values written into its
+    own tensors, ``len`` advanced) and the same dict is returned.  ``len``
+    is an int, the length of every row; or a (B,) numpy array of per-row
+    lengths (the continuous engine's slots), which the host checks
+    against the cache's depth and uploads once for every layer of the
+    step; or a (B,) int32 tensor on the tokens' device, which is read
+    where it lies (a captured step's lengths buffer,
+    ``serve.graphs.DecodeGraph``; its caller checks the depth).  Both
+    per-row forms write each row at its own positions.
+
+    ``extra_embeds``: patch embeddings (pixtral: they replace the first
+    min(P, S) token embeddings) or frame embeddings (whisper: the encoder
+    runs on them, and its cross keys and values go into the cache).
+    ``remat`` ("none" | "full" | "dots") checkpoints each stacked group of
+    a training forward (no cache, grad enabled).  The aux loss is the sum
+    of the MoE layers' load-balancing losses, a 0-d f32 tensor; 0.0 (a
+    float) for a model without an MoE layer, so that its steps gain no
+    kernels (``Model.loss`` makes it a tensor).
     """
-    plan = _check_supported(cfg)
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r} not in {REMATS}")
+    plan = stack_plan(cfg)
+    kinds = layer_kinds(cfg)
     B, S = tokens.shape
     kv_len = cache["len"] if cache is not None else None
 
     x = params["embed"][tokens.long()]
     x = x * _embed_scale(cfg.d_model, x.dtype, x.device)
+    if cfg.frontend == "image_patches" and extra_embeds is not None:
+        n = min(extra_embeds.shape[1], S)
+        x = torch.cat([extra_embeds[:, :n].to(x.dtype), x[:, n:]], dim=1)
     steps = torch.arange(S, device=x.device)
     if isinstance(kv_len, np.ndarray):
         smax = depth(cache)
@@ -283,9 +373,43 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         lens = kv_len
         start = kv_len if kv_len is not None else 0
         positions = (start + steps)[None, :].expand(B, S)
+    if not cfg.rope_theta:
+        tab = params["pos_embed"]
+        x = x + tab[torch.clamp(positions, max=tab.shape[0] - 1)].to(x.dtype)
 
-    for kind, p, c, window in _layers(cfg, plan, params, cache):
-        x = _apply_layer(kind, p, x, cfg, positions, window, c, lens, backend)
+    enc_kv = None
+    if cfg.encoder is not None and extra_embeds is not None:
+        enc_out = encode(params, cfg, extra_embeds)
+        enc_kv = lambda pc: L.cross_kv(pc, cfg, enc_out)   # noqa: E731
+
+    def run(layers, x):
+        aux = 0.0
+        for kind, p, c, window in layers:
+            x, a = _apply_layer(kind, p, x, cfg, positions, window, c, lens,
+                                backend, enc_kv)
+            aux = aux + a
+        return x, aux
+
+    windows = cfg.layer_windows()
+
+    def unrolled(name, idxs):
+        return [(kinds[i], params[name][str(i)],
+                 cache[name][str(i)] if cache is not None else None,
+                 windows[i]) for i in idxs]
+
+    x, aux = run(unrolled("prefix", plan.prefix), x)
+    checkpointed = (remat != "none" and cache is None
+                    and torch.is_grad_enabled())
+    for layers in _groups(cfg, plan, params, cache):
+        if checkpointed:
+            kw = {"context_fn": _dots_context} if remat == "dots" else {}
+            x, a = ckpt.checkpoint(functools.partial(run, layers), x,
+                                   use_reentrant=False, **kw)
+        else:
+            x, a = run(layers, x)
+        aux = aux + a
+    x, a = run(unrolled("suffix", plan.suffix), x)
+    aux = aux + a
 
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -294,7 +418,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         logits = x @ params["lm_head"]
     if cache is not None:
         cache["len"] = kv_len + S
-    return logits, cache
+        if cfg.encoder is not None:
+            cache["enc_done"] = 1
+    return logits, cache, aux
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,6 +438,9 @@ def _embed_scale(d_model: int, dtype: torch.dtype,
 
 # the cache leaves with a sequence axis (the positions a row can hold)
 _SEQ_LEAVES = ("k", "v", "ckv", "kr")
+# a cache's top-level counters (host ints), not tensors: the cached
+# positions, and for an encoder-decoder whether the encoder has run
+_SCALARS = ("len", "enc_done")
 
 
 def cache_items(cache: Params):
@@ -323,7 +452,7 @@ def cache_items(cache: Params):
         for k, v in tree.items():
             if isinstance(v, dict):
                 yield from walk(v, 1 if k == "scan" else axis)
-            elif k != "len":
+            elif k not in _SCALARS:
                 yield k, v, axis
     yield from walk(cache, 0)
 
@@ -354,6 +483,8 @@ def reset(cache: Params) -> Params:
         if name not in _SEQ_LEAVES:
             leaf.zero_()
     cache["len"] = 0
+    if "enc_done" in cache:
+        cache["enc_done"] = 0
     return cache
 
 
@@ -377,10 +508,11 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     the unrolled layers' under ``prefix`` / ``suffix`` keyed by layer
     index.  ``len``, the count of cached positions, is a Python int in
     "init" mode (the host always knows it, so reading it never waits for
-    the device) and a 0-d int32 meta tensor in "shape" mode."""
+    the device) and a 0-d int32 meta tensor in "shape" mode; so is an
+    encoder-decoder's ``enc_done``."""
     if mode not in ("shape", "init"):
         raise ValueError(mode)
-    plan = _check_supported(cfg)
+    plan = stack_plan(cfg)
     kinds = layer_kinds(cfg)
 
     def build(spec, lead=()):
@@ -404,6 +536,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
         out["scan"] = {f"pos{pos}": build(_layer_cache_spec(
             cfg, kind, batch, max_len, dtype), (plan.groups,))
             for pos, kind in enumerate(plan.pattern)}
-    out["len"] = (torch.empty((), dtype=torch.int32, device="meta")
-                  if mode == "shape" else 0)
+    for name in _SCALARS if cfg.encoder is not None else _SCALARS[:1]:
+        out[name] = (torch.empty((), dtype=torch.int32, device="meta")
+                     if mode == "shape" else 0)
     return out

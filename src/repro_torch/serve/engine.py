@@ -36,8 +36,9 @@ from repro_torch.serve.continuous import (ContinuousEngine, Request,  # noqa: F4
 
 
 def make_prefill_step(model: Model) -> Callable:
-    def prefill(params, cache, tokens):
-        logits, cache = model.apply(params, tokens, cache=cache)
+    def prefill(params, cache, tokens, extra_embeds=None):
+        logits, cache = model.apply(params, tokens, extra_embeds=extra_embeds,
+                                    cache=cache)
         return logits[:, -1], cache
     return prefill
 
@@ -102,8 +103,14 @@ class Engine:
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, steps: int,
+                 extra_embeds: Optional[torch.Tensor] = None,
                  eos_id: Optional[int] = None) -> np.ndarray:
         """prompts: (B, P) int32 -> (B, P+steps) generated continuation.
+
+        ``extra_embeds`` (a tensor on the model's device) goes to the
+        prefill: patch embeddings (pixtral) or the encoder's frame
+        embeddings (whisper, whose cross keys and values the prefill
+        writes into the cache for the decode steps to read).
 
         Rows that have emitted ``eos_id`` are frozen: every subsequent
         position is ``eos_id``, so outputs are stable however long the
@@ -122,7 +129,7 @@ class Engine:
             cache = self.model.cache_init(B, depth)
         prompt = torch.as_tensor(np.asarray(prompts, np.int64), device=device)
         t0 = time.perf_counter()
-        logits, cache = self.prefill(self.params, cache, prompt)
+        logits, cache = self.prefill(self.params, cache, prompt, extra_embeds)
         tok = self._sample(logits, gen)[:, None]
         self._sync()
         t1 = time.perf_counter()
@@ -170,12 +177,15 @@ def real_token_count(out: np.ndarray, prompt_len: int,
 
 
 def throughput_stats(engine: Engine, prompts: np.ndarray, steps: int,
-                     eos_id: Optional[int] = None) -> Dict[str, float]:
-    """Wall time and rates of one ``generate`` call.  Prefill tokens/s
-    counts prompt tokens; decode tokens/s counts one token per row for
-    each decode step."""
+                     eos_id: Optional[int] = None,
+                     extra_embeds: Optional[torch.Tensor] = None
+                     ) -> Dict[str, float]:
+    """Wall time and rates of one ``generate`` call (``extra_embeds`` as
+    there).  Prefill tokens/s counts prompt tokens; decode tokens/s counts
+    one token per row for each decode step."""
     t0 = time.perf_counter()
-    out = engine.generate(prompts, steps, eos_id=eos_id)
+    out = engine.generate(prompts, steps, extra_embeds=extra_embeds,
+                          eos_id=eos_id)
     dt = time.perf_counter() - t0
     new_tokens = real_token_count(out, prompts.shape[1], eos_id)
     t = engine.last_timing

@@ -391,6 +391,98 @@ def test_family_on_the_card(cuda, arch):
                                                  cache_leaves(captured)))
 
 
+# ---- the stub frontends (whisper-base, pixtral-12b) and training -------------
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
+                                       (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("shape", [(8, 1, 64), (8, 4, 128)],
+                         ids=["whisper", "pixtral"])
+def test_kernel_at_the_frontend_models_shapes(cuda, dtype, tol, shape):
+    """decode_attention at whisper-base's decode shapes (KV 8 = H 8 heads
+    of 64, rep 1) and pixtral-12b's (8 groups of 4 heads of 128) against
+    the plain version."""
+    KV, rep, hd = shape
+    q, k, v, valid = _inputs(cuda, dtype, 4, KV, rep, hd, 161,
+                             [0, 1, 129, 161])
+    got = da.decode_attention(q, k, v, valid)
+    want = da.decode_attention_ref(q, k, v, valid)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "pixtral_12b"])
+def test_frontend_model_on_the_card(cuda, arch):
+    """A reduced whisper-base / pixtral-12b on the card with its stub
+    embeddings: prefill + decode against one full forward (1e-4), the
+    kernel launched once a decoder layer a step, and a captured decode
+    step bit-equal to the eager one (whisper's reads the cross K/V the
+    prefill wrote)."""
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.serve.graphs import DecodeGraph
+    cfg = reduced(get_config(arch))
+    m = Model(cfg, RunConfig(max_seq=64), cuda)
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    ee = stub_embeds(cfg, 3, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    full, _ = m.apply(params, toks, extra_embeds=ee)
+    cache = m.cache_init(3, 16)
+    pre, _ = m.apply(params, toks[:, :8], extra_embeds=ee, cache=cache)
+    errs = [(pre - full[:, :8]).abs().max().item()]
+    base = _clone_tree(cache)
+    before = da.decode_attention.launches
+    for t in range(8, 12):
+        lg, _ = m.apply(params, toks[:, t:t + 1], cache=cache)
+        errs.append((lg[:, 0] - full[:, t]).abs().max().item())
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 4 * cfg.num_layers
+    assert max(errs) < 1e-4, errs
+    eager, captured = _clone_tree(base), _clone_tree(base)
+    graph = DecodeGraph(m, params, captured, 3, 16)
+    with torch.no_grad():
+        for t in (8, 9):
+            want, _ = m.apply(params, toks[:, t:t + 1], cache=eager)
+            got = graph(toks[:, t:t + 1].to(torch.int32), captured["len"])
+            captured["len"] += 1
+            assert torch.equal(got, want[:, -1]), t
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Two AdamW steps of a reduced minicpm-2b (remat full) on the card
+    against the same steps on the CPU, from the same params and batches:
+    losses within 1e-4 relative, params within 1e-4."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.optim import schedule as sched
+    from repro_torch.optim.optimizer import adamw, tree_leaves
+    from repro_torch.train.step import TrainState, new_rng, make_train_step
+    cfg = reduced(get_config("minicpm_2b"))
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                               global_batch=4, seed=0))
+    opt = adamw(sched.make("wsd", peak=3e-3, warmup_steps=1, total_steps=2),
+                weight_decay=0.01)
+    drawn = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = Model(cfg, RunConfig(max_seq=32, remat="full"), dev)
+        params = _to_device(drawn, dev)
+        state = TrainState(params, opt.init(params), new_rng(0, 1))
+        step = make_train_step(m, opt)
+        losses = []
+        for i in range(2):
+            state, met = step(state, pipe.torch_batch(i, dev))
+            losses.append(met["loss"].item())
+        runs[dev.type] = (losses, [x.cpu() for x in tree_leaves(
+            state.params)])
+    (lc, pc), (lh, ph) = runs["cuda"], runs["cpu"]
+    assert max(abs(a - b) / abs(b) for a, b in zip(lc, lh)) <= 1e-4
+    assert max((a - b).abs().max().item() for a, b in zip(pc, ph)) <= 1e-4
+
+
+def _to_device(tree, dev):
+    return {k: _to_device(v, dev) if isinstance(v, dict) else
+            v.detach().clone().to(dev) for k, v in tree.items()}
+
+
 # ---- the general emitter's and the GEMM template's repaired refusals --------
 
 

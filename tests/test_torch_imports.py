@@ -30,7 +30,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.ssd_scan",
             "repro_torch.examples.quickstart",
             "repro_torch.models.recurrent", "repro_torch.models.moe",
-            "repro_torch.models.mla"} <= set(mods)
+            "repro_torch.models.mla", "repro_torch.data.pipeline",
+            "repro_torch.optim.schedule", "repro_torch.optim.optimizer",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.train.step", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -105,3 +109,29 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_training_stack_runs_with_jax_blocked(tmp_path):
+    """With ``jax`` and ``repro`` unimportable, the training stack imports
+    and the launcher trains a reduced model with checkpoints; whisper and
+    pixtral serve a step."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'): sys.modules[name] = None\n"
+        "import torch\n"
+        "import repro_torch.train.trainer, repro_torch.launch.train\n"
+        "import repro_torch.checkpoint.checkpointer\n"
+        "from repro_torch.launch import serve, train\n"
+        f"res = train.main(['--arch', 'minicpm-2b', '--reduced', '--device', "
+        f"'cpu', '--steps', '3', '--checkpoint-dir', {str(tmp_path)!r}])\n"
+        "assert len(res['trainer'].metrics_history) == 3\n"
+        "for arch in ('whisper-base', 'pixtral-12b'):\n"
+        "    serve.main(['--arch', arch, '--reduced', '--device', 'cpu', "
+        "'--gen', '2'])\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert os.listdir(tmp_path) == ["step_00000003"]

@@ -248,15 +248,14 @@ def test_own_init_is_seeded():
 
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
 def test_unported_kinds_raise(arch):
-    """pixtral-12b (a frontend) and whisper-base (the encoder-decoder)
-    still raise, naming what is missing; the recurrent and MoE families
-    now build, with the reference's param count."""
-    if arch in FAMILIES:
-        port = Model(get_config(arch), device="cpu").param_count()
-        assert port == _jax_count(JaxModel(jax_get_config(arch)))
-        return
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Model(get_config(arch), device="cpu").param_shapes()
+    """Every registry config builds in the port now: the recurrent and
+    MoE families, pixtral-12b (a frontend) and whisper-base (the
+    encoder-decoder, with learned position tables), each with the
+    reference's param count."""
+    port = Model(get_config(arch), device="cpu").param_count()
+    assert port == _jax_count(JaxModel(jax_get_config(arch)))
+    if arch in FRONTENDS:
+        assert port == FRONTENDS[arch]
 
 
 # the recurrent and MoE families, reduced so that each stack part exists:
@@ -349,4 +348,148 @@ def test_launcher_serves_each_family_on_cpu(capsys, arch, continuous):
         res = serve.main(argv + ["--batch", "2", "--prompt-len", "5"])
         assert res["tokens"] == 8 and res["decode_steps"] == 4
     assert res["engine"].model.device.type == "cpu"
+    assert "tok/s" in capsys.readouterr().out
+
+
+# the configs with a stub frontend, and their full-width param counts
+# (whisper-base's at max_seq 4096: a 4096-row decoder position table)
+FRONTENDS = {"whisper_base": 100_399_104, "pixtral_12b": 12_247_782_400}
+
+
+def _frontend_pair(arch, seed=1):
+    jm = JaxModel(jax_reduced(jax_get_config(arch)),
+                  JaxRunConfig(max_seq=64, backend="pallas"))
+    jp = jm.init(jax.random.PRNGKey(seed))
+    m = Model(reduced(get_config(arch)), RunConfig(max_seq=64), device="cpu")
+    return jm, jp, m, to_torch(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _embeds(cfg, B, seed=3):
+    """Stub frontend input: frames (B, context, d) for whisper, patches
+    (B, frontend_len, d) for pixtral."""
+    shape = ((B, cfg.encoder.context, cfg.encoder.d_model)
+             if cfg.encoder is not None else (B, cfg.frontend_len,
+                                              cfg.d_model))
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_frontend_prefill_decode_and_full_forward_match_jax(arch):
+    """Prefill with the stub embeddings (whisper's encoder runs and its
+    cross K/V go into the cache; pixtral's patches replace the first
+    token embeddings), four decode steps reading the cache, and one full
+    forward, each against the reference's logits (f32, LOGIT_TOL)."""
+    jm, jp, m, p = _frontend_pair(arch)
+    B, P, D, MAX = 2, 10, 4, 32
+    toks = _tokens(2, B, P + D, m.cfg.vocab_size)
+    ee = _embeds(m.cfg, B)
+    jcache, cache = jm.cache_init(B, MAX), m.cache_init(B, MAX)
+    want, jcache, _ = jm.apply(jp, jnp.asarray(toks[:, :P]),
+                               extra_embeds=jnp.asarray(ee), cache=jcache)
+    got, same = m.apply(p, torch.from_numpy(toks[:, :P]),
+                        extra_embeds=torch.from_numpy(ee), cache=cache)
+    assert same is cache
+    errs = [np.abs(got.numpy() - np.asarray(want)).max()]
+    for t in range(P, P + D):
+        want, jcache, _ = jm.apply(jp, jnp.asarray(toks[:, t:t + 1]),
+                                   cache=jcache)
+        got, cache = m.apply(p, torch.from_numpy(toks[:, t:t + 1]),
+                             cache=cache)
+        errs.append(np.abs(got.numpy() - np.asarray(want)).max())
+    want, _, _ = jm.apply(jp, jnp.asarray(toks), extra_embeds=jnp.asarray(ee))
+    full, _ = m.apply(p, torch.from_numpy(toks),
+                      extra_embeds=torch.from_numpy(ee))
+    errs.append(np.abs(full.numpy() - np.asarray(want)).max())
+    assert cache["len"] == P + D == int(jcache["len"])
+    if m.cfg.encoder is not None:
+        assert cache["enc_done"] == 1 == int(jcache["enc_done"])
+        np.testing.assert_allclose(
+            cache["scan"]["pos0"]["xk"].numpy(),
+            np.asarray(jcache["scan"]["pos0"]["xk"]), rtol=1e-5, atol=1e-5)
+    assert max(errs) < LOGIT_TOL, errs
+
+
+def test_whisper_bf16_matches_jax():
+    """bf16 params and cache: the encoder runs in f32 on the f32 frames,
+    as the reference's promoting products do.  Logits (prefill, decode,
+    full forward) within two bf16 steps of their largest magnitude; the
+    cross K/V within one, the port storing them in the cache's bf16 where
+    the reference's cache keeps its f32 ones."""
+    arch, dt = "whisper_base", "bfloat16"
+    jm = JaxModel(jax_reduced(jax_get_config(arch)), JaxRunConfig(
+        max_seq=64, backend="pallas", param_dtype=dt, cache_dtype=dt))
+    jp = jm.init(jax.random.PRNGKey(1))
+    m = Model(reduced(get_config(arch)), RunConfig(
+        max_seq=64, param_dtype=dt, cache_dtype=dt), device="cpu")
+    p = to_torch(jax.tree.map(np.asarray, jp), "cpu")
+    B, P, D, MAX = 2, 10, 4, 32
+    toks = _tokens(2, B, P + D, m.cfg.vocab_size)
+    ee = _embeds(m.cfg, B)
+    f32 = lambda a: np.asarray(a, np.float32)          # noqa: E731
+    jcache, cache = jm.cache_init(B, MAX), m.cache_init(B, MAX)
+    want, jcache, _ = jm.apply(jp, jnp.asarray(toks[:, :P]),
+                               extra_embeds=jnp.asarray(ee), cache=jcache)
+    got, cache = m.apply(p, torch.from_numpy(toks[:, :P]),
+                         extra_embeds=torch.from_numpy(ee), cache=cache)
+    jxk, xk = f32(jcache["scan"]["pos0"]["xk"]), cache["scan"]["pos0"]["xk"]
+    assert np.abs(xk.float().numpy() - jxk).max() <= 2 ** -8 * np.abs(
+        jxk).max()
+    pairs = [(got, want)]
+    for t in range(P, P + D):
+        want, jcache, _ = jm.apply(jp, jnp.asarray(toks[:, t:t + 1]),
+                                   cache=jcache)
+        got, cache = m.apply(p, torch.from_numpy(toks[:, t:t + 1]),
+                             cache=cache)
+        pairs.append((got, want))
+    want, _, _ = jm.apply(jp, jnp.asarray(toks), extra_embeds=jnp.asarray(ee))
+    full, _ = m.apply(p, torch.from_numpy(toks),
+                      extra_embeds=torch.from_numpy(ee))
+    pairs.append((full, want))
+    for got, want in pairs:
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - f32(want)).max()
+        assert err <= 2 ** -7 * np.abs(f32(want)).max(), err
+
+
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_frontend_greedy_streams_match_jax(arch):
+    """Engine.generate with extra_embeds through prefill: the reference's
+    greedy streams, on captured-step and eager engines."""
+    jm, jp, m, p = _frontend_pair(arch, seed=4)
+    prompts = _tokens(104, 2, 9, m.cfg.vocab_size)
+    ee = _embeds(m.cfg, 2, seed=5)
+    want = JaxEngine(jm, jp, JaxEngineConfig(max_len=24)).generate(
+        prompts, 8, extra_embeds=jnp.asarray(ee))
+    for graphs in (True, False):
+        eng = Engine(m, p, EngineConfig(max_len=24, cuda_graphs=graphs))
+        got = eng.generate(prompts, 8, extra_embeds=torch.from_numpy(ee))
+        np.testing.assert_array_equal(got, want)
+        # the static cache is reset between calls (enc_done, cross K/V)
+        again = eng.generate(prompts, 8, extra_embeds=torch.from_numpy(ee))
+        np.testing.assert_array_equal(again, want)
+
+
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_frontend_trees_match_jax_layout(arch):
+    """Param and cache trees at full width in shape mode: the reference's
+    keys and shapes, whisper's encoder, position tables, ``xk`` / ``xv``
+    and ``enc_done``."""
+    jm = JaxModel(jax_get_config(arch))
+    m = Model(get_config(arch))
+    assert _tree(m.param_shapes()) == jax.tree.map(
+        lambda s: (tuple(s.shape), s.dtype.name), jm.param_shapes())
+    want = jax.tree.map(lambda s: (tuple(s.shape), s.dtype.name),
+                        jm.cache_shapes(4, 161))
+    assert _tree(m.cache_shapes(4, 161)) == want
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
+def test_launcher_serves_each_frontend_on_cpu(capsys, arch):
+    res = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "5", "--gen", "4"])
+    assert res["tokens"] == 8 and res["decode_steps"] == 4
+    assert res["engine"].model.device.type == "cpu"
+    ee = serve.stub_embeds(res["engine"].model.cfg, 2, "cpu")
+    assert ee is not None and bool((ee == 0.1).all())
     assert "tok/s" in capsys.readouterr().out

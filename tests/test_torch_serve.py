@@ -61,12 +61,12 @@ def _flat(tree):
 
 
 def test_run_config_fields_and_defaults_match():
-    """The reference's fields less ``remat`` (training's); every default
-    the same but ``backend``, whose names are the port's."""
+    """The reference's fields, ``remat`` included; every default the same
+    but ``backend``, whose names are the port's."""
     ref = {f.name: f.default for f in
            dataclasses.fields(jax_model.RunConfig)}
     port = {f.name: f.default for f in dataclasses.fields(RunConfig)}
-    assert set(port) == set(ref) - {"remat"}
+    assert set(port) == set(ref)
     for name in set(port) - {"backend"}:
         assert port[name] == ref[name], name
     assert port["backend"] == "cuda"
