@@ -119,7 +119,7 @@ Phases, each printing its own lines; any failure exits nonzero:
  11b. python -m repro_torch.core.reproc in three subprocesses (the whole
      stack to Verilog, a host-coupled transaction, a small design-space
      exploration), each of which must exit 0 without importing jax;
- 12. a JSON line with the rows of phases 6c-11 (phase 7 adds
+ 12. a JSON line with the rows of phases 6c-11 and 14b (phase 7 adds
      decode_attention's rows on the paths of 6a-6b, phase 6d its row on
      kimi-k2's path, phase 6e its rows on whisper-base's and
      pixtral-12b's paths);
@@ -133,7 +133,22 @@ Phases, each printing its own lines; any failure exits nonzero:
      steps (bit-equal losses), and the first three losses of a batch of
      2 x 64 against the same steps on the CPU.  The training forward
      reaches no kernel (the reference's is jnp code): it runs plain
-     PyTorch attention.
+     PyTorch attention;
+ 14. the distribution layer [dist], on a 1-rank NCCL (1, 1) mesh:
+     (a) minicpm-2b whole through repro_torch.launch.train --mesh host
+     with phase 13's settings on DTensor params, moments and batches: the
+     losses against phase 13's (relative 1e-6), ms a step, tokens/s, the
+     model-FLOP share, peak memory, a profiled step's idle share; (b)
+     sharded_gemm_op at qwen2-7b's up product, f32 and bf16: 3 launches of
+     the emitted GEMM a forward and backward, bit-equal to gemm_op's, then
+     timed; (c) deepseek-v2-236b cut to two layers, a prefill with
+     set_moe_impl("shardmap") against "gspmd", f32 and bf16, held to phase
+     6d's gates; (d) the int8 error-feedback and compressed all-reduce over
+     a minicpm-2b-shaped gradient tree, bit-equal to the same functions on
+     the CPU; (e) FailoverRunner at two layers with injected failures,
+     bit-equal to an uninterrupted run; then (f) launch.dryrun on a fake
+     process group (host only): qwen2-7b train_4k on 16 x 16, kimi-k2-1t's
+     state bytes a device on both production meshes.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 
@@ -297,6 +312,13 @@ PIXTRAL_LONG = 1152
 # TRAIN_SMALL (batch, seq) run on the card against the CPU
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "minicpm-2b", 8, 8, 256
 TRAIN_CUT, TRAIN_SMALL = 2, (2, 64)
+# the distribution layer (phase 14) on the 1-rank (1, 1) NCCL mesh:
+# sharded_gemm_op at qwen2-7b's up product; the MoE at the capacity factor
+# of tests/test_perf_paths.py's shardmap test, at which neither path drops
+# a token; failures injected at the first attempt of these steps
+DIST_GEMM = (BATCH * PROMPT, 18944, 3584)
+DIST_MOE_CF = 8.0
+DIST_FAIL, DIST_FAIL_EVERY, DIST_FAIL_STEPS = (3, 5), 2, 6
 # kernel names of the products in a profile (cuBLAS, cuBLASLt, CUTLASS)
 PRODUCT_KERNELS = ("gemm", "gemv", "cutlass", "nvjet", "splitK")
 # the repaired emitters (phase 6c): a product whose 256 x 256 f32
@@ -1889,6 +1911,7 @@ class RouterLog:
     (the same product on the same shapes), as (B, S, E) float32."""
 
     def __enter__(self):
+        from repro_torch.distributed.sharding import full
         from repro_torch.models import layers, moe
         self.calls, self._moe = [], moe
         self._orig = orig = moe.apply_moe
@@ -1896,7 +1919,9 @@ class RouterLog:
         def apply(p, x, cfg):
             B, S, d = x.shape
             h = layers.rmsnorm(x, p["norm"], cfg.norm_eps).reshape(B * S, d)
-            self.calls.append((h @ p["router"]).float().reshape(B, S, -1))
+            # a DTensor's logits (phase 14c) are gathered whole
+            self.calls.append(full((h @ p["router"]).float()).reshape(
+                B, S, -1))
             return orig(p, x, cfg)
         moe.apply_moe = apply
         return self
@@ -2528,6 +2553,7 @@ def train_phase(dev, smi):
               f"{sum(r[1] for r in krows)} kernels")
         for ms, k, name in krows[:10]:
             print(f"[train]   {ms:9.2f} ms  {k:5d} launches  {name[:90]}")
+        out["idle"] = 1 - busy / window
     del res, hist, state, fn
     torch.cuda.empty_cache()
 
@@ -2601,6 +2627,470 @@ def train_phase(dev, smi):
     check(rel <= 1e-4, f"train: card against CPU {rel}")
     torch.cuda.empty_cache()
     return out
+
+
+# ---- phase 14: the distribution layer on a (1, 1) NCCL mesh -------------
+
+
+def dist_gemm_products():
+    """14b's emitted GEMMs (forward and both backward products of
+    sharded_gemm_op at DIST_GEMM, f32 and bf16), compiled ahead so that
+    phase 2 builds their sources with the rest."""
+    from repro_torch.core import integrate
+    m, n, k = DIST_GEMM
+    return [integrate._compiled(a, b, c, "tpu_mxu", "cuda", dt)
+            for dt in ("float32", "bfloat16")
+            for a, b, c in ((m, n, k), (m, k, n), (k, n, m))]
+
+
+def dist_train(dev, smi, p13):
+    """14a: minicpm-2b whole through ``launch.train.main(--mesh host)``
+    with phase 13's settings, on the 1-rank NCCL (1, 1) mesh with DTensor
+    params, moments and batches: the losses against phase 13's, ms a step,
+    tokens/s, the model-FLOP share, peak memory and a profiled step's idle
+    share beside phase 13's.  Returns the mesh."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed.sharding import axis_rules, sharding_for
+    from repro_torch.launch import train
+    from repro_torch.optim import schedule as sched
+    from repro_torch.optim.optimizer import adamw, tree_leaves
+    from repro_torch.train.step import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--seq-len", str(TRAIN_SEQ), "--global-batch",
+                      str(TRAIN_BATCH), "--remat", "full", "--mesh", "host"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mesh, model = res["mesh"], res["model"]
+    leaf = tree_leaves(res["state"].params)[0]
+    hist = res["trainer"].metrics_history
+    losses = [h["loss"] for h in hist]
+    ms = [h["step_time_s"] * 1e3 for h in hist]
+    warm = sum(ms[1:]) / len(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, p13["losses"]))
+    same = losses == p13["losses"]
+    print(f"[dist] 14a {TRAIN_ARCH} whole through launch.train --mesh host:"
+          f" mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"({torch.distributed.get_backend()}, "
+          f"{torch.distributed.get_world_size()} rank), params as DTensors "
+          f"{type(leaf).__name__} {tuple(leaf.placements)}; phase 13's "
+          f"settings: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, f32, WSD peak 3e-3, remat full, seed 0; {wall:.1f} s "
+          f"in all")
+    print(f"[dist] 14a losses: {', '.join(f'{x:.6f}' for x in losses)}; "
+          f"against phase 13's: {'bit-equal' if same else 'NOT bit-equal'},"
+          f" worst relative {rel:.2e} (limit 1e-6)")
+    check(len(losses) == TRAIN_STEPS and rel <= 1e-6,
+          f"14a: losses {losses} against phase 13's {p13['losses']}")
+    flops = p13["tflops"] * 1e12
+    print(f"[dist] 14a step ms: {', '.join(f'{x:.1f}' for x in ms)} (the "
+          f"first propagates every op's shardings once); steps 2-"
+          f"{TRAIN_STEPS}: {warm:.1f} ms ({p13['ms']:.1f} in phase 13), "
+          f"{tokens / warm * 1e3:.1f} tokens/s ("
+          f"{tokens / p13['ms'] * 1e3:.1f}), {flops / (warm / 1e3) / 1e12:.1f}"
+          f" TFLOP/s = {flops / (warm / 1e3) / F32_FLOP_PER_S:.1%} of the 67 "
+          f"TFLOP/s f32 peak ({flops / (p13['ms'] / 1e3) / F32_FLOP_PER_S:.1%}"
+          f"); peak memory {peak:.1f} GiB ({p13['peak_gib']:.1f}); card {smi}")
+    check(peak <= p13["peak_gib"] + 2.0, f"14a: peak {peak:.1f} GiB against "
+          f"phase 13's {p13['peak_gib']:.1f} + 2")
+
+    fn = make_train_step(model, adamw(sched.make(
+        "wsd", peak=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS),
+        weight_decay=0.01))
+    pipe = Pipeline(DataConfig(vocab_size=model.cfg.vocab_size,
+                               seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                               seed=0))
+    state = {"s": res["state"]}
+    with axis_rules(mesh):
+        batch = pipe.torch_batch(TRAIN_STEPS, dev, sharding_for(
+            "batch -", (TRAIN_BATCH, TRAIN_SEQ), mesh))
+
+        def step():
+            state["s"], metrics = fn(state["s"], batch)
+            metrics["loss"].item()
+        busy, window, krows, calls = profile_steps(step, 1)
+    if busy is None:
+        print("[dist] 14a profiled step: device time not measured (the "
+              "profiler recorded no device time)")
+    else:
+        idle = 1 - busy / window
+        print(f"[dist] 14a profiled step: device busy {busy:.1f} ms of "
+              f"{window:.1f} ms wall, idle share {idle:.1%} (phase 13: "
+              f"{p13.get('idle', float('nan')):.1%}); "
+              f"{sum(r[1] for r in krows)} kernels, {calls:.0f} host launch "
+              f"calls; card {smi}")
+    del res, state, fn, batch
+    torch.cuda.empty_cache()
+    return mesh
+
+
+def dist_gemm(mesh, dev, flush, smi):
+    """14b: sharded_gemm_op at qwen2-7b's up product on the (1, 1) mesh,
+    backend "cuda", f32 and bf16: one forward and backward with the
+    counts reset (3 launches of the emitted GEMM), the output and both
+    gradients bit-equal to gemm_op's; then ms a call against gemm_op's,
+    the plain version, torch.matmul and row 1's bound.  Returns the JSON
+    rows."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.core import backend_cuda, integrate
+    from repro_torch.kernels import gemm
+    m, n, k = DIST_GEMM
+    cg = gemm.cuda_gemm
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a, b, w = (torch.randn(s, generator=gen, device=dev)
+                   for s in ((m, k), (k, n), (m, n)))
+        a, b = a.to(dtype), b.to(dtype)
+        op = integrate.sharded_gemm_op(mesh, m, n, k, backend="cuda")
+        ref = integrate.gemm_op(m, n, k, backend="cuda")
+        da = distribute_tensor(a, mesh, [Shard(0), Replicate()],
+                               src_data_rank=None)
+        db = distribute_tensor(b, mesh, [Replicate(), Replicate()],
+                               src_data_rank=None)
+        dw = distribute_tensor(w, mesh, [Shard(0), Replicate()],
+                               src_data_rank=None)
+        ga, gb = da.detach().requires_grad_(), db.detach().requires_grad_()
+        cg.launches = cg.wgmma_launches = cg.ffma_launches = 0
+        out = op(ga, gb)
+        (out * dw).sum().backward()
+        torch.cuda.synchronize()
+        launches = cg.launches
+        path = route_of(cg, (0, 0))
+        ra, rb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        want = ref(ra, rb)
+        (want * w).sum().backward()
+        same = (torch.equal(out.full_tensor(), want)
+                and torch.equal(ga.grad.full_tensor(), ra.grad)
+                and torch.equal(gb.grad.full_tensor(), rb.grad))
+        plan = integrate._compiled(m, n, k, "tpu_mxu", "cuda", dt).plan
+        plain = backend_cuda.gemm_plain(plan, a, b)
+        err = (out.full_tensor().float() - plain.float()).abs().max().item()
+        print(f"[dist] 14b sharded_gemm_op {m}x{n}x{k} {dt} on the (1, 1) "
+              f"mesh: out {tuple(out.placements)}; forward + backward "
+              f"launched the emitted GEMM {launches} times ({path} route); "
+              f"output and both gradients "
+              f"{'bit-equal' if same else 'NOT bit-equal'} to gemm_op's; "
+              f"max_abs_err {err:.3e} vs gemm_plain")
+        check(launches == 3, f"14b {dt}: {launches} launches, expected 3")
+        check(same, f"14b {dt}: sharded_gemm_op differs from gemm_op")
+        with torch.no_grad():
+            bound, bound_by = gemm_bound(plan, m, n, k)
+            r = {"name": f"sharded_gemm_op up {dt} (1, 1) mesh [{path}]",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/" +
+                 GEMM_SOURCE[path],
+                 "replaces": "src/repro/core/backend_pallas.py:229",
+                 "launches": launches, "max_abs_err": err,
+                 "ms": time_ms(lambda: op(da, db), flush, iters=20),
+                 "plain_ms": time_ms(
+                     lambda: backend_cuda.gemm_plain(plan, a, b), flush,
+                     iters=20),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": time_ms(lambda: torch.matmul(a, b), flush,
+                                       iters=20)}
+            ref_ms = time_ms(lambda: ref(a, b), flush, iters=20)
+        print(f"[timing] {r['name']}, cold L2: {r['ms']:.3f} ms a call "
+              f"(gemm_op {ref_ms:.3f} ms; the DTensor / local_map wrapper "
+              f"{r['ms'] - ref_ms:+.3f}), bound {bound:.3f} ms ({bound_by}),"
+              f" gemm_plain {r['plain_ms']:.3f} ms, torch.matmul "
+              f"{r['library_ms']:.3f} ms; card {smi}")
+        rows.append(r)
+        del a, b, w, da, db, dw, ga, gb, ra, rb, out, want, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def place_cache(cache, axes, mesh):
+    """A cache tree's tensors as DTensors placed by its logical axes (the
+    host counters stay ints)."""
+    from repro_torch.distributed.sharding import distribute, sharding_for
+    return {k: (place_cache(v, axes[k], mesh) if isinstance(v, dict) else
+                v if not torch.is_tensor(v) else
+                distribute(v, sharding_for(axes[k], v.shape, mesh)))
+            for k, v in cache.items()}
+
+
+def dist_moe(mesh, dev, smi):
+    """14c: deepseek-v2-236b at full width cut to 2 layers (the dense
+    prefix and one MoE layer with all 160 experts), params as DTensors on
+    the (1, 1) mesh, a prefill of BATCH x PROMPT tokens into a DTensor
+    cache with set_moe_impl("shardmap") against "gspmd", f32 and bf16, at
+    capacity factor DIST_MOE_CF (neither path drops a token): the logits
+    held to phase 6d's gates, re-routed near-tie positions held apart
+    (``routed_compare``)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  full, sharding_for)
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, RunConfig
+    cfg = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, num_layers=2, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DIST_MOE_CF))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int64)).to(dev)
+    for dtype in ("float32", "bfloat16"):
+        f32 = dtype == "float32"
+        model = Model(cfg, RunConfig(param_dtype=dtype, cache_dtype=dtype),
+                      dev)
+        logits, routes, ms = {}, {}, {}
+        with axis_rules(mesh), torch.no_grad():
+            params = model.init(torch.Generator(device=dev).manual_seed(0),
+                                mesh=mesh)
+            dtoks = distribute(toks, sharding_for("batch -", toks.shape,
+                                                  mesh))
+            for impl in ("shardmap", "gspmd"):
+                moe.set_moe_impl(impl)
+                try:
+                    check(moe._can_shardmap(cfg, BATCH * PROMPT)
+                          == (impl == "shardmap"),
+                          f"14c: {impl} not taken")
+                    cache = place_cache(model.cache_init(BATCH, PROMPT),
+                                        model.cache_axes(BATCH, PROMPT),
+                                        mesh)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with RouterLog() as log:
+                        lg, cache = model.apply(params, dtoks, cache=cache)
+                    logits[impl] = full(lg)
+                    torch.cuda.synchronize()
+                    ms[impl] = (time.perf_counter() - t0) * 1e3
+                    routes[impl] = log.per_layer(1)
+                    check(cache["len"] == PROMPT, f"14c: cache len "
+                          f"{cache['len']}")
+                finally:
+                    moe.set_moe_impl("auto")
+                del cache, lg
+        del params
+        got = logits["shardmap"]
+        check(tuple(got.shape) == (BATCH, PROMPT, cfg.padded_vocab) and
+              bool(torch.isfinite(got).all()), "14c: logits")
+        limit_of = ((lambda scale: TOL_TEACHER) if f32 else
+                    (lambda scale: TOL_BF16_LOGITS * scale))
+        print(f"[dist] 14c deepseek-v2-236b 2 layers {dtype}, capacity "
+              f"factor {DIST_MOE_CF:g} (no token dropped on either path), "
+              f"prefill {BATCH} x {PROMPT} on the (1, 1) mesh: shardmap "
+              f"{ms['shardmap']:.1f} ms, gspmd {ms['gspmd']:.1f} ms (one "
+              f"call each, first of its kind); card {smi}")
+        routed_compare(f"14c deepseek-v2 2L {dtype} shardmap vs gspmd "
+                       f"(logits max |x| "
+                       f"{logits['gspmd'].abs().max().item():.2f})",
+                       got, logits["gspmd"], routes["shardmap"],
+                       routes["gspmd"], cfg.moe.top_k, limit_of)
+        del logits, routes
+        torch.cuda.empty_cache()
+
+
+def dist_compress(mesh, dev, smi):
+    """14d: error_feedback_update and make_compressed_allreduce(mesh,
+    "data") over one gradient-shaped tree of minicpm-2b (every param's
+    shape, N(0, 1e-3) values and a N(0, 1e-5) residual from seed 0) on the
+    card (1-rank NCCL): ms a tree each; then leaf by leaf the same
+    functions on CPU copies, the reduction over a 1-rank gloo group:
+    bit-equal."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizer import tree_leaves
+    shapes = Model(get_config(TRAIN_ARCH), device="meta").param_shapes()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(tree, scale):
+        return {k: draw(v, scale) if isinstance(v, dict) else
+                torch.randn(v.shape, generator=gen, device=dev).mul_(scale)
+                for k, v in tree.items()}
+    grads, res = draw(shapes, 1e-3), draw(shapes, 1e-5)
+    n = sum(t.numel() for t in tree_leaves(grads))
+    reduce_tree = C.make_compressed_allreduce(mesh, "data")
+    times = {}
+    for name, fn in (("error_feedback_update",
+                      lambda: C.error_feedback_update(grads, res)),
+                     ("compressed all-reduce", lambda: reduce_tree(grads))):
+        fn()                                    # warm: allocator, NCCL
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end)
+        del out
+    gq, r2 = C.error_feedback_update(grads, res)
+    red = reduce_tree(gq)
+    cpu_mesh = DeviceMesh.from_group(
+        torch.distributed.new_group([0], backend="gloo"), "cpu",
+        mesh_dim_names=("data",))
+    cpu_reduce = C.make_compressed_allreduce(cpu_mesh, "data")
+    bad = []
+    for path, g, r, q, rr, rd in zip(
+            _paths(grads), tree_leaves(grads), tree_leaves(res),
+            tree_leaves(gq), tree_leaves(r2), tree_leaves(red)):
+        cq, c2 = C.error_feedback_update(g.cpu(), r.cpu())
+        cr = cpu_reduce(cq)
+        if not (torch.equal(q.cpu(), cq) and torch.equal(rr.cpu(), c2)
+                and torch.equal(rd.cpu(), cr)):
+            bad.append(path)
+        del cq, c2, cr
+    gb = n * 4 / 1e9
+    print(f"[dist] 14d minicpm-2b gradient-shaped tree ({n:,} f32 values, "
+          f"{gb:.1f} GB, {len(tree_leaves(grads))} leaves) on the card: "
+          f"error_feedback_update {times['error_feedback_update']:.1f} ms, "
+          f"make_compressed_allreduce(mesh, 'data') "
+          f"{times['compressed all-reduce']:.1f} ms a tree (1-rank NCCL: "
+          f"the int8 payload summed in int32, the count, the MAX scale); "
+          f"against the same functions on CPU copies (gloo): "
+          f"{'bit-equal' if not bad else 'differs at ' + str(bad)}; "
+          f"card {smi}")
+    check(not bad, f"14d: card differs from CPU at {bad}")
+    del grads, res, gq, r2, red
+    torch.cuda.empty_cache()
+
+
+def _paths(tree, prefix=""):
+    """Key paths of a nested dict's leaves, sorted key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _paths(tree[k], prefix + k + "/")
+        else:
+            yield prefix + k
+
+
+def dist_failover(mesh, dev, smi):
+    """14e: FailoverRunner on minicpm-2b at full width cut to TRAIN_CUT
+    layers, state as DTensors on the (1, 1) mesh: a RuntimeError injected
+    at the first attempt of each step in DIST_FAIL, a checkpoint every
+    DIST_FAIL_EVERY steps, DIST_FAIL_STEPS steps: the final params
+    bit-equal to an uninterrupted run's, failures and replayed steps as
+    the reference's state machine gives them (a failed step restores the
+    last checkpoint and replays the steps since)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed.fault_tolerance import (FailoverConfig,
+                                                         FailoverRunner)
+    from repro_torch.distributed.sharding import axis_rules, full, \
+        sharding_for
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.optim import schedule as sched
+    from repro_torch.optim.optimizer import adamw, tree_leaves
+    from repro_torch.train.step import init_state_sharded, make_train_step
+    cut = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_CUT)
+    model = Model(cut, RunConfig(max_seq=TRAIN_SEQ), dev)
+    opt = adamw(sched.make("wsd", peak=3e-3, warmup_steps=1,
+                           total_steps=DIST_FAIL_STEPS), weight_decay=0.01)
+    step = make_train_step(model, opt)
+    pipe = Pipeline(DataConfig(vocab_size=cut.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=0))
+    t0 = time.perf_counter()
+    with axis_rules(mesh):
+        sh = sharding_for("batch -", (TRAIN_BATCH, TRAIN_SEQ), mesh)
+
+        def fresh():
+            return init_state_sharded(
+                model, opt, torch.Generator(device=dev).manual_seed(0), mesh)
+        ref = fresh()
+        for i in range(DIST_FAIL_STEPS):
+            ref, _ = step(ref, pipe.torch_batch(i, dev, sh))
+        want = [full(x).cpu() for x in tree_leaves(ref.params)]
+        del ref
+        torch.cuda.empty_cache()
+
+        at, failed = {"step": None}, set()
+
+        def batch_fn(i):
+            at["step"] = i
+            return pipe.torch_batch(i, dev, sh)
+
+        def flaky(state, batch):
+            i = at["step"]
+            if i in DIST_FAIL and i not in failed:
+                failed.add(i)
+                raise RuntimeError(f"injected chip failure at step {i}")
+            return step(state, batch)
+        logs = []
+        with tempfile.TemporaryDirectory() as d:
+            runner = FailoverRunner(
+                FailoverConfig(checkpoint_dir=d,
+                               checkpoint_every=DIST_FAIL_EVERY),
+                flaky, batch_fn, log_fn=logs.append)
+            final, end = runner.run(fresh(), 0, DIST_FAIL_STEPS)
+        got = [full(x).cpu() for x in tree_leaves(final.params)]
+    expect = sum(s - s // DIST_FAIL_EVERY * DIST_FAIL_EVERY
+                 for s in DIST_FAIL)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"[dist] 14e FailoverRunner, {TRAIN_ARCH} {TRAIN_CUT} layers on "
+          f"the (1, 1) mesh, {DIST_FAIL_STEPS} steps, a checkpoint every "
+          f"{DIST_FAIL_EVERY}, failures injected at steps {DIST_FAIL}: ended"
+          f" at step {end}, {runner.failures} failures, "
+          f"{runner.replayed_steps} replayed steps (the state machine's: "
+          f"{expect}); final params "
+          f"{'bit-equal' if same else 'NOT bit-equal'} to the uninterrupted"
+          f" run's; {time.perf_counter() - t0:.1f} s; card {smi}")
+    for line in logs:
+        print(f"[dist]   {line}")
+    check(end == DIST_FAIL_STEPS and runner.failures == len(DIST_FAIL)
+          and runner.replayed_steps == expect and same,
+          f"14e: end {end}, failures {runner.failures}, replayed "
+          f"{runner.replayed_steps}, bit-equal {same}")
+    del final, got, want
+    torch.cuda.empty_cache()
+
+
+def dist_dryrun():
+    """14f: launch.dryrun in this process on a fake process group (host
+    only, meta DTensors: nothing allocated): qwen2-7b train_4k on 16 x 16,
+    and kimi-k2-1t train_4k's state bytes per device on 16 x 16 and
+    2 x 16 x 16 against the reference's pspec arithmetic's ranges."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.dryrun_cell("qwen2-7b", "train_4k", False)
+    r, c = rec["roofline"], rec["collectives"]
+    print(f"[dist] 14f dry run qwen2-7b train_4k on the 16 x 16 fake group "
+          f"(host only, meta tensors, plain attention; trace "
+          f"{rec['trace_s']} s): per device {r['flops_per_device']:.4g} FLOP, "
+          f"{r['hbm_bytes_per_device']:.4g} bytes, collectives "
+          f"{c['counts']} = {c['total_bytes']:.4g} bytes on the wire; state "
+          f"{rec['state_bytes_per_device']:,} bytes a device")
+    print(f"[dist] 14f priced on {r['peaks']} (a model, not a timing): "
+          f"compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+          f"collective {r['collective_s']:.4f} s a step; bottleneck "
+          f"{r['bottleneck']}, useful FLOP ratio {r['useful_ratio']:.3f}")
+    check(r["flops_per_device"] > 0 and c["total_bytes"] > 0,
+          "14f: empty trace")
+    one, two = (dryrun.state_bytes("kimi-k2-1t", mp) for mp in (False, True))
+    print(f"[dist] 14f kimi-k2-1t train_4k state: {one:,} bytes a device on "
+          f"16 x 16 (15-17.5 GB), {two:,} on 2 x 16 x 16 (under 10 GB)")
+    check(15e9 < one < 17.5e9 and two < 10e9, f"14f: kimi {one} / {two}")
+    torch.distributed.destroy_process_group()
+
+
+def dist_phase(dev, flush, smi, p13):
+    """Phase 14 [dist]: 14a-14e on the 1-rank NCCL mesh, then the NCCL
+    group ends and 14f runs on a fake one.  Returns 14b's JSON rows."""
+    t0 = time.perf_counter()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = time.perf_counter() - t
+        return out
+    mesh = timed("14a", dist_train, dev, smi, p13)
+    rows = timed("14b", dist_gemm, mesh, dev, flush, smi)
+    timed("14c", dist_moe, mesh, dev, smi)
+    timed("14d", dist_compress, mesh, dev, smi)
+    timed("14e", dist_failover, mesh, dev, smi)
+    torch.distributed.destroy_process_group()
+    timed("14f", dist_dryrun)
+    print(f"[dist] phase 14: {time.perf_counter() - t0:.1f} s (" +
+          ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+    return rows
 
 
 def _to(tree, device):
@@ -2900,7 +3390,8 @@ def main() -> int:
     compiled = compile_graphs(dev)
     repaired = compile_repaired(dev)
     autos = compile_autos(dev)
-    sources = sorted({ck.run_cuda.source for _, _, ck in gemms + autos})
+    sources = sorted({ck.run_cuda.source for _, _, ck in gemms + autos}
+                     | {fn.source for fn in dist_gemm_products()})
     general = [ck.run_cuda.source for *_, ck in compiled]
     general += [fn.source for _, fn, *_ in repaired]
     t0 = time.perf_counter()
@@ -3082,7 +3573,11 @@ def main() -> int:
 
     # 13. training: minicpm-2b whole through the launcher, then the
     # equality checks at two layers
-    train_phase(dev, smi)
+    p13 = train_phase(dev, smi)
+
+    # 14. the distribution layer: the mesh trainer, the sharded GEMM, the
+    # expert-parallel MoE, the int8 all-reduce, failover, the dry run
+    rows += dist_phase(dev, flush, smi, p13)
 
     # 12. every kernel's row
     print(json.dumps({"kernels": rows}))

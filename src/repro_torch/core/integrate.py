@@ -9,14 +9,15 @@ into a training step.
 ``gemm_op`` builds that wrapper around a stagecc-compiled GEMM:
 forward = the compiled kernel; backward = two more stagecc GEMMs
 (dA = dC @ B^T, dB = A^T @ dC) compiled through the same pipeline — the
-whole training-facing surface is generated by the infrastructure.  The
-sharded form waits for the port's distribution layer.
+whole training-facing surface is generated by the infrastructure.
+``sharded_gemm_op`` runs it per rank on a row block of the lhs, the
+reference's ``shard_map`` deployment, as a ``local_map`` region.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -85,3 +86,34 @@ def gemm_op(m: int, n: int, k: int, schedule: str = "tpu_mxu",
         return _GemmFn.apply(a, b, m, n, k, schedule, backend)
 
     return op
+
+
+def sharded_gemm_op(mesh, m: int, n: int, k: int, schedule: str = "tpu_mxu",
+                    backend: str = "torch",
+                    lhs_axis: Optional[str] = "data") -> Callable:
+    """The crossbar: the generated kernel per rank, with the lhs
+    row-sharded over ``lhs_axis`` of ``mesh`` (a ``DeviceMesh``) and the
+    rhs replicated (the canonical data-parallel deployment of an
+    accelerator IP block).
+
+    The op takes DTensors (``redistribute_inputs``: each is redistributed
+    to those placements first) and returns one sharded ``Shard(0)`` over
+    ``lhs_axis``, replicated elsewhere.  Each rank runs ``gemm_op(m //
+    shards, n, k)`` on its row block, forward and the two backward GEMMs;
+    the rhs gradient is each rank's partial sum, a ``Partial`` placement
+    over ``lhs_axis`` (the reduction ``shard_map``'s transpose makes).
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed.sharding import mesh_shape
+    n_shards = mesh_shape(mesh)[lhs_axis]
+    if m % n_shards:
+        raise ValueError(f"m={m} not divisible by {lhs_axis}={n_shards}")
+    local = gemm_op(m // n_shards, n, k, schedule, backend)
+    names = mesh.mesh_dim_names
+    rows = [Shard(0) if a == lhs_axis else Replicate() for a in names]
+    rep = [Replicate() for _ in names]
+    summed = [Partial() if a == lhs_axis else Replicate() for a in names]
+    return local_map(local, out_placements=rows, in_placements=(rows, rep),
+                     in_grad_placements=(rows, summed), device_mesh=mesh,
+                     redistribute_inputs=True)

@@ -85,9 +85,18 @@ class Pipeline:
             "mask": np.ones_like(toks[:, 1:], np.float32),
         }
 
-    def torch_batch(self, step: int, device="cuda") -> Dict[str,
-                                                             torch.Tensor]:
+    def torch_batch(self, step: int, device="cuda", shardings=None
+                    ) -> Dict[str, torch.Tensor]:
         """``batch(step)`` as tensors on ``device`` (int32 tokens and
-        labels, an f32 mask)."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in self.batch(step).items()}
+        labels, an f32 mask); with ``shardings`` (one
+        ``distributed.sharding.Sharding`` for every array, or a dict of
+        them by key), DTensors of which each rank keeps its piece (every
+        rank makes the same batch), the counterpart of ``jax_batch``'s
+        ``device_put``."""
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in self.batch(step).items()}
+        if shardings is None:
+            return out
+        from repro_torch.distributed.sharding import distribute
+        return {k: distribute(v, shardings[k] if isinstance(shardings, dict)
+                              else shardings) for k, v in out.items()}

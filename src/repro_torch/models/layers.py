@@ -7,8 +7,10 @@ allocated).  Layouts are the reference's: ``wq`` is (d, H*hd), caches are
 (B, Smax, KV, hd), so params converted from the JAX package compute the
 same function here.
 
-On one device the reference's ``shard(...)`` annotations are identities,
-so they are dropped.
+The reference's ``shard(...)`` annotations are kept at its call sites:
+with no mesh active, or on plain tensors, each is the identity; under a
+mesh (``distributed.sharding.axis_rules``) on DTensors it redistributes to
+the logical axes' placements.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (distribute, reshape, shard,
+                                              shard_heads, sharding_for)
 from repro_torch.kernels.decode_attention import decode_attention
 
 Params = Dict[str, Any]
@@ -34,20 +38,35 @@ class Maker:
     per-layer ``shape`` (the reference initialises each layer under
     ``jax.vmap``, so its fan-in never sees the layer axis).  Tensors are
     ``dtype``; a normal draw is made in float32 and cast, as the
-    reference's ``(normal * s).astype(dtype)``."""
-    mode: str                                   # "init" | "shape"
+    reference's ``(normal * s).astype(dtype)``.  Mode "axes" returns the
+    logical axes string, with a ``"- "`` (replicated) entry per stacked
+    layer axis, as the reference's stacked groups.  With a ``mesh``, an
+    "init" tensor is drawn whole, in the order and from the stream of the
+    unsharded init, and each rank keeps its piece of it as a DTensor
+    placed by its axes (``sharding_for``)."""
+    mode: str                                   # "init" | "shape" | "axes"
     generator: Optional[torch.Generator] = None
     device: Any = "cuda"
     lead: Tuple[int, ...] = ()
     dtype: torch.dtype = torch.float32
+    mesh: Any = None
 
     def __call__(self, shape: Tuple[int, ...], axes: str,
-                 init: str = "normal", scale: float = 0.02) -> torch.Tensor:
+                 init: str = "normal", scale: float = 0.02):
         full = tuple(self.lead) + tuple(shape)
+        if self.mode == "axes":
+            return "- " * len(self.lead) + axes
         if self.mode == "shape":
             return torch.empty(full, dtype=self.dtype, device="meta")
         if self.mode != "init":
             raise ValueError(f"Maker mode {self.mode!r}")
+        t = self._draw(full, shape, init, scale)
+        if self.mesh is None:
+            return t
+        return distribute(t, sharding_for("- " * len(self.lead) + axes,
+                                          full, self.mesh))
+
+    def _draw(self, full, shape, init, scale) -> torch.Tensor:
         if init == "zeros":
             return torch.zeros(full, dtype=self.dtype, device=self.device)
         if init == "ones":
@@ -77,6 +96,57 @@ class Maker:
 
 # largest normal draw made in one piece, in elements (1 GiB of f32)
 _DRAW_LIMIT = 1 << 28
+
+
+# --------------------------------------------------------------------------
+# embedding lookup
+# --------------------------------------------------------------------------
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  Under a mesh (a DTensor table) a vocab-parallel
+    lookup in a ``local_map`` region, as GSPMD partitions the reference's
+    gather: the table gathered over its non-vocab axes, each rank of the
+    vocab (``model``) axis looking up the ids in its own rows (the others
+    masked to 0), the output ``Partial`` over that axis; the table's
+    gradient is ``Partial`` over the axes the ids are sharded on.  DTensor's
+    own rules for an index or an embedding over a vocab-sharded table
+    fail in its backward (torch 2.11)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    id_pl = (list(ids.placements) if is_dtensor(ids)
+             else [Replicate()] * len(names))
+    id_pl = [Replicate() if i in vocab else p for i, p in enumerate(id_pl)]
+    tab_pl = [Shard(0) if i in vocab else Replicate()
+              for i in range(len(names))]
+    out_pl = [Partial() if i in vocab else
+              Shard(p.dim) if isinstance(p, Shard) else Replicate()
+              for i, p in enumerate(id_pl)]
+    grad_pl = [Shard(0) if i in vocab else
+               Partial() if isinstance(p, Shard) else Replicate()
+               for i, p in enumerate(id_pl)]
+    rank = 0
+    for i in vocab:
+        rank = rank * mesh.size(i) + mesh.get_local_rank(names[i])
+
+    def body(tab, idx):
+        if not vocab:
+            return tab[idx]
+        local = idx - rank * tab.shape[0]
+        ok = (local >= 0) & (local < tab.shape[0])
+        out = tab[torch.where(ok, local, torch.zeros_like(local))]
+        return out * ok[..., None].to(out.dtype)
+    return local_map(body, out_placements=out_pl,
+                     in_placements=(tab_pl, id_pl),
+                     in_grad_placements=(grad_pl, id_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
 
 
 # --------------------------------------------------------------------------
@@ -152,13 +222,13 @@ def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     rep = H // KV
     scale = float(scale) if scale is not None else 1.0 / (hd ** 0.5)
-    qg = q.reshape(B, Sq, KV, rep, hd).float()
+    qg = reshape(q, (B, Sq, KV, rep, hd)).float()
     logits = torch.einsum("bqgrh,bkgh->bgrqk", qg * scale, k.float())
     logits = torch.where(mask[:, None, None], logits,
                          torch.full((), _NEG, device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bkgh->bqgrh", probs, v.float())
-    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    return reshape(out, (B, Sq, H, v.shape[-1])).to(q.dtype)
 
 
 # threshold above which attention switches to the blockwise (flash-style)
@@ -233,7 +303,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hv = v.shape[-1]
     outs = []
     for i in range(0, Sq, bq):
-        qblk = q[:, i:i + bq].reshape(B, bq, KV, rep, hd).float() * scale
+        qblk = reshape(q[:, i:i + bq], (B, bq, KV, rep, hd)).float() * scale
         qp = qpos[:, i:i + bq]
         m_run = torch.full((B, KV, rep, bq), _NEG, device=q.device)
         l_run = torch.zeros((B, KV, rep, bq), device=q.device)
@@ -253,7 +323,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 v[:, j:j + bk].to(pdt).float())
             m_run = m_new
         out = acc / torch.clamp(l_run, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, bq, H, hv))
+        outs.append(reshape(out.permute(0, 3, 1, 2, 4), (B, bq, H, hv)))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
@@ -307,9 +377,9 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     v = h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = shard_heads(q, (B, S, H, hd), "batch", None, "heads", None)
+    k = shard_heads(k, (B, S, KV, hd), "batch", None, "kv_heads", None)
+    v = shard_heads(v, (B, S, KV, hd), "batch", None, "kv_heads", None)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -347,8 +417,8 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
             k.shape[1], device=x.device).expand(B, k.shape[1])
         out = attention_core(q, k, v, positions, kpos, valid, causal=causal,
                              window=window)
-    out = out.reshape(B, S, H * hd) @ p["wo"]
-    return x + out, cache
+    out = reshape(out, (B, S, H * hd)) @ p["wo"]
+    return x + shard(out, "batch", None, None), cache
 
 
 def apply_cross_attention(p: Params, x: torch.Tensor, cfg,
@@ -358,11 +428,11 @@ def apply_cross_attention(p: Params, x: torch.Tensor, cfg,
     B, S, d = x.shape
     hd, H = cfg.resolved_head_dim, cfg.num_heads
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, S, H, hd)
+    q = reshape(h @ p["wq"], (B, S, H, hd))
     k, v = enc_kv
     m = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
     out = attention_math(q, k, v, m)
-    return x + out.reshape(B, S, H * hd) @ p["wo"]
+    return x + reshape(out, (B, S, H * hd)) @ p["wo"]
 
 
 def cross_kv(p: Params, cfg, enc_out: torch.Tensor
@@ -370,8 +440,8 @@ def cross_kv(p: Params, cfg, enc_out: torch.Tensor
     B, Se, _ = enc_out.shape
     hd, H = cfg.resolved_head_dim, cfg.num_heads
     # the reference's products promote: f32 encoder output, bf16 weights
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, Se, H, hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, Se, H, hd)
+    k = reshape(enc_out @ p["wk"].to(enc_out.dtype), (B, Se, H, hd))
+    v = reshape(enc_out @ p["wv"].to(enc_out.dtype), (B, Se, H, hd))
     return k, v
 
 
@@ -403,7 +473,8 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if cfg.mlp.startswith("gated"):
         act = F.silu if cfg.mlp == "gated_silu" else _gelu
-        hidden = act(h @ p["w_gate"]) * (h @ p["w_up"])
+        hidden = shard(act(h @ p["w_gate"]) * (h @ p["w_up"]),
+                       "batch", None, "ff")
     else:
-        hidden = _gelu(h @ p["w_up"])
-    return x + hidden @ p["w_down"]
+        hidden = shard(_gelu(h @ p["w_up"]), "batch", None, "ff")
+    return x + shard(hidden @ p["w_down"], "batch", None, None)

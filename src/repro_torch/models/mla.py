@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import reshape, shard
 from repro_torch.models.layers import (Maker, Params, attention_core,
                                        rmsnorm, rope)
 
@@ -56,7 +57,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     nope, rdim, vdim = a.qk_nope_dim, a.qk_rope_dim, a.v_dim
 
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, S, H, nope + rdim)
+    q = reshape(h @ p["wq"], (B, S, H, nope + rdim))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
@@ -96,17 +97,21 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         qq = torch.cat([q_lat, q_rope], dim=-1)         # (B,S,H,lora+rope)
         k_eff = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
         v_eff = c_kv[:, :, None, :]                     # (B,Sk,1,lora)
+        qq = shard(qq, "batch", None, "heads", None)
         ctx = attention_core(qq, k_eff, v_eff, positions, kpos, valid,
                              causal=True, window=None,
                              scale=1.0 / float((nope + rdim) ** 0.5))
         out = torch.einsum("bshl,lhv->bshv", ctx, w_uv)
     else:
-        kv = (c_kv @ p["w_ukv"]).reshape(B, Sk, H, nope + vdim)
+        kv = reshape(c_kv @ p["w_ukv"], (B, Sk, H, nope + vdim))
         k_nope, v = kv[..., :nope], kv[..., nope:]
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sk, H, rdim)],
                       dim=-1)
-        qq = torch.cat([q_nope, q_rope], dim=-1)
+        qq = shard(torch.cat([q_nope, q_rope], dim=-1),
+                   "batch", None, "heads", None)
+        k = shard(k, "batch", None, "heads", None)
+        v = shard(v, "batch", None, "heads", None)
         out = attention_core(qq, k, v, positions, kpos, valid, causal=True,
                              window=None)
-    out = out.reshape(B, S, H * vdim) @ p["wo"]
-    return x + out, cache
+    out = reshape(out, (B, S, H * vdim)) @ p["wo"]
+    return x + shard(out, "batch", None, None), cache

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.distributed.sharding import replicate_plain
 from repro_torch.models import transformer as T
 
 BACKENDS = ("cuda", "torch")
@@ -54,18 +55,22 @@ class Model:
 
     # ---- params ------------------------------------------------------------
 
-    def init(self, generator: torch.Generator):
+    def init(self, generator: torch.Generator, mesh=None):
         """Random params drawn from ``generator`` (which must live on the
         model's device), in ``param_dtype``: each is drawn in float32 and
         cast, so a bf16 model is the cast of the f32 one of the same
-        seed."""
+        seed.  With a ``mesh`` each is a DTensor placed by its logical
+        axes, with the same values."""
         return T.init_params(self.cfg, mode="init", generator=generator,
                              device=self.device, dtype=self.pdtype,
-                             max_seq=self.run.max_seq)
+                             max_seq=self.run.max_seq, mesh=mesh)
 
     def param_shapes(self):
         return T.init_params(self.cfg, mode="shape", dtype=self.pdtype,
                              max_seq=self.run.max_seq)
+
+    def param_axes(self):
+        return T.init_params(self.cfg, mode="axes", max_seq=self.run.max_seq)
 
     def param_count(self) -> int:
         return sum(t.numel() for t in _leaves(self.param_shapes()))
@@ -79,6 +84,9 @@ class Model:
     def cache_init(self, batch: int, max_len: int):
         return T.cache_spec(self.cfg, batch, max_len, mode="init",
                             device=self.device, dtype=self.cdtype)
+
+    def cache_axes(self, batch: int, max_len: int):
+        return T.cache_spec(self.cfg, batch, max_len, mode="axes")
 
     # ---- compute -----------------------------------------------------------
 
@@ -102,6 +110,10 @@ class Model:
         (loss, metrics): the masked mean next-token NLL over f32 logits
         (padded vocab columns masked out) plus the MoE aux loss; metrics
         ``loss``, ``ce``, ``aux`` and ``tokens`` (the mask's sum)."""
+        with replicate_plain(params["final_norm"]):
+            return self._loss(params, batch)
+
+    def _loss(self, params, batch):
         logits, _, aux = T.forward(
             params, self.cfg, batch["tokens"],
             extra_embeds=batch.get("extra_embeds"),

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import reshape, shard
 from repro_torch.models.layers import Maker, Params, _gelu, rmsnorm
 
 
@@ -101,7 +102,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg,
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     r = cfg.rglru
     h_in = rmsnorm(x, p["norm"], cfg.norm_eps)
-    u = h_in @ p["w_x"]
+    u = shard(h_in @ p["w_x"], "batch", None, "ff")
     ygate = _gelu(h_in @ p["w_y"])
 
     conv_state = cache["conv"] if cache is not None else None
@@ -114,7 +115,7 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg,
     if cache is not None:
         cache["h"].copy_(h_last)
         cache["conv"].copy_(new_conv)
-    return x + out, cache
+    return x + shard(out, "batch", None, None), cache
 
 
 def rglru_cache_spec(cfg, batch: int, dtype: torch.dtype) -> dict:
@@ -170,7 +171,7 @@ def apply_ssd(p: Params, x: torch.Tensor, cfg,
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = causal_conv1d(xbc, p["conv"], conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[..., :di].reshape(B, S, H, P)
+    xs = reshape(xbc[..., :di], (B, S, H, P))
     Bmat = xbc[..., di:di + N]
     Cmat = xbc[..., di + N:]
     dt = F.softplus(dt.float() + p["dt_bias"])
@@ -185,19 +186,19 @@ def apply_ssd(p: Params, x: torch.Tensor, cfg,
         h_new = h0 * decay[..., None, None] + dBx
         y = torch.einsum("bhpn,bn->bhp", h_new, Cmat[:, 0].float()) \
             + p["D"].float()[None, :, None] * xs[:, 0]
-        y = y[:, None].reshape(B, S, di).to(x.dtype)
+        y = reshape(y[:, None], (B, S, di)).to(x.dtype)
         new_state = h_new
     else:
         y, new_state = _ssd_with_state(xs, dt, A, Bmat, Cmat, p["D"], h0,
                                        s.chunk)
-        y = y.reshape(B, S, di)
+        y = reshape(y, (B, S, di))
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["out_norm"],
                 cfg.norm_eps)
     out = y @ p["out_proj"]
     if cache is not None:
         cache["state"].copy_(new_state)
         cache["conv"].copy_(new_conv)
-    return x + out, cache
+    return x + shard(out, "batch", None, None), cache
 
 
 def _ssd_with_state(xs, dt, A, Bmat, Cmat, D, h0, chunk):

@@ -39,6 +39,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import replicate_plain, shard
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -194,17 +195,22 @@ def init_params(cfg: ModelConfig, mode: str = "shape",
                 generator: Optional[torch.Generator] = None,
                 device: Any = "cuda",
                 dtype: torch.dtype = torch.float32,
-                max_seq: int = 0) -> Params:
+                max_seq: int = 0, mesh: Any = None) -> Params:
     """mode: "init" (tensors on ``device``, drawn from ``generator``) |
-    "shape" (meta tensors), every param in ``dtype``.  A learned position
+    "shape" (meta tensors) | "axes" (logical-axes strings, a ``"- "``
+    entry for a stacked layer axis), every param in ``dtype``.  With a
+    ``mesh``, "init" makes each param a DTensor placed by its axes, with
+    the values of the unsharded init (``Maker``).  A learned position
     table (``rope_theta == 0``) has max(max_seq, 2048) rows.  The random
     streams differ from the reference's; ``repro_torch.convert`` carries
     its params over instead."""
+    if mode not in ("init", "shape", "axes"):
+        raise ValueError(mode)
     plan = stack_plan(cfg)
     kinds = layer_kinds(cfg)
 
     def mk(lead=()):
-        return Maker(mode, generator, device, tuple(lead), dtype)
+        return Maker(mode, generator, device, tuple(lead), dtype, mesh)
 
     p: Params = {"embed": mk()((cfg.padded_vocab, cfg.d_model), "vocab fsdp")}
     if not cfg.rope_theta:
@@ -341,16 +347,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     a training forward (no cache, grad enabled).  The aux loss is the sum
     of the MoE layers' load-balancing losses, a 0-d f32 tensor; 0.0 (a
     float) for a model without an MoE layer, so that its steps gain no
-    kernels (``Model.loss`` makes it a tensor).
+    kernels (``Model.loss`` makes it a tensor).  With DTensor params (a
+    mesh), plain tensors that meet them count as replicated
+    (``sharding.replicate_plain``).
     """
     if remat not in REMATS:
         raise ValueError(f"remat {remat!r} not in {REMATS}")
+    with replicate_plain(params["final_norm"]):
+        return _forward(params, cfg, tokens, extra_embeds, cache, backend,
+                        remat)
+
+
+def _forward(params, cfg, tokens, extra_embeds, cache, backend, remat):
     plan = stack_plan(cfg)
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
     kv_len = cache["len"] if cache is not None else None
 
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens.long())
     x = x * _embed_scale(cfg.d_model, x.dtype, x.device)
     if cfg.frontend == "image_patches" and extra_embeds is not None:
         n = min(extra_embeds.shape[1], S)
@@ -375,7 +389,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = (start + steps)[None, :].expand(B, S)
     if not cfg.rope_theta:
         tab = params["pos_embed"]
-        x = x + tab[torch.clamp(positions, max=tab.shape[0] - 1)].to(x.dtype)
+        x = x + L.embed(tab, torch.clamp(positions, max=tab.shape[0] - 1)
+                        ).to(x.dtype)
+    x = shard(x, "batch", None, None)
 
     enc_kv = None
     if cfg.encoder is not None and extra_embeds is not None:
@@ -416,6 +432,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
+    logits = shard(logits, "batch", None, "vocab")
     if cache is not None:
         cache["len"] = kv_len + S
         if cfg.encoder is not None:
@@ -497,11 +514,21 @@ def copy_rows(dst: Params, d: int, src: Params, s: int) -> None:
         big.select(axis, d).copy_(one.select(axis, s))
 
 
+# logical axes of each cache leaf, the reference's
+_CACHE_AXES = {"k": "batch kv_seq kv_heads -", "v": "batch kv_seq kv_heads -",
+               "ckv": "batch kv_seq -", "kr": "batch kv_seq -",
+               "xk": "batch - heads -", "xv": "batch - heads -",
+               "h": "batch ff", "conv": "batch - ff",
+               "state": "batch heads - -"}
+
+
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                mode: str = "shape", device: Any = "cuda",
                dtype: torch.dtype = torch.float32) -> Params:
-    """Cache tree as meta tensors ("shape") or zeros on ``device``
-    ("init"), laid out as the reference's: per layer the leaves of its
+    """Cache tree as meta tensors ("shape"), zeros on ``device`` ("init")
+    or logical-axes strings ("axes": the reference's per leaf, a ``"- "``
+    entry for the group axis under ``scan``, ``""`` for ``len`` and
+    ``enc_done``), laid out as the reference's: per layer the leaves of its
     kind (``_layer_cache_spec``; attention keys and values and MLA latents
     in ``dtype``, recurrent states in f32, conv windows in ``dtype``),
     the stacked groups' leaves with a leading group axis under ``scan``,
@@ -510,7 +537,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     "init" mode (the host always knows it, so reading it never waits for
     the device) and a 0-d int32 meta tensor in "shape" mode; so is an
     encoder-decoder's ``enc_done``."""
-    if mode not in ("shape", "init"):
+    if mode not in ("shape", "init", "axes"):
         raise ValueError(mode)
     plan = stack_plan(cfg)
     kinds = layer_kinds(cfg)
@@ -520,6 +547,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
         for k, v in spec.items():
             if isinstance(v, dict):
                 out[k] = build(v, lead)
+            elif mode == "axes":
+                out[k] = "- " * len(lead) + _CACHE_AXES[k]
             else:
                 shape, dt = lead + v[0], v[1]
                 out[k] = (torch.empty(shape, dtype=dt, device="meta")
@@ -537,6 +566,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
             cfg, kind, batch, max_len, dtype), (plan.groups,))
             for pos, kind in enumerate(plan.pattern)}
     for name in _SCALARS if cfg.encoder is not None else _SCALARS[:1]:
-        out[name] = (torch.empty((), dtype=torch.int32, device="meta")
-                     if mode == "shape" else 0)
+        out[name] = {"shape": torch.empty((), dtype=torch.int32,
+                                          device="meta"),
+                     "init": 0, "axes": ""}[mode]
     return out

@@ -79,8 +79,25 @@ def _is_v_leaf(x) -> bool:
     return isinstance(x, dict) and ("full" in x or "row" in x)
 
 
-def _zeros(shape, dtype, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(tuple(shape), dtype=dtype, device=like.device)
+def _zeros(shape, dtype, like: torch.Tensor, drop: Optional[int] = None
+           ) -> torch.Tensor:
+    """Zeros of ``shape`` on ``like``'s device; for a DTensor ``like``, a
+    DTensor on its mesh with its placements, where ``shape`` is ``like``'s
+    with axis ``drop`` (-1 or -2) removed (a factored moment)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, zeros
+    if not isinstance(like, DTensor):
+        return torch.zeros(tuple(shape), dtype=dtype, device=like.device)
+    nd = like.ndim
+    gone = None if drop is None else nd + drop
+
+    def moved(pl):
+        if not isinstance(pl, Shard) or gone is None:
+            return pl
+        if pl.dim == gone:
+            return Replicate()
+        return Shard(pl.dim - 1) if pl.dim > gone else pl
+    return zeros(tuple(shape), dtype=dtype, device_mesh=like.device_mesh,
+                 placements=[moved(pl) for pl in like.placements])
 
 
 def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, b1: float = 0.9,
@@ -93,9 +110,9 @@ def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, b1: float = 0.9,
         if factored:
             def vinit(p):
                 if _is_factorable(p.shape):
-                    return {"row": _zeros(p.shape[:-1], state_dtype, p),
+                    return {"row": _zeros(p.shape[:-1], state_dtype, p, -1),
                             "col": _zeros(p.shape[:-2] + p.shape[-1:],
-                                          state_dtype, p)}
+                                          state_dtype, p, -2)}
                 return {"full": _zeros(p.shape, state_dtype, p)}
             v = tree_map(vinit, params)
         else:

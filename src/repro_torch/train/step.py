@@ -9,6 +9,12 @@ update, which writes the new params and moments in place
 (``optim.optimizer``).  ``RunConfig.remat`` checkpoints the stacked
 groups of the forward (``models.transformer.forward``).
 
+Under a mesh the params and moments are DTensors
+(``init_state_sharded``); the step is the same code, with each gradient
+redistributed to its param's placements before the in-place update.
+``TrainConfig.grad_compress`` is accepted and not read, as in the
+reference.
+
 ``TrainState.rng`` is a (2,) uint32 tensor on the host: a seed word and
 a counter that each step advances.  Nothing draws from it; the
 reference's ``fold_in`` stream cannot be reproduced in torch.
@@ -21,6 +27,9 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (full, is_dtensor,
+                                              map_shardings, replicate_plain,
+                                              shard, tree_shardings)
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizer import (Optimizer, OptState, tree_leaves,
                                          tree_map)
@@ -69,10 +78,73 @@ def state_shapes(model: Model, optimizer: Optimizer) -> TrainState:
 
 
 def state_axes(model: Model, optimizer: Optimizer) -> TrainState:
-    raise NotImplementedError(
-        "state_axes: logical axes for sharding need the port's "
-        "distribution layer (ROADMAP A11: Maker mode 'axes', "
-        "distributed/sharding.py)")
+    """Logical-axes TrainState matching ``state_shapes`` structure.
+
+    Optimizer ``m`` mirrors the params tree (same axes).  A factored ``v``
+    stores {"row","col"} (or {"full"}) per param; row drops the last
+    logical axis, col drops the second-to-last.
+    """
+    paxes = model.param_axes()
+    opt_shapes = optimizer.init(model.param_shapes())
+
+    def v_leaf_axes(p_ax: str, v_leaf) -> Any:
+        ax = p_ax.split()
+        if isinstance(v_leaf, dict):
+            out = {}
+            if "full" in v_leaf:
+                out["full"] = p_ax
+            if "row" in v_leaf:
+                out["row"] = " ".join(ax[:-1]) or "-"
+            if "col" in v_leaf:
+                out["col"] = " ".join(ax[:-2] + ax[-1:]) or "-"
+            return out
+        return p_ax
+
+    def walk(p_ax, v_sub):
+        if isinstance(v_sub, dict) and ("full" in v_sub or "row" in v_sub):
+            return v_leaf_axes(p_ax, v_sub)
+        if isinstance(v_sub, dict):
+            return {k: walk(p_ax[k], v_sub[k]) for k in v_sub}
+        return p_ax
+
+    v_shapes = opt_shapes.v
+    v_axes = () if isinstance(v_shapes, tuple) and v_shapes == () \
+        else walk(paxes, v_shapes)
+    return TrainState(params=paxes,
+                      opt=OptState(step="", m=paxes, v=v_axes),
+                      rng="-")
+
+
+def state_shardings(model: Model, optimizer: Optimizer, mesh) -> TrainState:
+    """The ``Sharding`` of every leaf of a TrainState on ``mesh``
+    (``tree_shardings`` of ``state_axes``); the optimizer's step counter
+    (0-d, replicated) and the host rng get None: they stay plain
+    tensors."""
+    sh = tree_shardings(state_axes(model, optimizer),
+                        state_shapes(model, optimizer), mesh)
+    return TrainState(sh.params, sh.opt._replace(step=None), None)
+
+
+def init_state_sharded(model: Model, optimizer: Optimizer,
+                       generator: torch.Generator, mesh) -> TrainState:
+    """``init_state`` as DTensors on ``mesh``, with the same values: each
+    param drawn whole in the unsharded init's order and cut to its piece
+    (``Model.init(mesh=)``), each moment made as zeros of its piece
+    (``state_shardings``); no rank holds a second whole copy."""
+    from torch.distributed.tensor import zeros
+    sh = state_shardings(model, optimizer, mesh)
+    params = model.init(generator, mesh=mesh)
+    shapes = state_shapes(model, optimizer)
+
+    def zero(s, t):
+        return zeros(tuple(t.shape), dtype=t.dtype, device_mesh=s.mesh,
+                     placements=s.placements)
+    opt = OptState(
+        step=torch.zeros((), dtype=torch.int32, device=model.device),
+        m=map_shardings(zero, sh.opt.m, shapes.opt.m),
+        v=map_shardings(zero, sh.opt.v, shapes.opt.v))
+    return TrainState(params=params, opt=opt,
+                      rng=new_rng(generator.initial_seed(), 1))
 
 
 def make_loss_fn(model: Model):
@@ -85,25 +157,28 @@ def make_train_step(model: Model, optimizer: Optimizer,
                     tcfg: TrainConfig = TrainConfig()
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState,
                                                             Dict]]:
-    if tcfg.grad_compress:
-        raise NotImplementedError(
-            "TrainConfig(grad_compress=True): the int8 error-feedback "
-            "reduction needs the port's distributed/compression.py "
-            "(ROADMAP A11)")
+    # ``tcfg.grad_compress`` is accepted and, as in the reference's
+    # make_train_step, not read
     loss_fn = make_loss_fn(model)
 
     def single(params, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        with torch.enable_grad():
+        with torch.enable_grad(), replicate_plain(leaves[0]):
             loss, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(shard(loss), leaves)
+            # under a mesh each gradient comes back with the placements
+            # autograd gives it (a data-sharded weight's is Partial over
+            # data): redistributing it to its param's placements is the
+            # data-parallel reduction GSPMD inserts in the reference
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     if is_dtensor(p) else g for p, g in zip(leaves, grads)]
         it = iter(grads)
         # the gradients as a tree of the params' structure (the leaves
         # were taken in sorted key order)
         tree = _unflatten(params, it)
-        return tree, {k: v.detach() for k, v in metrics.items()}
+        return tree, {k: full(v.detach()) for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
                                                              Dict]:
@@ -129,9 +204,10 @@ def make_train_step(model: Model, optimizer: Optimizer,
         else:
             grads, metrics = single(params, batch)
 
-        new_params, new_opt, opt_metrics = optimizer.update(
-            grads, state.opt, params)
-        metrics = dict(metrics, **opt_metrics)
+        with replicate_plain(tree_leaves(params)[0]):
+            new_params, new_opt, opt_metrics = optimizer.update(
+                grads, state.opt, params)
+        metrics = dict(metrics, **{k: full(v) for k, v in opt_metrics.items()})
         return TrainState(new_params, new_opt, next_rng(state.rng)), metrics
 
     return train_step

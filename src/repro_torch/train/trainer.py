@@ -79,14 +79,17 @@ class Trainer:
 
     # ---- loop ----------------------------------------------------------------
 
-    def run(self, state: TrainState, start_step: int = 0) -> TrainState:
+    def run(self, state: TrainState, start_step: int = 0,
+            sharding=None) -> TrainState:
+        """Train to ``total_steps``; ``sharding`` places each batch
+        (``Pipeline.torch_batch``)."""
         state, resumed = self._maybe_restore(state)
         step = max(start_step, resumed)
         device = tree_leaves(state.params)[0].device
         ema = None
         first_step = True
         while step < self.cfg.total_steps and not self._preempted:
-            batch = self.pipeline.torch_batch(step, device)
+            batch = self.pipeline.torch_batch(step, device, sharding)
             t0 = time.perf_counter()
             state, metrics = self.train_step(state, batch)
             loss = metrics["loss"].item()

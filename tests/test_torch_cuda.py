@@ -1560,3 +1560,110 @@ def test_cuda_auto_at_the_searched_tiles(cuda, dtype):
     xs = [_shifted(a), b]
     assert ck.run_cuda.route(*xs)[0] == "simt"
     _check_gemm(ck.run_cuda, xs)
+
+
+# --------------------------------------------------------------------------
+# the distribution layer on the card: a (1, 1) NCCL mesh
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """make_host_mesh on the card: a 1-rank NCCL group (started once, for
+    the rest of the test run) and its (1, 1) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cuda")
+    assert "nccl" in torch.distributed.get_backend()
+    assert mesh.shape == (1, 1) and mesh.device_type == "cuda"
+    return mesh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_gemm_op_bit_equal_to_gemm_op(nccl_mesh, dtype):
+    """sharded_gemm_op on the (1, 1) mesh runs the emitted GEMM (3
+    launches a forward and backward) and gives gemm_op's bits, forward
+    and both gradients."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    m, n, k = 256, 384, 128
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a, b, w = (torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((m, k), (k, n), (m, n)))
+    ref = integrate.gemm_op(m, n, k, backend="cuda")
+    op = integrate.sharded_gemm_op(nccl_mesh, m, n, k, backend="cuda")
+    ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (ref(ar, br) * w.float()).sum().backward()
+    da = distribute_tensor(a, nccl_mesh, [Shard(0), Replicate()],
+                           src_data_rank=None).requires_grad_()
+    db = distribute_tensor(b, nccl_mesh, [Replicate(), Replicate()],
+                           src_data_rank=None).requires_grad_()
+    dw = distribute_tensor(w.float(), nccl_mesh, [Shard(0), Replicate()],
+                           src_data_rank=None)
+    before = gemm.cuda_gemm.launches
+    out = op(da, db)
+    (out * dw).sum().backward()
+    torch.cuda.synchronize()
+    assert gemm.cuda_gemm.launches == before + 3
+    assert torch.equal(out.full_tensor(), ref(a, b))
+    assert torch.equal(da.grad.full_tensor(), ar.grad)
+    assert torch.equal(db.grad.full_tensor(), br.grad)
+
+
+def test_shardmap_moe_against_gspmd_on_the_card(nccl_mesh):
+    """Reduced deepseek-v2's MoE layer on DTensors on the (1, 1) mesh: the
+    expert-parallel path against the replicated dispatch, and both
+    against the plain layer, within 1e-5 (capacity factor 8: no drops)."""
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  sharding_for)
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Maker
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_moe(cfg, Maker("init", g, "cuda"))
+    axes = moe.init_moe(cfg, Maker("axes"))
+    x = torch.randn((4, 16, cfg.d_model), generator=g, device="cuda")
+    plain, _ = moe.apply_moe(p, x, cfg)
+    outs = {}
+    with axis_rules(nccl_mesh):
+        dp = {k: distribute(v, sharding_for(axes[k], v.shape, nccl_mesh))
+              for k, v in p.items()}
+        dx = distribute(x, sharding_for("batch - -", x.shape, nccl_mesh))
+        for impl in ("shardmap", "gspmd"):
+            moe.set_moe_impl(impl)
+            try:
+                y, _ = moe.apply_moe(dp, dx, cfg)
+            finally:
+                moe.set_moe_impl("auto")
+            outs[impl] = y.full_tensor()
+    for y in outs.values():
+        assert (y - plain).abs().max().item() <= 1e-5
+    assert (outs["shardmap"] - outs["gspmd"]).abs().max().item() <= 1e-5
+
+
+def test_compressed_allreduce_on_the_card_bit_equal_to_cpu(nccl_mesh):
+    """error_feedback_update and make_compressed_allreduce over "data" on
+    the card (NCCL) against the same functions on CPU copies (a gloo
+    group of the same rank): bit-equal."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed import compression as C
+    cpu_mesh = DeviceMesh.from_group(
+        torch.distributed.new_group([0], backend="gloo"), "cpu",
+        mesh_dim_names=("data",))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    grads = {"w": torch.randn((64, 96), generator=g, device="cuda") * 3,
+             "b": {"c": torch.randn(37, generator=g, device="cuda")}}
+    res = {"w": torch.randn((64, 96), generator=g, device="cuda") * 1e-2,
+           "b": {"c": torch.zeros(37, device="cuda")}}
+    gq, r2 = C.error_feedback_update(grads, res)
+    red = C.make_compressed_allreduce(nccl_mesh, "data")(gq)
+    torch.cuda.synchronize()
+
+    def cpu(t):
+        return {k: cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.cpu()
+    cq, c2 = C.error_feedback_update(cpu(grads), cpu(res))
+    cred = C.make_compressed_allreduce(cpu_mesh, "data")(cq)
+    for a, b in ((gq, cq), (r2, c2), (red, cred)):
+        assert torch.equal(a["w"].cpu(), b["w"])
+        assert torch.equal(a["b"]["c"].cpu(), b["b"]["c"])

@@ -34,7 +34,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.optim.schedule", "repro_torch.optim.optimizer",
             "repro_torch.checkpoint.checkpointer",
             "repro_torch.train.step", "repro_torch.train.trainer",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.launch.mesh", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -94,6 +99,31 @@ def test_no_source_names_jax_or_repro(path):
     bad = [n for n in _imports(path)
            if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+def test_distribution_layer_runs_with_jax_blocked(tmp_path):
+    """With ``jax`` and ``repro`` unimportable, the distribution and
+    launch modules import, the launcher trains on a (1, 1) host mesh, the
+    dry run lists its cells, and ``make_host_mesh`` starts no group on
+    import."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'): sys.modules[name] = None\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.distributed import sharding, compression, "
+        "fault_tolerance\n"
+        "from repro_torch.launch import mesh, hlo_analysis, dryrun, train\n"
+        "assert not dist.is_initialized()\n"
+        "res = train.main(['--arch', 'qwen2-7b', '--reduced', '--device', "
+        "'cpu', '--steps', '2', '--mesh', 'host'])\n"
+        "assert res['mesh'].shape == (1, 1)\n"
+        "assert dryrun.main(['--list']) == 0\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -182,10 +182,17 @@ def test_top_k_ties_take_the_lower_index():
 
 
 def test_moe_impl_knob():
+    """The reference's knob: "shardmap" is a valid setting (with no mesh
+    the dense path runs, as the reference's ``_can_shardmap`` is False
+    there), a bogus one asserts."""
     moe.set_moe_impl("gspmd")
     assert moe._MOE_IMPL == "gspmd"
-    with pytest.raises(NotImplementedError, match="A11"):
-        moe.set_moe_impl("shardmap")
+    moe.set_moe_impl("shardmap")
+    assert moe._MOE_IMPL == "shardmap"
+    cfg = reduced(get_config("deepseek_v2_236b"))
+    assert not moe._can_shardmap(cfg, 64)
+    assert not jax_moe._can_shardmap(jax_reduced(
+        jax_get_config("deepseek_v2_236b")), 64)
     with pytest.raises(AssertionError):
         moe.set_moe_impl("bogus")
     moe.set_moe_impl("auto")

@@ -353,6 +353,11 @@ def test_input_specs_and_cell_applicable_as_the_reference(arch):
 
 
 def test_state_shapes_allocate_nothing_and_refusals_name_a11():
+    """Once refusals naming A11, now what the reference does:
+    ``state_axes`` equals the reference's, a ``grad_compress=True`` step
+    equals one without (the reference's make_train_step never reads it),
+    and ``--mesh host`` trains on a (1, 1) mesh with the losses of the
+    run without one."""
     cfg = get_config("minicpm_2b")
     o = opt_mod.adamw(lambda s: 1e-3, factored=True)
     st = step_mod.state_shapes(Model(cfg), o)
@@ -361,14 +366,39 @@ def test_state_shapes_allocate_nothing_and_refusals_name_a11():
     assert all(x.device.type == "meta" for x in leaves)
     assert sum(x.numel() for x in leaves) == 2_725_173_504
     assert st.opt.v["embed"]["row"].shape == (cfg.padded_vocab,)
-    with pytest.raises(NotImplementedError, match="A11"):
-        step_mod.state_axes(Model(cfg), o)
-    with pytest.raises(NotImplementedError, match="A11"):
-        step_mod.make_train_step(Model(cfg), o,
-                                 step_mod.TrainConfig(grad_compress=True))
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_launcher.main(["--arch", "minicpm-2b", "--reduced",
-                             "--device", "cpu", "--mesh", "host"])
+    jo = jopt.adamw(lambda s: 1e-3, factored=True)
+    want = jstep.state_axes(jax_model.Model(jax_get_config("minicpm_2b")), jo)
+    got = step_mod.state_axes(Model(cfg), o)
+    assert got.rng == want.rng and got.opt.step == want.opt.step
+    assert got.params == want.params
+    assert got.opt.m == want.opt.m and got.opt.v == want.opt.v
+
+    m = Model(reduced(cfg), RunConfig(max_seq=16), device="cpu")
+    so = opt_mod.adamw(lambda s: torch.tensor(1e-3))
+    batch = _torch(_batch(m.cfg, B=2, S=8))
+    runs = []
+    for compress in (False, True):
+        state = step_mod.init_state(m, so, torch.Generator().manual_seed(0))
+        fn = step_mod.make_train_step(
+            m, so, step_mod.TrainConfig(grad_compress=compress))
+        state, met = fn(state, batch)
+        runs.append((met["loss"].item(), opt_mod.tree_leaves(state.params)))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    argv = ["--arch", "minicpm-2b", "--reduced", "--device", "cpu",
+            "--steps", "2", "--seq-len", "16", "--global-batch", "2"]
+    plain = train_launcher.main(argv)
+    try:
+        meshed = train_launcher.main(argv + ["--mesh", "host"])
+    finally:
+        # the 1-rank gloo group the launcher started
+        torch.distributed.destroy_process_group()
+    assert meshed["mesh"].shape == (1, 1)
+    assert [h["loss"] for h in meshed["trainer"].metrics_history] == \
+        [h["loss"] for h in plain["trainer"].metrics_history]
+    assert opt_mod.tree_leaves(meshed["state"].params)[0].placements
 
 
 def test_train_launcher_runs_reduced_on_cpu(capsys, tmp_path):
