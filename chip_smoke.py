@@ -7,13 +7,14 @@ Run from the repository root, with no arguments:
 
 Phases, each printing its own lines; any failure exits nonzero:
   1. the card's name and power limit (nvidia-smi);
-  2. compile qwen2-7b's MLP products (repro_torch.core.compile_gemm) and
-     the four serving-kernel graphs of phase 11 through the compiler stack,
+  2. compile qwen2-7b's MLP products (repro_torch.core.compile_gemm),
+     the four serving-kernel graphs of phase 11 and phase 15's raised
+     blocks through the compiler stack,
      then build every CUDA kernel, one nvcc per source, all at once:
      decode_attention, flash_attention, flash_attention_sm90,
      flash_attention_ffma and ssd_scan from src/repro_torch/kernels/csrc/,
      the emitted GEMMs (phase 8's and phase 8b's searched ones) and the
-     general emitter's four sources; print the
+     general emitter's sources; print the
      tensor-core, register-tiled (ffma), decode attention and SSD kernels'
      registers, shared memory and spills (ptxas);
   3. decode_attention against its plain PyTorch version at the serving
@@ -148,7 +149,21 @@ Phases, each printing its own lines; any failure exits nonzero:
      the CPU; (e) FailoverRunner at two layers with injected failures,
      bit-equal to an uninterrupted run; then (f) launch.dryrun on a fake
      process group (host only): qwen2-7b train_4k on 16 x 16, kimi-k2-1t's
-     state bytes a device on both production meshes.
+     state bytes a device on both production meshes;
+ 15. the raising entry point [raise]: (a) every block of qwen2_7b,
+     mamba2_130m and recurrentgemma_2b raised from traced PyTorch
+     (repro_torch.core.raise), their raisability against
+     docs/RAISING.md's rows, serve.compiled.plan_blocks(device="cuda")
+     against the reference's plan rows (block, status, schedule, modelled
+     cycles, CUDA emission), and each compiled block's run_cuda (the
+     general emitter's stage kernels) against run_ref and its plain
+     version; (b) qwen2-7b's MLP block (layers.apply_mlp, f32, full-width
+     params) over 4 x 128 tokens raised with raise_fx, compiled in the
+     plan's schedule order and run through run_cuda, against apply_mlp on
+     the card and run_ref, timed beside its bound and apply_mlp's own
+     time; both drive the stage kernels with the count reset; (c) phase
+     6b's bf16 ContinuousEngine carries the qwen2_7b plan (plan=), which
+     changes none of its streams.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside the repository, it exits nonzero and prints no result.
 
@@ -319,6 +334,37 @@ TRAIN_CUT, TRAIN_SMALL = 2, (2, 64)
 DIST_GEMM = (BATCH * PROMPT, 18944, 3584)
 DIST_MOE_CF = 8.0
 DIST_FAIL, DIST_FAIL_EVERY, DIST_FAIL_STEPS = (3, 5), 2, 6
+# the raising entry point (phase 15): three configs whose blocks cover
+# every raisable block kind, each with its raised blocks and its blocked
+# ones with their first unraisable ATen op (docs/RAISING.md's rows, the
+# jax primitive named as its ATen op), and the plan rows the reference's
+# serve.compiled.plan_blocks gives on TPU_V5E: (block, status, schedule,
+# modelled cycles, CUDA emission where the reference has its Pallas one)
+RAISED = {"qwen2_7b": (("rmsnorm", "mlp", "head", "attn_softmax"),
+                       {"rope": "aten.slice.Tensor"}),
+          "mamba2_130m": (("rmsnorm", "head", "ssd_core"), {}),
+          "recurrentgemma_2b": (("rmsnorm", "mlp", "head", "attn_softmax",
+                                 "rglru_core"),
+                                {"rope": "aten.slice.Tensor"})}
+_KG = "autotuned:tpu_mxu_kgrid"
+PLAN_ROWS = {
+    "qwen2_7b": (("rmsnorm", "compiled", "tpu_mxu", 1641, True),
+                 ("mlp", "compiled", _KG, 8544, True),
+                 ("head", "compiled", _KG, 4054, True),
+                 ("attn_softmax", "compiled", _KG, 1034, False),
+                 ("rope", "fallback", None, None, False)),
+    "mamba2_130m": (("rmsnorm", "compiled", "tpu_mxu", 1641, True),
+                    ("head", "compiled", _KG, 4054, True),
+                    ("ssd_core", "compiled", "nested", 11472, True)),
+    "recurrentgemma_2b": (("rmsnorm", "compiled", "tpu_mxu", 1641, True),
+                          ("mlp", "compiled", _KG, 15843, True),
+                          ("head", "compiled", _KG, 4054, True),
+                          ("attn_softmax", "compiled", _KG, 1034, False),
+                          ("rope", "fallback", None, None, False),
+                          ("rglru_core", "compiled", "tpu_mxu", 6274, True))}
+# phase 15b: qwen2-7b's MLP block over phase 8's 4 x 128 tokens, held to
+# apply_mlp on the card and to run_ref at the emitted GEMM's f32 bound
+RAISED_MLP = (BATCH, PROMPT)
 # kernel names of the products in a profile (cuBLAS, cuBLASLt, CUTLASS)
 PRODUCT_KERNELS = ("gemm", "gemv", "cutlass", "nvjet", "splitK")
 # the repaired emitters (phase 6c): a product whose 256 x 256 f32
@@ -1787,17 +1833,18 @@ def same_streams(label, got, eager, model, params):
     return agree["vs serial"]
 
 
-def continuous_run(model, params, cuda_graphs):
+def continuous_run(model, params, cuda_graphs, plan=None):
     """The launcher's --continuous stream through a ContinuousEngine with
-    a wall clock, submitting under backpressure as the launcher does.
-    Returns (engine, metrics snapshot, decode_attention launches)."""
+    a wall clock, submitting under backpressure as the launcher does; the
+    engine keeps ``plan`` (a compile plan) as a record.  Returns (engine,
+    metrics snapshot, decode_attention launches)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.serve.continuous import ContinuousEngine
     from repro_torch.serve.metrics import ServeMetrics, WallClock
     metrics = ServeMetrics(WallClock(), slots=BATCH)
     eng = ContinuousEngine(model, params, slots=BATCH,
                            max_len=PROMPT + GEN + 1, metrics=metrics,
-                           cuda_graphs=cuda_graphs)
+                           cuda_graphs=cuda_graphs, plan=plan)
     da.decode_attention.launches = 0
     for r in continuous_stream(model.cfg):
         while not eng.submit(r):
@@ -1806,7 +1853,7 @@ def continuous_run(model, params, cuda_graphs):
     return eng, metrics.snapshot(), da.decode_attention.launches
 
 
-def continuous_phase(cfg, bmodel, bparams, dev):
+def continuous_phase(cfg, bmodel, bparams, dev, plan):
     """Phase 6b: serve the load generator's stream through
     ``launch.serve --continuous`` (f32, the launcher's default: captured
     batched steps), then the bf16 model of phase 6a through
@@ -1815,8 +1862,9 @@ def continuous_phase(cfg, bmodel, bparams, dev):
     decode_attention launches once a layer per batched step (counted at
     each replay), the captured streams are the eager ones and the serial
     engine's are compared, one batched step matches B=1 steps of its
-    slots, and the batched step is timed captured and eager.  Returns the
-    launches of each captured run."""
+    slots, and the batched step is timed captured and eager.  The bf16
+    engine carries ``plan`` (phase 15c: qwen2_7b's compile plan), which it
+    keeps and does not run.  Returns the launches of each captured run."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.launch import serve
     da.decode_attention.launches = 0
@@ -1837,8 +1885,13 @@ def continuous_phase(cfg, bmodel, bparams, dev):
     runs = {"float32": (eng.model, eng.params, dict(eng.results),
                         lambda s: TOL_BACKENDS)}
     del eng, res
-    beng, snap, launches["bfloat16"] = continuous_run(bmodel, bparams, True)
+    beng, snap, launches["bfloat16"] = continuous_run(bmodel, bparams, True,
+                                                      plan=plan)
     snapshot_line("bfloat16 (ContinuousEngine, captured steps)", snap)
+    print(f"[raise] 15c: the bf16 ContinuousEngine carries the compile "
+          f"plan (engine.plan is plan: {beng.plan is plan}); its streams "
+          f"are checked below\n{plan.describe()}")
+    check(beng.plan is plan, "the engine does not keep its plan")
     check(snap["requests"]["completed"] == CONT_REQUESTS,
           f"bf16: {snap['requests']['completed']} of {CONT_REQUESTS}")
     check(launches["bfloat16"] == cfg.num_layers * beng.steps,
@@ -3231,6 +3284,254 @@ REPROC_MAIN = ("import runpy, sys\n"
                "sys.exit(code or (3 if 'jax' in sys.modules else 0))\n")
 
 
+# ---- phase 15: the raising entry point ------------------------------------
+
+
+def compile_raised(dev):
+    """Phase 15's compiles (at phase 2, so the stage sources build with
+    the others): every block of the RAISED configs raised from traced
+    PyTorch, each config's compile plan on the card (which keeps each
+    compiled block's artifact), and qwen2-7b's full-width MLP block raised
+    and compiled in the plan's candidate order.  The MLP's params are
+    drawn on the host (they become the raised graph's constants); nothing
+    stays on the card."""
+    import importlib
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.serve import compiled as sc
+    raising = importlib.import_module("repro_torch.core.raise")
+    t0 = time.perf_counter()
+    reports = {a: raising.raise_model_blocks(a) for a in RAISED}
+    plans = {a: sc.plan_blocks(a, device=str(dev)) for a in RAISED}
+    blocks = []
+    for arch, plan in plans.items():
+        reps = {r.block: r for r in reports[arch]}
+        blocks += [(arch, reps[c.block], c, c.kernel)
+                   for c in plan.compiled if c.cuda]
+    t1 = time.perf_counter()
+    cfg = get_config(ARCH)
+    params = L.init_mlp(cfg, L.Maker("init", torch.Generator().manual_seed(
+        0), device="cpu"))
+    rg = raising.raise_fx(lambda x: L.apply_mlp(params, x, cfg),
+                          (*RAISED_MLP, cfg.d_model), name="qwen2_7b.mlp")
+    label, ck, refusals = sc.compile_first(rg, device=str(dev),
+                                           want_torch=False)
+    for r in refusals:
+        print(f"[raise] 15b: passed over {r}")
+    check(ck is not None, f"qwen2_7b.mlp at full width: no schedule "
+          f"compiles ({'; '.join(refusals)})")
+    check(ck.run_cuda is not None, f"qwen2_7b.mlp at full width: the "
+          f"general emitter refuses {label}")
+    mlp = (label, rg, ck, params)
+    print(f"[compile] raise: {sum(len(r) for r in reports.values())} blocks "
+          f"of {', '.join(RAISED)} raised and planned, {len(blocks)} "
+          f"compiled with a CUDA emission, in {t1 - t0:.2f}s; qwen2_7b.mlp "
+          f"at {RAISED_MLP[0]} x {RAISED_MLP[1]} tokens x d_model "
+          f"{cfg.d_model} (d_ff {cfg.d_ff}) raised ({len(rg.graph.ops)} ops)"
+          f" and compiled ({mlp[0]}, {len(mlp[2].run_cuda.stages)} stages) "
+          f"in {time.perf_counter() - t1:.2f}s")
+    sources = [b[3].run_cuda.source for b in blocks]
+    return {"reports": reports, "plans": plans, "blocks": blocks,
+            "mlp": mlp, "sources": sources + [mlp[2].run_cuda.source]}
+
+
+def raise_phase(raised, dev, flush, smi):
+    """Phase 15: (a) the raised blocks' raisability and compile plans
+    against the reference's, then each compiled block's run_cuda; (b)
+    qwen2-7b's full-width MLP block through run_cuda.  Both are driven once
+    with the stage launch count reset and read just after; then each is
+    held to run_ref and its plain version, and timed.  Returns the JSON
+    rows."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core import backend_cuda
+    from repro_torch.kernels import gemm
+    from repro_torch.models import layers as L
+    t0 = time.perf_counter()
+
+    # 15a: raisability and the plans, as the reference gives them
+    for arch, (ok, blocked) in RAISED.items():
+        reps = raised["reports"][arch]
+        got_ok = tuple(r.block for r in reps if r.ok)
+        got_blocked = {r.block: r.error.split("[primitive: ")[1].split("]")[0]
+                       for r in reps if not r.ok}
+        print(f"[raise] 15a {arch}: raised {', '.join(got_ok)}; blocked "
+              + (", ".join(f"{b} ({op})" for b, op in got_blocked.items())
+                 or "none"))
+        check(got_ok == ok and got_blocked == blocked,
+              f"{arch}: raisability {got_ok} {got_blocked}, expected "
+              f"{ok} {blocked}")
+        plan = raised["plans"][arch]
+        print(plan.describe())
+        rows = tuple((c.block, c.status, c.schedule, c.cycles, c.cuda)
+                     for c in plan.choices)
+        check(rows == PLAN_ROWS[arch], f"{arch}: plan rows {rows}")
+
+    # the path: each compiled block's run_cuda and the full-width MLP's,
+    # once, with the stage launch count reset just before
+    label, rg, ck, params = raised["mlp"]
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (*RAISED_MLP, rg.arg_shapes[0][-1])).astype(np.float32))
+    bound = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in rg.bind(x)]
+    torch.cuda.synchronize()
+    backend_cuda.emit_general.launches = 0
+    gemm_before = gemm.cuda_gemm.launches
+    outs, counts = [], []
+    for arch, rep, c, bck in raised["blocks"]:
+        before = backend_cuda.emit_general.launches
+        outs.append(rep.raised.run_compiled(bck, *rep.example_inputs,
+                                            backend="cuda"))
+        counts.append(backend_cuda.emit_general.launches - before)
+    before = backend_cuda.emit_general.launches
+    full = ck.run_cuda(*bound)
+    torch.cuda.synchronize()
+    mlp_count = backend_cuda.emit_general.launches - before
+    total = backend_cuda.emit_general.launches
+    want = [len(b[3].run_cuda.stages) for b in raised["blocks"]]
+    print(f"[raise] emit_general stage launches {counts} per raised block "
+          f"(stages {want}), {mlp_count} for the full-width MLP "
+          f"({len(ck.run_cuda.stages)} stages), {total} in all; cuda_gemm "
+          f"launches moved by {gemm.cuda_gemm.launches - gemm_before}")
+    check(counts == want and mlp_count == len(ck.run_cuda.stages)
+          and total == sum(want) + mlp_count and total > 0,
+          f"stage launches {counts} + {mlp_count}, expected {want}")
+
+    rows = []
+    rtol, atol = TOL_COMPILED
+    for (arch, rep, c, bck), (got,), count in zip(raised["blocks"], outs,
+                                                  counts):
+        name = f"stagecc_general raised {arch}.{c.block} float32"
+        (want_ref,) = rep.raised.run_ref(*rep.example_inputs)
+        xs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in rep.raised.bind(*rep.example_inputs)]
+        plain = backend_cuda.general_plain(bck.run_cuda, *xs)
+        torch.cuda.synchronize()
+        got_t = torch.from_numpy(got)
+        plain_t = plain.cpu().reshape(got_t.shape)
+        ref_t = torch.from_numpy(np.ascontiguousarray(want_ref))
+        check(bool(torch.isfinite(got_t).all()), f"{name}: non-finite")
+        err = (got_t - plain_t).abs().max().item()
+        shares = {"run_ref": share_of(got_t, ref_t, rtol, atol),
+                  "plain": share_of(got_t, plain_t, rtol, atol)}
+        print(f"[raise] {name} ({c.schedule}, {count} stages, modelled "
+              f"{c.cycles} cycles on TPU_V5E): max_abs_err {err:.3e} vs "
+              f"general_plain; worst element at {shares['run_ref']:.3g} of "
+              f"rtol {rtol:g} atol {atol:g} vs run_ref, "
+              f"{shares['plain']:.3g} vs general_plain")
+        library = None
+        if c.block == "rmsnorm":
+            # the block is F.rms_norm with weight 1 + w, the d-wide
+            # constant the raiser folds
+            d = rep.raised.arg_shapes[0][-1]
+            (wt,) = [t.reshape(d) for t in xs[rep.raised.n_args:]
+                     if t.numel() == d]
+            eps = reduced(get_config(arch)).norm_eps
+            x2 = xs[0].reshape(-1, d)
+
+            def library(x2=x2, d=d, wt=wt, eps=eps):
+                return F.rms_norm(x2, (d,), weight=wt, eps=eps)
+            shares["rms_norm"] = share_of(got_t, library().cpu().reshape(
+                got_t.shape), rtol, atol)
+        check(max(shares.values()) <= 1, f"{name}: off its bounds {shares}")
+        fn = bck.run_cuda
+        flops = sum(st.flops for st in fn.stages)
+        nbytes = sum(t.numel() * 4 for t in xs) + got_t.numel() * 4
+        b, by = roofline(nbytes, flops, F32_FLOP_PER_S)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/stagecc_stage.cuh",
+                     "replaces": "src/repro/core/backend_pallas.py:402",
+                     "launches": count, "max_abs_err": err,
+                     "ms": time_ms(lambda: fn(*xs), flush, iters=5),
+                     "plain_ms": time_ms(lambda: backend_cuda.general_plain(
+                         fn, *xs), flush, iters=3, warm=1),
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": (None if library is None else
+                                    time_ms(library, flush, iters=5))})
+        if library is not None:
+            print(f"[raise] {name}: F.rms_norm on the same inputs "
+                  f"{rows[-1]['library_ms']:.4f} ms (worst element at "
+                  f"{shares['rms_norm']:.3g} of its bound), run_cuda "
+                  f"{rows[-1]['ms']:.4f} ms; card {smi}")
+    for arch, plan in raised["plans"].items():
+        for c in plan.compiled:
+            if not c.cuda:
+                print(f"[raise] {arch}.{c.block}: compiled ({c.schedule}) "
+                      f"with no CUDA emission, as the reference has no "
+                      f"Pallas one: both emitters refuse its interior "
+                      f"@grid loop")
+
+    # 15b: the full-width MLP block against apply_mlp, run_ref and its
+    # plain version
+    cfg = get_config(ARCH)
+    p_dev = {k: v.to(dev) for k, v in params.items()}
+    x_dev = x.to(dev)
+    with torch.no_grad():
+        lib = L.apply_mlp(p_dev, x_dev, cfg)
+    got = full.reshape(lib.shape)
+    (want_ref,) = rg.run_ref(x)
+    plain = backend_cuda.general_plain(ck.run_cuda, *bound)
+    torch.cuda.synchronize()
+    name = (f"stagecc_general raised qwen2_7b.mlp {RAISED_MLP[0]}x"
+            f"{RAISED_MLP[1]}x{cfg.d_model} d_ff {cfg.d_ff} float32")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    g_rtol, g_atol = GEMM_F32
+    shares = {"apply_mlp": share_of(got, lib, g_rtol, g_atol),
+              "run_ref": share_of(got.cpu(), torch.from_numpy(want_ref),
+                                  g_rtol, g_atol),
+              "plain": share_of(got, plain.reshape(lib.shape), g_rtol,
+                                g_atol)}
+    err = (got - plain.reshape(lib.shape)).abs().max().item()
+    print(f"[raise] 15b {name} ({label}): max_abs_err {err:.3e} vs "
+          f"general_plain; worst element at {shares['apply_mlp']:.3g} of "
+          f"rtol {g_rtol:g} atol {g_atol:g} vs apply_mlp (TF32 off), "
+          f"{shares['run_ref']:.3g} vs run_ref, {shares['plain']:.3g} vs "
+          f"general_plain (max |diff| vs apply_mlp "
+          f"{(got - lib).abs().max().item():.3e})")
+    check(max(shares.values()) <= 1, f"{name}: off its bounds {shares}")
+    del plain, lib
+    fn = ck.run_cuda
+    m, d = RAISED_MLP[0] * RAISED_MLP[1], cfg.d_model
+    flops = 3 * 2 * m * d * cfg.d_ff
+    nbytes = sum(t.numel() * 4 for t in bound) + got.numel() * 4
+    b, by = roofline(nbytes, flops, F32_FLOP_PER_S)
+    stage_flops = sum(st.flops for st in fn.stages)
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/stagecc_stage.cuh",
+           "replaces": "src/repro/core/backend_pallas.py:402",
+           "launches": mlp_count, "max_abs_err": err,
+           "ms": time_ms(lambda: fn(*bound), flush, iters=5),
+           "plain_ms": time_ms(lambda: backend_cuda.general_plain(
+               fn, *bound), flush, iters=2, warm=1),
+           "bound_ms": b, "bound_by": by,
+           "library_ms": time_ms(lambda: L.apply_mlp(p_dev, x_dev, cfg),
+                                 flush, iters=10)}
+    env = fn.environment(*bound)
+    for st in fn.stages:
+        st(env)
+    for st in fn.stages:
+        ms = time_ms(lambda st=st: st(env), flush, iters=3, warm=1)
+        sb, sby = roofline(st.hbm_bytes, st.flops, F32_FLOP_PER_S)
+        print(f"[timing] {name} stage {st.index}: {st.layout}, cold L2: "
+              f"{ms:.3f} ms, bound {sb:.4f} ms ({sby}: "
+              f"{st.hbm_bytes / 1e6:.1f} MB, {st.flops / 1e9:.3f} GFLOP)")
+    del env
+    print(f"[timing] {name}, cold L2: run_cuda {row['ms']:.3f} ms per call "
+          f"({mlp_count} stage launches), bound {b:.3f} ms ({by}: "
+          f"{flops / 1e9:.1f} GFLOP of the three products at 67 TFLOP/s f32 "
+          f"= 3 x {flops / 3 / F32_FLOP_PER_S * 1e3:.3f} ms a product; "
+          f"{nbytes / 1e6:.1f} MB of inputs and output; the stages count "
+          f"{stage_flops / 1e9:.1f} GFLOP), apply_mlp (torch.matmul, TF32 "
+          f"off) {row['library_ms']:.3f} ms, general_plain "
+          f"{row['plain_ms']:.3f} ms; card {smi}")
+    rows.append(row)
+    del bound, full, got, p_dev, x_dev
+    torch.cuda.empty_cache()
+    print(f"[raise] phase 15: {time.perf_counter() - t0:.1f} s (its raising, "
+          f"compiles and builds ran in phase 2)")
+    return rows
+
+
 def reproc_phase():
     """Phase 11b: ``python -m repro_torch.core.reproc`` three times, in
     parallel subprocesses, on this machine, which has no JAX: each must
@@ -3390,10 +3691,12 @@ def main() -> int:
     compiled = compile_graphs(dev)
     repaired = compile_repaired(dev)
     autos = compile_autos(dev)
+    raised = compile_raised(dev)
     sources = sorted({ck.run_cuda.source for _, _, ck in gemms + autos}
                      | {fn.source for fn in dist_gemm_products()})
     general = [ck.run_cuda.source for *_, ck in compiled]
     general += [fn.source for _, fn, *_ in repaired]
+    general += raised["sources"]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(
             len(sources) + len(general) + len(HAND_KERNELS)) as pool:
@@ -3407,8 +3710,9 @@ def main() -> int:
     print_resources(sources)
     print(f"[build] {', '.join(HAND_KERNELS)}, {len(sources)} emitted "
           f"GEMM sources and {len(general)} more emitted sources (the "
-          f"general emitter's, and the repaired kernels' of phase 6c), one "
-          f"nvcc each, in parallel: {time.perf_counter() - t0:.1f}s")
+          f"general emitter's, the repaired kernels' of phase 6c and the "
+          f"raised blocks' of phase 15), one nvcc each, in parallel: "
+          f"{time.perf_counter() - t0:.1f}s")
 
     # 3. kernel vs plain version at the serving path's shapes
     errs = {}
@@ -3534,7 +3838,8 @@ def main() -> int:
     # 6a. bf16 serving; 6b. continuous batching, f32 through the launcher
     # and the bf16 model on the same stream
     bmodel, bparams, bf16_launches, _ = bf16_serving_phase(cfg, dev, toks)
-    cont_launches = continuous_phase(cfg, bmodel, bparams, dev)
+    cont_launches = continuous_phase(cfg, bmodel, bparams, dev,
+                                     raised["plans"]["qwen2_7b"])
     del bmodel, bparams
     torch.cuda.empty_cache()
 
@@ -3578,6 +3883,9 @@ def main() -> int:
     # 14. the distribution layer: the mesh trainer, the sharded GEMM, the
     # expert-parallel MoE, the int8 all-reduce, failover, the dry run
     rows += dist_phase(dev, flush, smi, p13)
+
+    # 15. the raising entry point: raised blocks through the stage kernels
+    rows += raise_phase(raised, dev, flush, smi)
 
     # 12. every kernel's row
     print(json.dumps({"kernels": rows}))

@@ -191,3 +191,30 @@ def trace(fn: Callable, in_specs: Sequence[spec], name: str = None) -> Graph:
     g.set_outputs(*[t.value for t in outs])
     g.verify()
     return g
+
+
+# --------------------------------------------------------------------------
+# raising: traced PyTorch -> TensorIR (the other way into this frontend)
+# --------------------------------------------------------------------------
+# ``raise`` is a Python keyword, so ``core/raise.py`` cannot be imported with
+# ordinary syntax; these delegators give raising a home in the frontend
+# namespace next to trace()/the hand-written kernel graphs.
+
+
+def raise_fx(fn, *in_specs, **kw):
+    """Trace ``fn`` at ``in_specs`` with ``make_fx`` and raise the ATen
+    graph into TensorIR.
+
+    Returns a ``RaisedGraph`` (see ``core/raise.py``): the graph plus the
+    captured-constant bindings, runnable via ``run_ref``/``compile``."""
+    import importlib
+    return importlib.import_module("repro_torch.core.raise").raise_fx(
+        fn, *in_specs, **kw)
+
+
+def raise_model_blocks(config_name, **kw):
+    """Raise every fused forward-pass block of one model config; returns
+    per-block ``BlockReport``s (raised graph or diagnostic)."""
+    import importlib
+    return importlib.import_module("repro_torch.core.raise").raise_model_blocks(
+        config_name, **kw)

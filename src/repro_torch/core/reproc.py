@@ -15,6 +15,8 @@ IR after every stage::
     python -m repro_torch.core.reproc --gemm 32x32x32 --epilogue none \
         --dse --pareto-csv pareto.csv   # design-space exploration
     python -m repro_torch.core.reproc --list-passes --markdown
+    python -m repro_torch.core.reproc --raise qwen2_7b          # raisability report
+    python -m repro_torch.core.reproc --raise qwen2_7b:mlp      # raised TensorIR
 
 Pipeline stages separate on ``;`` or ``,``; stage arguments go in braces
 (``lower{tile_m=128}``).  Without ``--input``, the driver traces the
@@ -23,11 +25,12 @@ quickstart GEMM (``relu(a @ b + bias)``, 64x32x16) as its input module.
 (``tensor`` | ``loop`` | ``hw`` | ``verilog``) with default passes
 before printing, so ``--emit=verilog`` alone walks the whole stack.
 ``--list-passes --markdown`` prints the pass reference as markdown.
+``--raise CONFIG:BLOCK`` raises one forward-pass block of a model config
+from traced PyTorch (``core/raise.py``) into TensorIR and uses it as the
+input module; ``--raise CONFIG`` prints the per-block raisability report.
 
 The port of ``repro/core/reproc.py``: the same flags, output and exit
-codes.  Its backend passes are ``emit-torch`` and ``emit-cuda``, and
-``--raise`` exits 1 with a message, because the raising frontend
-(``core/raise.py``, ROADMAP item A12) is not ported yet.
+codes.  Its backend passes are ``emit-torch`` and ``emit-cuda``.
 """
 
 from __future__ import annotations
@@ -298,23 +301,11 @@ def kernel_graph(spec_str: str) -> Graph:
     return builder(*args)
 
 
-RAISE_UNPORTED = ("--raise needs the raising frontend (core/raise.py), "
-                  "which is not ported to PyTorch yet (ROADMAP A12)")
-
-
-def _raising():
-    """The raising frontend's module; a ValueError until it is ported."""
-    import importlib
-    try:
-        return importlib.import_module("repro_torch.core.raise")
-    except ModuleNotFoundError:
-        raise ValueError(RAISE_UNPORTED) from None
-
-
 def raised_block_graph(spec_str: str) -> Graph:
     """Raise one model block named as ``CONFIG:BLOCK`` (see ``--raise``)
     into its TensorIR graph."""
-    raising = _raising()
+    import importlib
+    raising = importlib.import_module("repro_torch.core.raise")
     config, _, block = spec_str.partition(":")
     reports = raising.raise_model_blocks(config)
     by_name = {r.block: r for r in reports}
@@ -372,10 +363,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "to a small smoke shape")
     p.add_argument("--raise", dest="raise_spec", metavar="CONFIG[:BLOCK]",
                    help="raise a (reduced) model config's forward-pass "
-                        "block into TensorIR and use it as the input "
-                        "module, e.g. 'qwen2_7b:mlp'; without :BLOCK, "
-                        "print the per-block raisability report and exit "
-                        "(not ported yet: exits 1)")
+                        "block from traced PyTorch into TensorIR and use "
+                        "it as the input module, e.g. 'qwen2_7b:mlp'; "
+                        "without :BLOCK, print the per-block raisability "
+                        "report (raised graphs + unraisable-op "
+                        "diagnostics) and exit")
     p.add_argument("--emit", metavar="LEVEL",
                    help="lower the final artifact to LEVEL (tensor|loop|"
                         "hw|verilog) with default passes before printing")
@@ -513,8 +505,9 @@ def _run(args, out) -> int:
                   "and takes no pipeline; name a block as CONFIG:BLOCK to "
                   "get an input module", file=sys.stderr)
             return 2
+        import importlib
+        raising = importlib.import_module("repro_torch.core.raise")
         try:
-            raising = _raising()
             print(raising.raising_report(args.raise_spec), file=out, end="")
         except (KeyError, ValueError) as e:
             print(f"error: {e}", file=sys.stderr)

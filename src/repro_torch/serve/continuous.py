@@ -98,14 +98,16 @@ class ContinuousEngine:
       ``results``       rid -> generated ids (np.int32) of finished
                         requests.
 
-    ``steps`` counts the batched decode steps run.
+    ``steps`` counts the batched decode steps run.  ``plan`` (a
+    ``serve.compiled.ServeCompilePlan``) is kept as ``self.plan`` for the
+    caller to report; the decode step does not read it.
     """
 
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
                  seed: int = 0, queue_limit: Optional[int] = None,
                  metrics: Optional[ServeMetrics] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, plan=None):
         self.model = model
         self.params = params
         self.slots = int(slots)
@@ -114,6 +116,7 @@ class ContinuousEngine:
         self.seed = int(seed)
         self.queue_limit = queue_limit
         self.metrics = metrics
+        self.plan = plan                       # ServeCompilePlan or None
         self.depth = cache_depth(self.max_len)
         self.steps = 0
 

@@ -4,9 +4,11 @@ The same argument vectors through both ``reproc.main``: equal exit codes,
 standard output and standard error, and equal bytes in the files they
 write (``--pareto-csv``, ``--vcd``, ``-o``), once the package's own name
 is read as the reference's.  By design the port lists its own backend
-passes (``emit-torch``, ``emit-cuda`` for ``emit-jax``, ``emit-pallas``),
-and ``--raise`` refuses, since the raising frontend is not ported yet;
-``--timing`` prints wall times and is checked for its shape only.
+passes (``emit-torch``, ``emit-cuda`` for ``emit-jax``, ``emit-pallas``);
+``--raise`` is held to the reference's docs/RAISING.md transcripts and to
+its driver with its raiser patched for the installed jax
+(``tests/_torch_raise_ref.py``); ``--timing`` prints wall times and is
+checked for its shape only.
 """
 
 import io
@@ -185,12 +187,86 @@ def test_list_passes_differs_only_in_the_backend_passes(capsys):
     assert "docs/PASSES.md" not in got
 
 
-@pytest.mark.parametrize("argv", [["--raise", "qwen2_7b"],
-                                  ["--raise", "qwen2_7b:mlp"]])
-def test_raise_refuses_until_the_raising_frontend_is_ported(argv, capsys):
+def _doc_transcripts(path=os.path.join(os.path.dirname(__file__), "..",
+                                       "docs", "RAISING.md")):
+    """``reproc`` argument string -> the output block under it in the
+    reference's generated docs/RAISING.md."""
+    text = open(path).read()
+    pat = re.compile(r"```sh\nPYTHONPATH=src python -m repro\.core\.reproc "
+                     r"(.*?)\n```\n\n```\n(.*?)\n```", re.S)
+    return dict(pat.findall(text))
+
+
+RAISE_DOC_ARGVS = [
+    ["--raise", "qwen2_7b:mlp"],
+    ["--raise", "mamba2_130m"],
+    ["--raise", "qwen2_7b:rmsnorm", "--pipeline",
+     "lower{tile_m=8,tile_n=8,tile_k=8}", "--simulate"],
+]
+
+
+@pytest.mark.filterwarnings("ignore:invalid value encountered")
+@pytest.mark.parametrize("argv", RAISE_DOC_ARGVS, ids=" ".join)
+def test_raise_matches_the_reference_docs(argv, capsys):
+    """``--raise`` prints the reference's docs/RAISING.md transcripts byte
+    for byte: a raised module, a raisability report, and a raised block
+    through a pipeline and the co-simulation (1,896 cycles)."""
     code, out, err = _run(reproc, argv, capsys)
-    assert code == 1 and out == ""
-    assert "A12" in err and "--raise" in err
+    assert code == 0, err
+    assert out.rstrip("\n") == _doc_transcripts()[" ".join(argv)]
+    if "--simulate" in argv:
+        assert "observed=1,896 cycles vs modeled=1,896" in out
+
+
+@pytest.fixture
+def ref_raising():
+    import _torch_raise_ref
+    with _torch_raise_ref.shim() as mod:
+        yield mod
+
+
+RAISE_ARGVS = [
+    ["--raise", "qwen2_7b:head", "--emit=hw"],
+    ["--raise", "mamba2_130m:ssd_core", "--pipeline", "lower",
+     "--simulate"],
+    ["--raise", "recurrentgemma_2b:rglru_core", "--emit=loop"],
+    ["--raise", "qwen2_7b:rmsnorm", "--dse", "2"],
+    ["--raise", "qwen2_7b:nope"],
+    ["--raise", "nope_model"],
+    ["--raise", "qwen2_7b", "--emit", "loop"],
+    ["--raise", "qwen2_7b", "--simulate"],
+    ["--raise", "qwen2_7b", "--dse"],
+    ["--raise", "qwen2_7b:mlp", "--kernel", "flash"],
+    ["--raise", "qwen2_7b:mlp", "--input", "x.ir"],
+]
+
+
+@pytest.mark.filterwarnings("ignore:invalid value encountered")
+@pytest.mark.parametrize("argv", RAISE_ARGVS, ids=" ".join)
+def test_raise_matches_reference(argv, capsys, ref_raising):
+    """``--raise`` composed with ``--emit`` / ``--pipeline`` /
+    ``--simulate`` / ``--dse``, and its error exits, against the
+    reference's driver (its raiser patched for the installed jax)."""
+    want = _run(ref_reproc, argv, capsys)
+    got = _run(reproc, argv, capsys)
+    assert got[0] == want[0]
+    assert _same(got[1]) == _ref(want[1])
+    assert _same(got[2]) == _ref(want[2])
+
+
+def test_raise_unraisable_block_names_the_aten_op(capsys, ref_raising):
+    """A block that does not raise exits 1 as the reference does; its
+    diagnostic names the ATen op where the reference names the jax
+    primitive."""
+    argv = ["--raise", "qwen2_7b:rope"]
+    want = _run(ref_reproc, argv, capsys)
+    got = _run(reproc, argv, capsys)
+    assert got[0] == want[0] == 1 and got[1] == want[1] == ""
+    assert got[2].splitlines()[:2] == [
+        ln.replace("'slice'", "'aten.slice.Tensor'").replace(
+            "primitive: slice", "primitive: aten.slice.Tensor")
+        for ln in want[2].splitlines()[:2]]
+    assert "in node: " in got[2]
 
 
 def test_timing_prints_one_row_per_pass(capsys):
