@@ -48,7 +48,9 @@ Phases, each printing its own lines; any failure exits nonzero:
  6c. the repaired emitters: an f16 GEMM and a kernel whose scratch exceeds
      a block's shared memory through compile_traced, and a batched product
      with rank-3 matmul tiles through backend_cuda.emit, each launched once
-     with the counts reset, held to its plain version and timed;
+     with the counts reset, held to its plain version and timed (the f16
+     GEMM beside torch.mm(..., out_dtype=torch.float32), the one call
+     that computes the same function);
  6d. the recurrent and MoE families at their published widths, weights
      from the launcher's seed: mamba2-130m and recurrentgemma-2b whole (f32
      and bf16), deepseek-v2-236b (f32 and bf16) and kimi-k2-1t (bf16) cut
@@ -91,7 +93,9 @@ Phases, each printing its own lines; any failure exits nonzero:
      the counts reset, one f32 product on operands that start 4 bytes past
      a 16-byte boundary, which only the plain CUDA-core route (simt,
      stagecc_gemm.cuh) reads; each against its plain version and the
-     bracket of its roundings, then timed like phase 7;
+     bracket of its roundings, then timed like phase 7 (a bf16 product,
+     whose output is f32, beside torch.mm(..., out_dtype=torch.float32)
+     and torch.matmul);
   8b. ops.matmul(backend="cuda_auto") on the MLP products, f32 and bf16,
      at the schedule and tiles the cost-model search picks (tpu_mxu, 256 x
      256 x K), with the counts reset: its route, held to phase 8's gates
@@ -149,7 +153,14 @@ Phases, each printing its own lines; any failure exits nonzero:
      the CPU; (e) FailoverRunner at two layers with injected failures,
      bit-equal to an uninterrupted run; then (f) launch.dryrun on a fake
      process group (host only): qwen2-7b train_4k on 16 x 16, kimi-k2-1t's
-     state bytes a device on both production meshes;
+     state bytes a device on both production meshes; (g) host only, on
+     this machine's torch: 4 gloo CPU ranks (this script again, a
+     FileStore, no card visible) train reduced qwen2-7b and
+     deepseek-v2-236b (its MoE expert-parallel) for 3 SGD steps on a
+     (2, 2) mesh, run sharded_gemm_op on it and launch.train --mesh host
+     on (4, 1), each against the same run without a mesh in this process
+     (losses 1e-6 relative; params, outputs and gradients 1e-6 of their
+     largest magnitude);
  15. the raising entry point [raise]: (a) every block of qwen2_7b,
      mamba2_130m and recurrentgemma_2b raised from traced PyTorch
      (repro_torch.core.raise), their raisability against
@@ -184,6 +195,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -334,6 +346,20 @@ TRAIN_CUT, TRAIN_SMALL = 2, (2, 64)
 DIST_GEMM = (BATCH * PROMPT, 18944, 3584)
 DIST_MOE_CF = 8.0
 DIST_FAIL, DIST_FAIL_EVERY, DIST_FAIL_STEPS = (3, 5), 2, 6
+# phase 14g, host only: DIST_RANKS gloo CPU ranks on this machine's torch,
+# DIST_RANK_STEPS SGD steps of each reduced config on a (2, 2) mesh (the
+# MoE's at the capacity factor above, 8 experts), the launcher's host
+# mesh (DIST_RANKS ranks under torchrun), and sharded_gemm_op at
+# (m, n, k), each against the same run without a mesh in this process:
+# losses within DIST_RANK_TOL relative, params, outputs and gradients
+# within it of each tensor's largest magnitude
+DIST_RANKS, DIST_RANK_MESH = 4, (2, 2)
+DIST_RANK_ARCHS = ("qwen2-7b", "deepseek-v2-236b")
+DIST_RANK_STEPS, DIST_RANK_LR, DIST_RANK_TOL = 3, 0.3, 1e-6
+DIST_RANK_GEMM = (64, 96, 128)
+DIST_RANK_LAUNCH = ["--arch", "qwen2-7b", "--reduced", "--steps", "3",
+                    "--seq-len", "16", "--global-batch", "4"]
+DIST_RANK_TIMEOUT = 300
 # the raising entry point (phase 15): three configs whose blocks cover
 # every raisable block kind, each with its raised blocks and its blocked
 # ones with their first unraisable ATen op (docs/RAISING.md's rows, the
@@ -1345,6 +1371,42 @@ def gemm_gates(name, plan, a, got):
     return err, line, gates, shares
 
 
+_MM_F32 = {}
+
+
+def mm_f32_refusal(dtype):
+    """None when ``torch.mm(a, b, out_dtype=torch.float32)`` (aten::mm.dtype:
+    f16 or bf16 operands, f32 accumulation, an f32 output) runs on the
+    card for ``dtype`` operands; else why it does not, once a dtype."""
+    if dtype not in _MM_F32:
+        x = torch.ones((16, 16), dtype=dtype, device="cuda")
+        try:
+            y = torch.mm(x, x, out_dtype=torch.float32)
+            _MM_F32[dtype] = (None if y.dtype == torch.float32 and
+                              bool((y == 16).all()) else
+                              f"gave {y.dtype}, {y.flatten()[0].item()}")
+        except (TypeError, RuntimeError, NotImplementedError) as e:
+            _MM_F32[dtype] = f"{type(e).__name__}: {e}"
+    return _MM_F32[dtype]
+
+
+def gemm_library(plan, a, b):
+    """One PyTorch call that computes what the emitted GEMM of ``plan``
+    computes on ``a``, ``b``: ``torch.mm(..., out_dtype=torch.float32)``
+    for f16 / bf16 operands with an f32 output (compile_gemm's products),
+    else ``torch.matmul``.  Returns (name, callable or None, what to print
+    when there is none)."""
+    low = plan.dtypes[plan.matmul.lhs.buffer.name] in ("float16", "bfloat16")
+    if not (low and plan.dtypes[plan.out_buffer] == "float32"):
+        return "torch.matmul", lambda: torch.matmul(a, b), None
+    why = mm_f32_refusal(a.dtype)
+    if why is not None:
+        return ("torch.mm(out_dtype=float32)", None,
+                f"torch.mm(out_dtype=float32): none on this torch ({why})")
+    return ("torch.mm(out_dtype=float32)",
+            lambda: torch.mm(a, b, out_dtype=torch.float32), None)
+
+
 def gemm_row(g, a, got, count, path, flush, smi):
     """Phase 8's JSON row of one product ``g`` = (MLP product, name,
     compiled kernel) that ran on ``path``, on inputs ``a`` with result
@@ -1365,13 +1427,32 @@ def gemm_row(g, a, got, count, path, flush, smi):
          "ms": time_ms(lambda: ck.run_cuda(*a), flush, iters=20),
          "plain_ms": time_ms(
              lambda: backend_cuda.gemm_plain(plan, *a), flush, iters=20),
-         "bound_ms": bound, "bound_by": bound_by,
-         "library_ms": time_ms(lambda: torch.matmul(a[0], a[1]), flush,
-                               iters=20)}
+         "bound_ms": bound, "bound_by": bound_by}
+    r["library_ms"], lib = library_times(plan, a[0], a[1], got, flush)
     print(f"[timing] {name}, cold L2: kernel {r['ms']:.3f} ms, bound "
           f"{bound:.3f} ms ({bound_by}), gemm_plain {r['plain_ms']:.3f} ms, "
-          f"torch.matmul {r['library_ms']:.3f} ms; card {smi}")
+          f"{lib}; card {smi}")
     return r
+
+
+def library_times(plan, a, b, got, flush):
+    """The library time of an emitted GEMM's row (``gemm_library``) and
+    the text to print: for f16 / bf16 operands with an f32 output,
+    ``torch.mm(out_dtype=float32)`` (or why there is none, and then no
+    library time: ``torch.matmul`` computes another function) beside
+    ``torch.matmul`` (whose output is in the operands' type), with the
+    first's largest difference from the kernel's output."""
+    lib_name, lib, why = gemm_library(plan, a, b)
+    matmul_ms = time_ms(lambda: torch.matmul(a, b), flush, iters=20)
+    if lib_name == "torch.matmul":
+        return matmul_ms, f"torch.matmul {matmul_ms:.3f} ms"
+    if lib is None:
+        return None, f"{why}; torch.matmul {matmul_ms:.3f} ms"
+    diff = (lib() - got.float()).abs().max().item()
+    ms = time_ms(lib, flush, iters=20)
+    return ms, (f"{lib_name} {ms:.3f} ms (max |diff| {diff:.3e} vs the "
+                f"kernel), torch.matmul ({a.dtype} output) "
+                f"{matmul_ms:.3f} ms")
 
 
 def gemm_phase(gemms, dev, flush, smi):
@@ -1478,8 +1559,8 @@ def auto_phase(autos, dev, flush, smi):
     """Phase 8b: ``ops.matmul(backend="cuda_auto")`` on qwen2-7b's up and
     down products, f32 and bf16, with the counts reset: each one launch on
     the route ``_gemm_route`` picks for the searched tiles, held to phase
-    8's gates and timed beside its bound, gemm_plain and torch.matmul.
-    Returns the JSON rows."""
+    8's gates and timed beside its bound, gemm_plain and the library calls
+    (``library_times``).  Returns the JSON rows."""
     from repro_torch.kernels import gemm, ops
     cg = gemm.cuda_gemm
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2785,8 +2866,8 @@ def dist_gemm(mesh, dev, flush, smi):
     backend "cuda", f32 and bf16: one forward and backward with the
     counts reset (3 launches of the emitted GEMM), the output and both
     gradients bit-equal to gemm_op's; then ms a call against gemm_op's,
-    the plain version, torch.matmul and row 1's bound.  Returns the JSON
-    rows."""
+    the plain version, the library calls (``library_times``) and row 1's
+    bound.  Returns the JSON rows."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.core import backend_cuda, integrate
     from repro_torch.kernels import gemm
@@ -2843,15 +2924,14 @@ def dist_gemm(mesh, dev, flush, smi):
                  "plain_ms": time_ms(
                      lambda: backend_cuda.gemm_plain(plan, a, b), flush,
                      iters=20),
-                 "bound_ms": bound, "bound_by": bound_by,
-                 "library_ms": time_ms(lambda: torch.matmul(a, b), flush,
-                                       iters=20)}
+                 "bound_ms": bound, "bound_by": bound_by}
+            r["library_ms"], lib = library_times(plan, a, b, want.detach(),
+                                                flush)
             ref_ms = time_ms(lambda: ref(a, b), flush, iters=20)
         print(f"[timing] {r['name']}, cold L2: {r['ms']:.3f} ms a call "
               f"(gemm_op {ref_ms:.3f} ms; the DTensor / local_map wrapper "
               f"{r['ms'] - ref_ms:+.3f}), bound {bound:.3f} ms ({bound_by}),"
-              f" gemm_plain {r['plain_ms']:.3f} ms, torch.matmul "
-              f"{r['library_ms']:.3f} ms; card {smi}")
+              f" gemm_plain {r['plain_ms']:.3f} ms, {lib}; card {smi}")
         rows.append(r)
         del a, b, w, da, db, dw, ga, gb, ra, rb, out, want, plain
     torch.cuda.empty_cache()
@@ -3123,9 +3203,338 @@ def dist_dryrun():
     torch.distributed.destroy_process_group()
 
 
+def rank_cfg(arch):
+    """14g's reduced config of ``arch``: deepseek-v2's MoE with 8 experts
+    at DIST_MOE_CF, at which no path drops a token."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduced
+    cfg = reduced(get_config(arch))
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DIST_MOE_CF, num_experts=8))
+
+
+def rank_steps(cfg, params, batches, mesh=None):
+    """DIST_RANK_STEPS SGD steps of ``cfg`` from numpy ``params``, one a
+    numpy batch, on ``mesh`` (DTensor params, moments and batches placed
+    by their logical axes) or with none: the losses, the final params as
+    numpy, and whether the MoE took the expert-parallel path."""
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  sharding_for, tree_map_axes)
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.optim.optimizer import sgd
+    from repro_torch.train.step import TrainState, make_train_step, new_rng
+    model = Model(cfg, RunConfig(max_seq=64), device="cpu")
+    opt = sgd(lambda s: torch.tensor(DIST_RANK_LR))
+
+    def place(axes, a):
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        return t if mesh is None else distribute(t, sharding_for(
+            axes, a.shape, mesh))
+
+    with axis_rules(mesh):
+        state = tree_map_axes(place, model.param_axes(), params)
+        state = TrainState(state, opt.init(state), new_rng(0, 1))
+        fn = make_train_step(model, opt)
+        losses = []
+        for b in batches:
+            state, metrics = fn(state, {k: place("batch -", v)
+                                        for k, v in b.items()})
+            losses.append(float(metrics["loss"]))
+        tokens = batches[0]["tokens"].size
+        ep = cfg.moe is not None and moe._can_shardmap(cfg, tokens)
+        return {"losses": losses, "params": tree_numpy(state.params),
+                "ep": ep}
+
+
+def rank_gemm(a, b, w, mesh=None):
+    """sharded_gemm_op at DIST_RANK_GEMM on ``mesh`` (the lhs and ``w``
+    Shard(0) over data, the rhs replicated), or gemm_op with none: the
+    output and both gradients as numpy."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.core import integrate
+    m, n, k = DIST_RANK_GEMM
+    a, b, w = (torch.from_numpy(x) for x in (a, b, w))
+    if mesh is not None:
+        rows, rep = [Shard(0), Replicate()], [Replicate(), Replicate()]
+        a, w = (distribute_tensor(x, mesh, rows, src_data_rank=None)
+                for x in (a, w))
+        b = distribute_tensor(b, mesh, rep, src_data_rank=None)
+        op = integrate.sharded_gemm_op(mesh, m, n, k)
+    else:
+        op = integrate.gemm_op(m, n, k)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    out = op(a, b)
+    (out * w).sum().backward()
+    whole = [x.full_tensor() if mesh is not None else x
+             for x in (out.detach(), a.grad, b.grad)]
+    return dict(zip(("out", "ga", "gb"), (x.numpy() for x in whole)))
+
+
+def mesh_rank(rank, world, tmp):
+    """14g's body in each gloo CPU rank (``chip_smoke.py --mesh-rank RANK
+    TMP``, a FileStore under ``tmp``): the training of each
+    DIST_RANK_ARCHS config and the sharded GEMM on a DIST_RANK_MESH mesh;
+    each rank's results and seconds pickled under ``tmp``.  Its stdout
+    goes to a file there."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    sys.stdout = open(os.path.join(tmp, f"stdout{rank}.txt"), "w")
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT))
+    try:
+        with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
+            p = pickle.load(f)
+        mesh = DeviceMesh("cpu", torch.arange(world).reshape(DIST_RANK_MESH),
+                          mesh_dim_names=("data", "model"))
+        out = {}
+        for arch in DIST_RANK_ARCHS:
+            t = time.perf_counter()
+            out[arch] = rank_steps(rank_cfg(arch), p[arch]["params"],
+                                   p[arch]["batches"], mesh)
+            out[arch]["s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["gemm"] = rank_gemm(*p["gemm"], mesh)
+        out["gemm"]["s"] = time.perf_counter() - t
+        with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def worst_share(got, want, tol):
+    """The worst leaf's largest difference over ``tol`` times its own
+    largest magnitude (1 is the bound), over two trees of numpy arrays."""
+    if isinstance(want, dict):
+        return max(worst_share(got[k], want[k], tol) for k in want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(got - want).max()) / (tol * scale)
+
+
+def start_launcher(ranks, device, logs):
+    """``launch.train --mesh host`` (DIST_RANK_LAUNCH) in ``ranks``
+    processes under torchrun, each rank's output in files under ``logs``:
+    gloo CPU ranks with no card visible for ``cpu``, NCCL ranks with a
+    card each for ``cuda``.  Returns torchrun's process."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
+    if device == "cpu":
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(ranks), "--log-dir", logs, "--redirects",
+         "3", "-m", "repro_torch.launch.train", *DIST_RANK_LAUNCH,
+         "--device", device, "--mesh", "host"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def launcher_result(proc, ranks, logs, deadline):
+    """Wait for ``start_launcher``'s torchrun until ``deadline`` (else
+    ``subprocess.TimeoutExpired``): each rank's mesh and losses from its
+    ``[train]`` lines, in rank order."""
+    out, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    files = sorted(pathlib.Path(logs).glob("**/attempt_0/*/stdout.log"),
+                   key=lambda f: int(f.parent.name))
+    if proc.returncode or len(files) != ranks:
+        for f in pathlib.Path(logs).glob("**/stderr.log"):
+            out += f"\n{f}:\n{f.read_text()[-2000:]}"
+        print(out[-8000:], file=sys.stderr)
+        check(False, f"launcher: torchrun exit {proc.returncode}, "
+                     f"{len(files)} of {ranks} ranks' output")
+    got = []
+    for f in files:
+        text = f.read_text()
+        mesh = re.search(r"^\[train\] arch=.* mesh=host (\(.*?\))", text,
+                         re.M)
+        losses = re.search(r"^\[train\] losses: (.*)$", text, re.M)
+        check(bool(mesh and losses),
+              f"launcher: rank {f.parent.name} printed no mesh or losses")
+        got.append((mesh.group(1), [float(x) for x in
+                                    losses.group(1).split()]))
+    return got
+
+
+def plain_launch(device):
+    """The losses of DIST_RANK_LAUNCH without a mesh, in this process."""
+    from repro_torch.launch import train
+    res = train.main(DIST_RANK_LAUNCH + ["--device", device])
+    return [h["loss"] for h in res["trainer"].metrics_history]
+
+
+def launcher_check(head, got, want, seconds):
+    """Print and hold ``launcher_result``'s ranks to ``plain_launch``:
+    every rank on the (ranks, 1) host mesh, its losses within
+    DIST_RANK_TOL relative of the run without a mesh."""
+    rel = max((abs(a - b) / abs(b) for _, losses in got
+               for a, b in zip(losses, want)), default=math.inf)
+    meshes = sorted({m for m, _ in got})
+    print(f"{head}: torchrun of launch.train "
+          f"{' '.join(DIST_RANK_LAUNCH[:2])} --mesh host ({len(got)} "
+          f"ranks): mesh {', '.join(meshes)}, losses "
+          f"{fmt_losses(got[0][1])} against {fmt_losses(want)} without a "
+          f"mesh (worst relative difference {rel:.2e}, bound "
+          f"{DIST_RANK_TOL:g}); {seconds:.1f} s")
+    check(meshes == [f"({len(got)}, 1)"]
+          and all(len(losses) == len(want) > 0 for _, losses in got)
+          and rel <= DIST_RANK_TOL, f"launcher: {meshes}, {rel:.2e}")
+
+
+def stop(proc):
+    """End ``proc`` if it still runs (torchrun stops its ranks on
+    SIGTERM)."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def launcher_cards(cards):
+    """``--launcher-cards``: only the launcher's comparison, its ranks
+    NCCL ranks on ``cards`` cards of this machine, against the run
+    without a mesh on the first card."""
+    import tempfile
+    check(torch.cuda.device_count() >= cards,
+          f"launcher: {torch.cuda.device_count()} cards, {cards} asked for")
+    sys.path.insert(0, str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        proc = start_launcher(cards, "cuda", tmp)
+        try:
+            want = plain_launch("cuda")
+            got = launcher_result(proc, cards, tmp,
+                                  time.monotonic() + DIST_RANK_TIMEOUT)
+        finally:
+            stop(proc)
+        launcher_check(f"[dist] NCCL on {cards} cards "
+                       f"({torch.cuda.get_device_name(0)}, torch "
+                       f"{torch.__version__}, NCCL "
+                       f"{'.'.join(map(str, torch.cuda.nccl.version()))})",
+                       got, want, time.perf_counter() - t)
+
+
+def dist_ranks():
+    """14g, host only: DIST_RANKS gloo CPU ranks on this machine's torch
+    (this script again, ``--mesh-rank``, with no card visible) run
+    ``mesh_rank``, and DIST_RANKS more run the launcher under torchrun,
+    while this process runs the same steps without a mesh; each rank is
+    held to those at DIST_RANK_TOL."""
+    import pickle
+    import tempfile
+    from repro_torch.models.model import Model, RunConfig
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    payload = {}
+    for arch in DIST_RANK_ARCHS:
+        cfg = rank_cfg(arch)
+        params = Model(cfg, RunConfig(max_seq=64), device="cpu").init(
+            torch.Generator().manual_seed(1))
+        batches = []
+        for _ in range(DIST_RANK_STEPS):
+            t = rng.integers(0, cfg.vocab_size, (4, 9)).astype(np.int32)
+            batches.append({"tokens": t[:, :-1], "labels": t[:, 1:],
+                            "mask": np.ones((4, 8), np.float32)})
+        payload[arch] = {"params": tree_numpy(params), "batches": batches}
+    m, n, k = DIST_RANK_GEMM
+    payload["gemm"] = tuple(rng.standard_normal(s).astype(np.float32)
+                            for s in ((m, k), (k, n), (m, n)))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
+            pickle.dump(payload, f)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        logs = os.path.join(tmp, "launch")
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--mesh-rank", str(r), tmp], env=env)
+                 for r in range(DIST_RANKS)]
+        t_launch = time.perf_counter()
+        procs.append(start_launcher(DIST_RANKS, "cpu", logs))
+        deadline = time.monotonic() + DIST_RANK_TIMEOUT
+        try:
+            # the runs without a mesh, while the ranks run
+            t = time.perf_counter()
+            want = {arch: rank_steps(rank_cfg(arch),
+                                     payload[arch]["params"],
+                                     payload[arch]["batches"])
+                    for arch in DIST_RANK_ARCHS}
+            want["gemm"] = rank_gemm(*payload["gemm"])
+            want["launch"] = plain_launch("cpu")
+            plain_s = time.perf_counter() - t
+            for proc in procs[:-1]:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            launched = launcher_result(procs[-1], DIST_RANKS, logs, deadline)
+            launch_s = time.perf_counter() - t_launch
+        except subprocess.TimeoutExpired:
+            check(False, f"14g: {DIST_RANKS} ranks past {DIST_RANK_TIMEOUT} s")
+        finally:
+            for proc in procs:
+                stop(proc)
+        codes = [proc.returncode for proc in procs[:-1]]
+        check(codes == [0] * DIST_RANKS, f"14g: rank exit codes {codes}")
+        got = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
+                got.append(pickle.load(f))
+    head = (f"[dist] 14g host only ({DIST_RANKS} gloo CPU ranks, torch "
+            f"{torch.__version__}, not the card)")
+    for arch in DIST_RANK_ARCHS:
+        w = want[arch]
+        rel = max(abs(a - b) / abs(b) for g in got
+                  for a, b in zip(g[arch]["losses"], w["losses"]))
+        share = max(worst_share(g[arch]["params"], w["params"],
+                                DIST_RANK_TOL) for g in got)
+        ep = [g[arch]["ep"] for g in got]
+        moe = rank_cfg(arch).moe is not None
+        print(f"{head}: {arch} reduced, mesh {DIST_RANK_MESH}, "
+              f"{DIST_RANK_STEPS} SGD steps"
+              + (f" (MoE expert-parallel: {all(ep)})" if moe else "")
+              + f": losses {fmt_losses(got[0][arch]['losses'])} against "
+              f"{fmt_losses(w['losses'])} without a mesh (worst relative "
+              f"difference {rel:.2e}, bound {DIST_RANK_TOL:g}); params at "
+              f"{share:.3g} of the bound; "
+              f"{max(g[arch]['s'] for g in got):.1f} s")
+        check(len(got[0][arch]["losses"]) == DIST_RANK_STEPS
+              and rel <= DIST_RANK_TOL and share <= 1,
+              f"14g {arch}: losses {rel:.2e}, params {share:.3g}")
+        check(all(ep) or not moe, f"14g {arch}: not expert-parallel")
+    share = max(worst_share(g["gemm"], want["gemm"], DIST_RANK_TOL)
+                for g in got)
+    print(f"{head}: sharded_gemm_op {'x'.join(map(str, DIST_RANK_GEMM))} on "
+          f"mesh {DIST_RANK_MESH} (lhs Shard(0) over data) against gemm_op: "
+          f"output and both gradients at {share:.3g} of the bound; "
+          f"{max(g['gemm']['s'] for g in got):.1f} s")
+    check(share <= 1, f"14g sharded_gemm_op: {share:.3g}")
+    launcher_check(head, launched, want["launch"], launch_s)
+    print(f"[dist] 14g: {time.perf_counter() - t0:.1f} s (the runs without a "
+          f"mesh {plain_s:.1f} s of it, beside the ranks)")
+
+
+def fmt_losses(losses):
+    return ", ".join(f"{x:.6f}" for x in losses)
+
+
+def tree_numpy(tree):
+    """A dict tree of tensors (DTensors gathered whole) as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    if hasattr(tree, "full_tensor"):
+        tree = tree.full_tensor()
+    return tree.detach().cpu().numpy()
+
+
 def dist_phase(dev, flush, smi, p13):
     """Phase 14 [dist]: 14a-14e on the 1-rank NCCL mesh, then the NCCL
-    group ends and 14f runs on a fake one.  Returns 14b's JSON rows."""
+    group ends, 14f runs on a fake one and 14g in gloo CPU ranks.  Returns
+    14b's JSON rows."""
     t0 = time.perf_counter()
     took = {}
 
@@ -3141,6 +3550,7 @@ def dist_phase(dev, flush, smi, p13):
     timed("14e", dist_failover, mesh, dev, smi)
     torch.distributed.destroy_process_group()
     timed("14f", dist_dryrun)
+    timed("14g", dist_ranks)
     print(f"[dist] phase 14: {time.perf_counter() - t0:.1f} s (" +
           ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     return rows
@@ -3157,7 +3567,8 @@ def compile_repaired(dev):
     exceeds a block's shared memory, both through compile_traced; a
     batched product with a rank-3 matmul tile through backend_cuda.emit on
     its LoopIR (no traced graph has rank-3 tiles).  Returns (label, fn,
-    inputs, bound, library) tuples."""
+    inputs, bound, (library name, library call or None, what to print
+    when there is none)) tuples."""
     import repro_torch.core.frontend as fe
     from repro_torch.core import backend_cuda, compile_traced, ir_text
     m, n, k = MLP["up"]
@@ -3173,7 +3584,8 @@ def compile_repaired(dev):
           for s in ((m, k), (k, n))]
     out.append((f"stagecc_gemm up tpu_mxu float16 none [simt]", ck.run_cuda,
                 xs, roofline((m * k + k * n) * 2 + m * n * 4, 2 * m * n * k,
-                             BF16_FLOP_PER_S), None))
+                             BF16_FLOP_PER_S),
+                gemm_library(ck.run_cuda.plan, *xs)))
     sm, sk, sn = WS_GEMM
     ck = compile_traced(fe.trace(
         lambda a, b: fe.exp(fe.matmul(a, b)), [fe.spec((sm, sk)),
@@ -3190,7 +3602,7 @@ def compile_repaired(dev):
     out.append(("stagecc_general exp(A @ B) 256 x 256 tiles [workspace]",
                 ck.run_cuda, xs, roofline((sm * sk + sk * sn + sm * sn) * 4,
                                           2 * sm * sn * sk, F32_FLOP_PER_S),
-                None))
+                ("library", None, "library none")))
     b, mm, kk = RANK3
     fn = backend_cuda.emit(ir_text.parse_ir(RANK3_TEXT), device=str(dev))
     check(fn.plan is None, "rank-3 kernel: not the general path")
@@ -3200,7 +3612,7 @@ def compile_repaired(dev):
                 "rank-3 tiles", fn, xs,
                 roofline((2 * b * mm * kk + kk * kk) * 4, 2 * b * mm * kk * kk,
                          F32_FLOP_PER_S),
-                lambda xs=xs: torch.matmul(*xs)))
+                ("torch.matmul", lambda xs=xs: torch.matmul(*xs), None)))
     for label, fn, *_ in out:
         where = ("simt" if fn.plan is not None else
                  "; ".join(f"stage {st.index}: {st.layout}"
@@ -3219,7 +3631,8 @@ def repaired_phase(repaired, flush, smi):
     from repro_torch.kernels import gemm
     rows = []
     rtol, atol = TOL_COMPILED
-    for label, fn, xs, (bound, bound_by), library in repaired:
+    for label, fn, xs, (bound, bound_by), (lib_name, library, why) in \
+            repaired:
         gemm.cuda_gemm.launches = backend_cuda.emit_general.launches = 0
         got = fn(*xs)
         torch.cuda.synchronize()
@@ -3240,10 +3653,13 @@ def repaired_phase(repaired, flush, smi):
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
         check(share <= 1, f"{label}: off its bound")
         if library is not None:
-            lib_share = share_of(library(), got.float(), rtol, atol)
-            print(f"[repaired] {label}: torch.matmul vs the kernel at "
-                  f"{lib_share:.3g} of the bound")
-            check(lib_share <= 1, f"{label}: torch.matmul differs")
+            # an emitted GEMM against its library call at phase 8's f32
+            # bound (K 3584: another sum order)
+            lt = GEMM_F32 if fn.plan is not None else (rtol, atol)
+            lib_share = share_of(library(), got.float(), *lt)
+            print(f"[repaired] {label}: {lib_name} vs the kernel at "
+                  f"{lib_share:.3g} of rtol {lt[0]:g} atol {lt[1]:g}")
+            check(lib_share <= 1, f"{label}: {lib_name} differs")
         row = {"name": label, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/" + (
                    "stagecc_gemm.cuh" if fn.plan is not None
@@ -3256,11 +3672,11 @@ def repaired_phase(repaired, flush, smi):
                "bound_ms": bound, "bound_by": bound_by,
                "library_ms": (None if library is None else
                               time_ms(library, flush, iters=10))}
-        lib = ("none" if library is None
-               else f"{row['library_ms']:.3f} ms")
+        lib = (why if library is None
+               else f"{lib_name} {row['library_ms']:.3f} ms")
         print(f"[timing] {label}, cold L2: kernel {row['ms']:.3f} ms, bound "
               f"{bound:.4f} ms ({bound_by}), plain {row['plain_ms']:.3f} ms, "
-              f"library {lib}; card {smi}")
+              f"{lib}; card {smi}")
         rows.append(row)
         del got, want
     return rows
@@ -3649,7 +4065,20 @@ def main() -> int:
                      help="run DIR/chip_smoke.py (another checkout's smoke, "
                           "on its own code) with this script's time_ms, so "
                           "that both checkouts' times share one method")
+    cli.add_argument("--mesh-rank", nargs=2, metavar=("RANK", "DIR"),
+                     help="phase 14g's gloo CPU rank RANK over DIR (the "
+                          "smoke starts these itself)")
+    cli.add_argument("--launcher-cards", type=int, metavar="N",
+                     help="run only phase 14g's launcher comparison, its "
+                          "ranks NCCL ranks on N cards of this machine")
     opts = cli.parse_args()
+    if opts.launcher_cards:
+        launcher_cards(opts.launcher_cards)
+        return 0
+    if opts.mesh_rank:
+        sys.path.insert(0, str(ROOT / "src"))
+        mesh_rank(int(opts.mesh_rank[0]), DIST_RANKS, opts.mesh_rank[1])
+        return 0
     if opts.timing_of:
         spec = importlib.util.spec_from_file_location(
             "other_chip_smoke", opts.timing_of.resolve() / "chip_smoke.py")
@@ -3661,6 +4090,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
@@ -3887,6 +4317,8 @@ def main() -> int:
     # 15. the raising entry point: raised blocks through the stage kernels
     rows += raise_phase(raised, dev, flush, smi)
 
+    print(f"[smoke] every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     # 12. every kernel's row
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

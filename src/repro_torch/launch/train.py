@@ -102,8 +102,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             mesh = make_production_mesh(multi_pod=(args.mesh == "multi"),
                                         device=device)
 
+    shape = "" if mesh is None else f" {tuple(mesh.shape)}"
     print(f"[train] arch={cfg.name} params={model.param_count():,} "
-          f"mesh={args.mesh} steps={args.steps}")
+          f"mesh={args.mesh}{shape} steps={args.steps}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     trainer = Trainer(TrainerConfig(
         total_steps=args.steps, checkpoint_every=args.checkpoint_every,
@@ -122,6 +123,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if losses:
         print(f"[train] loss first->last: {losses[0]:.4f} -> "
               f"{losses[-1]:.4f} over {len(losses)} steps")
+        print("[train] losses: " + " ".join(map(repr, losses)))
     return {"trainer": trainer, "state": state, "model": model,
             "mesh": mesh}
 

@@ -22,8 +22,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (distribute, reshape, shard,
-                                              shard_heads, sharding_for)
+from repro_torch.distributed.sharding import (distribute, is_dtensor,
+                                              reshape, shard, shard_heads,
+                                              sharding_for)
 from repro_torch.kernels.decode_attention import decode_attention
 
 Params = Dict[str, Any]
@@ -112,7 +113,6 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     gradient is ``Partial`` over the axes the ids are sharded on.  DTensor's
     own rules for an index or an embedding over a vocab-sharded table
     fail in its backward (torch 2.11)."""
-    from repro_torch.distributed.sharding import is_dtensor
     if not is_dtensor(table):
         return table[ids]
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -213,11 +213,51 @@ def init_cross_attention(cfg, mk: Maker) -> Params:
     }
 
 
+def _per_shard(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               *rows: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, *rows)`` for DTensor ``q``: a ``local_map`` region in
+    which each rank attends its own rows and heads, which needs no
+    communication.  q: (B, Sq, H, .); k / v: (B, Sk, KV, .); ``rows``:
+    tensors whose dim 0 is the batch (positions, masks, lengths; one of
+    size-1 dim 0 broadcasts and stays whole).  The rows keep q's batch
+    sharding; the heads keep q's only where KV divides by it, so each
+    rank's query heads read its own KV heads (else q, k and v are
+    gathered over the head axes and each of their ranks computes every
+    head, as ``reshape`` gathers a split it cannot keep); every other dim
+    is whole.  DTensor (torch 2.11) refuses the attention einsums' flatten of
+    the batch and head dims once both are sharded."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    heads = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    split = k.shape[2] % math.prod(mesh.size(i) for i in heads) == 0
+    q_pl, kv_pl, row_pl = [], [], []
+    for i, p in enumerate(q.placements):
+        batch = p == Shard(0)
+        q_pl.append(p if batch or (i in heads and split) else Replicate())
+        kv_pl.append(q_pl[-1])
+        row_pl.append(p if batch else Replicate())
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(x):
+        return x if is_dtensor(x) else DTensor.from_local(
+            x, mesh, rep, run_check=False)
+    pls = [row_pl if r.shape[0] == q.shape[0] else rep for r in rows]
+    return local_map(fn, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl, *pls),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, dt(k), dt(v), *(dt(r) for r in rows))
+
+
 def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor, scale: Optional[float] = None
                    ) -> torch.Tensor:
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); mask: (B, Sq, Sk) or
-    broadcastable.  GQA via head grouping (no KV materialised repeat)."""
+    broadcastable.  GQA via head grouping (no KV materialised repeat).
+    Under a mesh each rank's own rows and heads (``_per_shard``)."""
+    if is_dtensor(q):
+        return _per_shard(lambda *a: attention_math(*a, scale=scale),
+                          q, k, v, mask)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -270,8 +310,15 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Small problems take the direct path; large ones run a blockwise
     online softmax (Python loops over Q and KV blocks), keeping live
-    memory O(block_q x block_k) per head.
+    memory O(block_q x block_k) per head.  Under a mesh each rank's own
+    rows and heads (``_per_shard``).
     """
+    if is_dtensor(q):
+        # per-row lengths are rows too; an int or None rides along as is
+        vt = (valid,) if torch.is_tensor(valid) else ()
+        return _per_shard(lambda qq, kk, vv, qp, kp, *vl: attention_core(
+            qq, kk, vv, qp, kp, vl[0] if vl else valid, causal, window,
+            block_q, block_k, scale), q, k, v, qpos, kpos, *vt)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV

@@ -279,6 +279,24 @@ def _replicated(fn, mesh, n_in: int):
                      device_mesh=mesh, redistribute_inputs=True)
 
 
+def _top_k(probs: torch.Tensor, K: int):
+    """The first K of a stable descending sort of each row: (values,
+    indices).  Under a mesh each rank sorts its own rows in a
+    ``local_map`` region: DTensor's sort backward (torch 2.11) scatters
+    the DTensor gradient into a plain tensor of zeros and fails."""
+    def top(pr):
+        vals, idx = torch.sort(pr, dim=-1, descending=True, stable=True)
+        return vals[:, :K], idx[:, :K]
+    if not is_dtensor(probs):
+        return top(probs)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    rows = [p if p == Shard(0) else Replicate() for p in probs.placements]
+    return local_map(top, out_placements=(rows, rows), in_placements=(rows,),
+                     device_mesh=probs.device_mesh,
+                     redistribute_inputs=True)(probs)
+
+
 def _expert_fraction(e_flat: torch.Tensor, E: int) -> torch.Tensor:
     """(E,) share of the routed (token, expert) pairs each expert got."""
     def frac(e):
@@ -306,8 +324,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg
     logits = (h @ p["router"]).float()
     probs = torch.softmax(logits, dim=-1)                         # (T, E)
 
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_vals, top_idx = vals[:, :K], idx[:, :K]                   # (T, K)
+    top_vals, top_idx = _top_k(probs, K)                          # (T, K)
     gates = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
 
     e_flat = top_idx.reshape(-1)                                  # (T*K,)

@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.checkpoint import checkpointer as jck
 from repro.configs.base import get_config as jax_get_config

@@ -17,7 +17,7 @@ import itertools
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.core.frontend as ref_fe
 import repro_torch.core.frontend as fe

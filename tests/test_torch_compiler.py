@@ -12,7 +12,7 @@ import os
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.core as ref_core
 from repro.core import passes as ref_passes

@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.models.model import Model, RunConfig

@@ -11,7 +11,7 @@ import itertools
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro_torch.core.frontend as fe
 from repro_torch.configs.base import get_config, reduced

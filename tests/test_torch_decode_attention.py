@@ -13,7 +13,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import decode_attention as jax_da
 from repro_torch.kernels import decode_attention as da

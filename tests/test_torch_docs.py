@@ -22,6 +22,8 @@ import sys
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from repro_torch.core import reproc
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

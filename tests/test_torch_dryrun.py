@@ -17,7 +17,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.launch import hlo_analysis as JH
 from repro_torch.launch import dryrun

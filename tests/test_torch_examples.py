@@ -12,6 +12,8 @@ import sys
 import numpy as np
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from repro_torch.core import PASS_REGISTRY
 from repro_torch.examples import extend_pipeline, serve_lm, train_lm  # noqa: F401
 

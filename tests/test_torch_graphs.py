@@ -13,7 +13,7 @@ stand-in graph.
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 from repro.serve import continuous as jax_continuous

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and nothing that
-``chip_smoke.py`` imports may load JAX or the JAX package."""
+``chip_smoke.py`` or ``tests/test_torch_mesh_ranks.py`` (which also runs
+where JAX is not installed) imports may load JAX or the JAX package."""
 
 import ast
 import json
@@ -9,6 +10,8 @@ import subprocess
 import sys
 
 import pytest
+
+torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -100,6 +103,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  ROOT / "tests" / "test_torch_mesh_ranks.py",
+                                  ROOT / "tests" / "_torch_dist_ranks.py",
                                   *sorted(PKG.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_repro(path):

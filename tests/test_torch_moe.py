@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs.base import get_config as jax_get_config
 from repro.configs.base import reduced as jax_reduced

@@ -25,8 +25,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from hypothesis import given, settings, strategies as st
+
+torch = pytest.importorskip("torch")
 
 import _torch_raise_ref
 import repro.core.frontend as ref_fe

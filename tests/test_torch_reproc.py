@@ -19,6 +19,8 @@ import sys
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from repro.core import passes as ref_passes
 from repro.core import reproc as ref_reproc
 from repro_torch.core import passes, reproc

@@ -15,7 +15,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import autotune as ref_autotune
 from repro.core import dse as ref_dse

@@ -14,7 +14,7 @@ import functools
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import _torch_raise_ref
 from repro_torch.configs.base import ARCHS, get_config, reduced

@@ -16,7 +16,7 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.core import backend_cuda, compile_gemm, integrate

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs.base import ARCHS as JAX_ARCHS
 from repro.configs.base import get_config as jax_get_config
@@ -412,5 +412,6 @@ def test_train_launcher_runs_reduced_on_cpu(capsys, tmp_path):
     assert res["model"].run.remat == "full"
     out = capsys.readouterr().out
     assert "[train] arch=minicpm-2b" in out and "loss first->last" in out
+    assert "[train] losses: " + " ".join(map(repr, losses)) in out
     assert sorted(int(d[5:]) for d in __import__("os").listdir(tmp_path)) \
         == [6, 12]
