@@ -184,6 +184,27 @@ instead runs only the bf16 products of phase 8 on the inputs of seeds
 0..N-1 (seed 0 is phase 8's draw) and prints each variant's worst share of
 its gates over the seeds: how much room the gates leave.  It exits
 nonzero if any gate fails, and prints no result line.
+
+    python3 chip_smoke.py --launcher-cards 4
+
+instead needs four cards.  First it runs the launcher's reduced
+comparison there: torchrun of launch.train --arch qwen2-7b --reduced
+--mesh host on four NCCL ranks, as phase 14g runs it and with --remat
+full, every step's loss held to the same command on one card without a
+mesh (1e-6 relative).  Then it trains qwen2-7b whole (28 layers, f32
+AdamW, remat full, 8 steps of 8 x 256 tokens; its state fits no one
+card) through the launcher's own command, torchrun --nproc-per-node 4 -m
+repro_torch.launch.train --mesh host, on a (4, 1) NCCL mesh, each rank
+this script again (--cards-rank), which calls launch.train.main and
+prints its losses, ms a step, tokens/s, model-FLOP share, peak GiB and
+the gradients autograd returns Partial; the first loss is held to one
+card's forward of the same seed's params (1e-5 relative), every rank's
+losses to rank 0's, the last below the first.  Then each rank runs
+sharded_gemm_op at 2048 x 18944 x 3584 (512 rows a card, phase 8's up
+product) in f32 and bf16 through the emitted GEMM, held to gemm_op on
+its own rows bit for bit and its rhs gradient's all-reduce to the four
+one-card gradients' sum, and timed beside its bound, gemm_op, the
+library call and the all-reduce.  It prints no result line.
 """
 
 from __future__ import annotations
@@ -360,6 +381,31 @@ DIST_RANK_GEMM = (64, 96, 128)
 DIST_RANK_LAUNCH = ["--arch", "qwen2-7b", "--reduced", "--steps", "3",
                     "--seq-len", "16", "--global-batch", "4"]
 DIST_RANK_TIMEOUT = 300
+# --launcher-cards N: qwen2-7b whole (7.616 G params; its f32 AdamW state,
+# 121.8 GB, fits no one card) through the launcher's own torchrun command
+# on N NCCL ranks, a card each, with remat full (else every gathered
+# layer weight is kept for the backward); its first loss held to a
+# forward of the same seed's params on one card within CARDS_TOL
+# relative.  AdamW's first step at a 1-step warmup raises the loss of
+# this model at random init, and at the launcher's default peak rate,
+# 3e-3, it stays above the first (12.51 at step 1, 23.16 at step 2, 15.68
+# at step 8): CARDS_LR.  One card's run at full width cut to 2 layers
+# rises the same at both rates (test_torch_mesh_ranks.py's
+# test_launcher_recipe_on_four_cards_matches_one_card).  Then the
+# crossbar: sharded_gemm_op at CARDS_GEMM on
+# the (N, 1) mesh, 2048 / 4 = 512 rows a card, phase 8's up product
+CARDS_ARCH, CARDS_STEPS, CARDS_SEQ, CARDS_BATCH = "qwen2-7b", 8, 256, 8
+CARDS_LR = 1e-4
+CARDS_LAUNCH = ["--arch", CARDS_ARCH, "--mesh", "host", "--remat", "full",
+                "--steps", str(CARDS_STEPS), "--seq-len", str(CARDS_SEQ),
+                "--global-batch", str(CARDS_BATCH), "--lr", str(CARDS_LR)]
+CARDS_TOL = 1e-5
+# and first, the launcher's reduced comparison on the same cards: every
+# step of DIST_RANK_LAUNCH (AdamW, cosine) against one card at
+# DIST_RANK_TOL, as 14g runs it and with remat full
+CARDS_REDUCED = [DIST_RANK_LAUNCH, DIST_RANK_LAUNCH + ["--remat", "full"]]
+CARDS_GEMM = (2048, 18944, 3584)
+CARDS_TIMEOUT = 900
 # the raising entry point (phase 15): three configs whose blocks cover
 # every raisable block kind, each with its raised blocks and its blocked
 # ones with their first unraisable ATen op (docs/RAISING.md's rows, the
@@ -2766,12 +2812,12 @@ def train_phase(dev, smi):
 # ---- phase 14: the distribution layer on a (1, 1) NCCL mesh -------------
 
 
-def dist_gemm_products():
-    """14b's emitted GEMMs (forward and both backward products of
-    sharded_gemm_op at DIST_GEMM, f32 and bf16), compiled ahead so that
-    phase 2 builds their sources with the rest."""
+def dist_gemm_products(m, n, k):
+    """The emitted GEMMs a rank of sharded_gemm_op runs for its (m, n, k)
+    rows (forward and both backward products, f32 and bf16), compiled
+    ahead so that they are built at once: phase 14b's at DIST_GEMM, built
+    in phase 2 with the rest; --launcher-cards' a card's rows."""
     from repro_torch.core import integrate
-    m, n, k = DIST_GEMM
     return [integrate._compiled(a, b, c, "tpu_mxu", "cuda", dt)
             for dt in ("float32", "bfloat16")
             for a, b, c in ((m, n, k), (m, k, n), (k, n, m))]
@@ -3319,27 +3365,35 @@ def worst_share(got, want, tol):
     return float(np.abs(got - want).max()) / (tol * scale)
 
 
-def start_launcher(ranks, device, logs):
-    """``launch.train --mesh host`` (DIST_RANK_LAUNCH) in ``ranks``
-    processes under torchrun, each rank's output in files under ``logs``:
-    gloo CPU ranks with no card visible for ``cpu``, NCCL ranks with a
-    card each for ``cuda``.  Returns torchrun's process."""
+def torchrun(ranks, logs, args, cpu=False):
+    """``args`` (a module's or this script's) in ``ranks`` processes
+    under torchrun, each rank's output in files under ``logs``: gloo CPU
+    ranks with no card visible for ``cpu``, else NCCL ranks with a card
+    each.  Returns torchrun's process."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
-    if device == "cpu":
+    if cpu:
         env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", str(ranks), "--log-dir", logs, "--redirects",
-         "3", "-m", "repro_torch.launch.train", *DIST_RANK_LAUNCH,
-         "--device", device, "--mesh", "host"],
+         "3", *args],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def launcher_result(proc, ranks, logs, deadline):
-    """Wait for ``start_launcher``'s torchrun until ``deadline`` (else
-    ``subprocess.TimeoutExpired``): each rank's mesh and losses from its
-    ``[train]`` lines, in rank order."""
+def start_launcher(ranks, device, logs, args=DIST_RANK_LAUNCH):
+    """``launch.train --mesh host`` (``args``) in ``ranks`` processes
+    under torchrun (``torchrun``)."""
+    return torchrun(ranks, logs, ["-m", "repro_torch.launch.train",
+                                  *args, "--device", device,
+                                  "--mesh", "host"], cpu=device == "cpu")
+
+
+def rank_outputs(proc, ranks, logs, deadline, what):
+    """Wait for ``torchrun``'s process until ``deadline`` (else
+    ``subprocess.TimeoutExpired``): each rank's standard output, in rank
+    order; fails, printing the ranks' errors, unless all ``ranks`` ended
+    well."""
     out, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
     files = sorted(pathlib.Path(logs).glob("**/attempt_0/*/stdout.log"),
                    key=lambda f: int(f.parent.name))
@@ -3347,29 +3401,35 @@ def launcher_result(proc, ranks, logs, deadline):
         for f in pathlib.Path(logs).glob("**/stderr.log"):
             out += f"\n{f}:\n{f.read_text()[-2000:]}"
         print(out[-8000:], file=sys.stderr)
-        check(False, f"launcher: torchrun exit {proc.returncode}, "
+        check(False, f"{what}: torchrun exit {proc.returncode}, "
                      f"{len(files)} of {ranks} ranks' output")
+    return [f.read_text() for f in files]
+
+
+def launcher_result(proc, ranks, logs, deadline):
+    """Each rank's mesh and losses from its ``[train]`` lines
+    (``rank_outputs``), in rank order."""
     got = []
-    for f in files:
-        text = f.read_text()
+    for r, text in enumerate(rank_outputs(proc, ranks, logs, deadline,
+                                          "launcher")):
         mesh = re.search(r"^\[train\] arch=.* mesh=host (\(.*?\))", text,
                          re.M)
         losses = re.search(r"^\[train\] losses: (.*)$", text, re.M)
         check(bool(mesh and losses),
-              f"launcher: rank {f.parent.name} printed no mesh or losses")
+              f"launcher: rank {r} printed no mesh or losses")
         got.append((mesh.group(1), [float(x) for x in
                                     losses.group(1).split()]))
     return got
 
 
-def plain_launch(device):
-    """The losses of DIST_RANK_LAUNCH without a mesh, in this process."""
+def plain_launch(device, args=DIST_RANK_LAUNCH):
+    """The losses of ``args`` without a mesh, in this process."""
     from repro_torch.launch import train
-    res = train.main(DIST_RANK_LAUNCH + ["--device", device])
+    res = train.main(args + ["--device", device])
     return [h["loss"] for h in res["trainer"].metrics_history]
 
 
-def launcher_check(head, got, want, seconds):
+def launcher_check(head, got, want, seconds, args=DIST_RANK_LAUNCH):
     """Print and hold ``launcher_result``'s ranks to ``plain_launch``:
     every rank on the (ranks, 1) host mesh, its losses within
     DIST_RANK_TOL relative of the run without a mesh."""
@@ -3377,7 +3437,7 @@ def launcher_check(head, got, want, seconds):
                for a, b in zip(losses, want)), default=math.inf)
     meshes = sorted({m for m, _ in got})
     print(f"{head}: torchrun of launch.train "
-          f"{' '.join(DIST_RANK_LAUNCH[:2])} --mesh host ({len(got)} "
+          f"{' '.join(args)} --mesh host ({len(got)} "
           f"ranks): mesh {', '.join(meshes)}, losses "
           f"{fmt_losses(got[0][1])} against {fmt_losses(want)} without a "
           f"mesh (worst relative difference {rel:.2e}, bound "
@@ -3399,28 +3459,358 @@ def stop(proc):
             proc.wait()
 
 
-def launcher_cards(cards):
-    """``--launcher-cards``: only the launcher's comparison, its ranks
-    NCCL ranks on ``cards`` cards of this machine, against the run
-    without a mesh on the first card."""
-    import tempfile
-    check(torch.cuda.device_count() >= cards,
-          f"launcher: {torch.cuda.device_count()} cards, {cards} asked for")
+def card_of(index):
+    """Card ``index``'s name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(index)], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip()
+
+
+def cards_config():
+    """CARDS_ARCH's config, whole."""
+    from repro_torch.configs.base import get_config
+    return get_config(CARDS_ARCH)
+
+
+def cards_batch(step, dev, sharding=None):
+    """The launcher's batch of step ``step`` for CARDS_LAUNCH (its
+    pipeline, seed 0)."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    return Pipeline(DataConfig(
+        vocab_size=cards_config().vocab_size, seq_len=CARDS_SEQ,
+        global_batch=CARDS_BATCH, seed=0)).torch_batch(step, dev, sharding)
+
+
+def one_card_loss(dev):
+    """``Model.loss`` of CARDS_LAUNCH's model on one card: a forward of
+    the params of its seed (30.5 GB in f32; their gradients and moments
+    would not fit) on the batch of its first step."""
+    from repro_torch.models.model import Model, RunConfig
+    model = Model(cards_config(), RunConfig(max_seq=CARDS_SEQ), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        loss = model.loss(params, cards_batch(0, dev))[0].item()
+    del params
+    torch.cuda.empty_cache()
+    return loss
+
+
+def returned_partials(res):
+    """The leaves whose gradient ``torch.autograd.grad`` returns
+    ``Partial`` (whole-size on a rank until the train step reduces it),
+    with their bytes on this rank: one more loss and backward of the
+    launcher's final state on its next batch."""
+    from repro_torch.distributed.sharding import (axis_rules,
+                                                  replicate_plain, shard,
+                                                  sharding_for)
+    from repro_torch.optim.optimizer import tree_leaves
+    model, mesh, params = res["model"], res["mesh"], res["state"].params
+    leaves = tree_leaves(params)
+    with axis_rules(mesh), torch.enable_grad(), replicate_plain(leaves[0]):
+        batch = cards_batch(len(res["trainer"].metrics_history),
+                            model.device, sharding_for(
+                                "batch -", (CARDS_BATCH, CARDS_SEQ), mesh))
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(shard(loss), leaves)
+    out = {name: [str(tuple(g.placements)),
+                  g.to_local().numel() * g.element_size()]
+           for name, g in zip(_paths(params), grads)
+           if any(pl.is_partial() for pl in g.placements)}
+    for p in leaves:
+        p.requires_grad_(False)
+    return out
+
+
+def cards_gemm(mesh, dtype, flush):
+    """The crossbar on this rank's card: sharded_gemm_op at CARDS_GEMM
+    (the lhs row-sharded over ``data``, the rhs replicated; backend
+    "cuda"), one forward and backward with the counts reset, its rows and
+    both local gradients held bit for bit to ``gemm_op`` on this card's
+    rows alone, the rhs gradient's all-reduce over ``data`` to the sum of
+    every rank's one-card gradient in rank order (two sums of the same
+    terms in two orders, each rounding ranks - 1 times: within 2 (ranks -
+    1) u of the sum of their magnitudes, u the unit roundoff of the type,
+    2^-24 for f32, 2^-8 for bf16); then ms a
+    call, gemm_op's and the library's on the same rows, and the
+    all-reduce's.  Returns the record."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.core import integrate
+    from repro_torch.kernels import gemm
+    m, n, k = CARDS_GEMM
+    dev = flush.device
+    world, r = mesh.size(0), mesh.get_local_rank("data")
+    rows = m // world
+    dt = str(dtype)[6:]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, b, w = (torch.randn(s, generator=gen, device=dev)
+               for s in ((m, k), (k, n), (m, n)))
+    a, b = a.to(dtype), b.to(dtype)
+    op = integrate.sharded_gemm_op(mesh, m, n, k, backend="cuda")
+    split, rep = [Shard(0), Replicate()], [Replicate(), Replicate()]
+    da, db, dw = (distribute_tensor(x, mesh, pl, src_data_rank=None)
+                  for x, pl in ((a, split), (b, rep), (w, split)))
+    ga, gb = da.detach().requires_grad_(), db.detach().requires_grad_()
+    cg = gemm.cuda_gemm
+    cg.launches = cg.wgmma_launches = cg.ffma_launches = 0
+    out = op(ga, gb)
+    (out * dw).sum().backward()
+    torch.cuda.synchronize()
+    launches = [cg.launches, cg.wgmma_launches, cg.ffma_launches]
+    path = route_of(cg, (0, 0))
+    mine = slice(r * rows, (r + 1) * rows)
+    ref = integrate.gemm_op(rows, n, k, backend="cuda")
+    ra, rb = a[mine].clone().requires_grad_(), b.clone().requires_grad_()
+    want = ref(ra, rb)
+    (want * w[mine]).sum().backward()
+    same = [torch.equal(out.to_local(), want),
+            torch.equal(ga.grad.to_local(), ra.grad),
+            torch.equal(gb.grad.to_local(), rb.grad)]
+    parts = [torch.empty_like(rb.grad) for _ in range(world)]
+    dist.all_gather(parts, rb.grad, group=mesh.get_group("data"))
+    total = sum(x.float() for x in parts)
+    scale = sum(x.float().abs() for x in parts)
+
+    def all_reduce():
+        t = gb.grad.redistribute(mesh, rep).to_local()
+        return t.wait() if hasattr(t, "wait") else t
+    summed = all_reduce().float()
+    u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+    diff = (summed - total).abs()
+    reduce_share = (diff / (2 * (world - 1) * u * scale).clamp_min(1e-30)
+                    ).max().item()
+    plan = integrate._compiled(rows, n, k, "tpu_mxu", "cuda", dt).plan
+    bound, bound_by = gemm_bound(plan, rows, n, k)
+    a_rows = a[mine].contiguous()
+    with torch.no_grad():
+        rec = {"dtype": dt, "route": path, "launches": launches,
+               "bit_equal": same, "reduce_share": reduce_share,
+               "reduce_max_diff": diff.max().item(),
+               "ms": time_ms(lambda: op(da, db), flush, iters=20),
+               "gemm_op_ms": time_ms(lambda: ref(a_rows, b), flush,
+                                     iters=20),
+               "bound_ms": bound, "bound_by": bound_by,
+               "all_reduce_ms": time_ms(all_reduce, flush, iters=20),
+               "all_reduce_mb": gb.grad.to_local().numel()
+               * gb.grad.element_size() / 1e6}
+        rec["library_ms"], rec["library"] = library_times(
+            plan, a_rows, b, want.detach(), flush)
+    check(launches[0] == 3, f"crossbar {dt}: {launches[0]} launches, "
+          f"expected 3")
+    check(path == ("ffma" if dtype == torch.float32 else "wgmma"),
+          f"crossbar {dt}: the {path} route")
+    check(all(same), f"crossbar {dt}: rows / gradients against gemm_op "
+          f"{same}")
+    check(reduce_share <= 1, f"crossbar {dt}: all-reduce at "
+          f"{reduce_share:.3g} of its bound")
+    return rec
+
+
+def cards_profile(res):
+    """Where one more train step of the launcher's state goes on this
+    card (torch.profiler): the profiled window's wall ms, the products'
+    ms (cuBLAS / CUTLASS kernels) and the other compute kernels' (one
+    stream: their sum is that stream's busy time), the NCCL kernels' ms
+    (summed: they run on their own streams, overlap the compute and
+    include each wait for the other ranks), and kernels a step."""
+    from repro_torch.distributed.sharding import axis_rules, sharding_for
+    model, mesh = res["model"], res["mesh"]
+    fn = res["trainer"].train_step
+    state = {"s": res["state"]}
+    with axis_rules(mesh):
+        batch = cards_batch(CARDS_STEPS, model.device, sharding_for(
+            "batch -", (CARDS_BATCH, CARDS_SEQ), mesh))
+
+        def step():
+            state["s"], metrics = fn(state["s"], batch)
+            metrics["loss"].item()
+        busy, window, rows, _ = profile_steps(step, 1)
+    res["state"] = state["s"]
+    if busy is None:
+        return None
+    products = sum(ms for ms, _, name in rows
+                   if any(k in name for k in PRODUCT_KERNELS))
+    nccl = sum(ms for ms, _, name in rows if "nccl" in name.lower())
+    return {"window_ms": window, "products_ms": products,
+            "nccl_ms": nccl, "other_ms": busy - products - nccl,
+            "kernels": sum(r[1] for r in rows),
+            "top": [[round(ms, 2), n, name[:80]] for ms, n, name in rows[:6]]}
+
+
+def cards_rank():
+    """``--cards-rank``: one rank of ``launcher_cards`` under torchrun.
+    ``launch.train.main(CARDS_LAUNCH)`` on this rank's card, then one
+    more step profiled (``cards_profile``), the leaves whose gradient
+    autograd returns Partial (``returned_partials``) and the crossbar
+    (``cards_gemm``, f32 then bf16) on the launcher's mesh; prints its
+    record as one ``[cards]`` JSON line."""
+    import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import train
+    local = int(os.environ["LOCAL_RANK"])
+    torch.cuda.set_device(local)
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    t0 = time.perf_counter()
+    res = train.main(CARDS_LAUNCH)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, mesh = res["model"], res["mesh"]
+    cfg, hist = model.cfg, res["trainer"].metrics_history
+    rec = {"rank": dist.get_rank(), "card": card_of(local),
+           "mesh": list(mesh.shape), "params": model.param_count(),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "flop_attn": 12 * cfg.num_layers * cfg.num_heads
+           * cfg.resolved_head_dim, "losses": [h["loss"] for h in hist],
+           "ms": [h["step_time_s"] * 1e3 for h in hist], "peak_gib": peak,
+           "wall_s": wall}
+    rec["profile"] = cards_profile(res)
+    rec["partial"] = returned_partials(res)
+    del res, hist
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32,
+                        device=torch.device("cuda", local))
+    rec["gemm"] = [cards_gemm(mesh, dtype, flush)
+                   for dtype in (torch.float32, torch.bfloat16)]
+    print("[cards] " + json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def reduced_launches(cards):
+    """The launcher's comparison on ``cards`` cards: reduced qwen2-7b
+    through ``launch.train --mesh host`` (CARDS_REDUCED: as 14g runs it,
+    and with remat full) on ``cards`` NCCL ranks, both at once, every
+    step's loss held to the same command without a mesh on the first
+    card (``launcher_check``)."""
+    import tempfile
+    head = (f"[dist] NCCL on {cards} cards ({card_of(0)}, torch "
+            f"{torch.__version__}, NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))})")
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
-        proc = start_launcher(cards, "cuda", tmp)
+        logs = [os.path.join(tmp, str(i)) for i in range(len(CARDS_REDUCED))]
+        procs = [start_launcher(cards, "cuda", log, args)
+                 for log, args in zip(logs, CARDS_REDUCED)]
         try:
-            want = plain_launch("cuda")
-            got = launcher_result(proc, cards, tmp,
-                                  time.monotonic() + DIST_RANK_TIMEOUT)
+            want = [plain_launch("cuda", args) for args in CARDS_REDUCED]
+            got = [launcher_result(proc, cards, log,
+                                   time.monotonic() + DIST_RANK_TIMEOUT)
+                   for proc, log in zip(procs, logs)]
+        finally:
+            for proc in procs:
+                stop(proc)
+        for g, w, args in zip(got, want, CARDS_REDUCED):
+            launcher_check(head, g, w, time.perf_counter() - t, args)
+
+
+def launcher_cards(cards):
+    """``--launcher-cards``: first the launcher's reduced comparison on
+    ``cards`` cards (``reduced_launches``); then qwen2-7b whole through
+    the launcher's torchrun command (CARDS_LAUNCH) on ``cards`` NCCL
+    ranks, a card each, each rank this script again (``--cards-rank``).
+    Held to: every loss finite, the last below the first, rank 0's first
+    within CARDS_TOL relative of ``one_card_loss`` (run first, alone on
+    the first card), every rank's losses equal to rank 0's; then the
+    crossbar's checks (``cards_gemm``).  Prints each rank's mesh, losses,
+    ms a step,
+    tokens/s, model-FLOP share of ``cards`` x the f32 peak, peak GiB and
+    crossbar times, with its card's name and power limit."""
+    import tempfile
+    check(torch.cuda.device_count() >= cards,
+          f"cards: {torch.cuda.device_count()} cards, {cards} asked for")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    # the crossbar's emitted GEMMs, built once here, not by every rank
+    srcs = [fn.source for fn in dist_gemm_products(
+        CARDS_GEMM[0] // cards, *CARDS_GEMM[1:])]
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        list(pool.map(_build.load_source, srcs))
+    reduced_launches(cards)
+    dev = torch.device("cuda", 0)
+    want = one_card_loss(dev)
+    print(f"[cards] {card_of(0)}, torch {torch.__version__}, NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}: one card's "
+          f"forward of {CARDS_ARCH}'s seed-0 params on the first "
+          f"batch: loss {want:.6f}; the crossbar's sources built "
+          f"({time.perf_counter() - t0:.1f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        proc = torchrun(cards, tmp, [str(ROOT / "chip_smoke.py"),
+                                     "--cards-rank"])
+        try:
+            texts = rank_outputs(proc, cards, tmp,
+                                 time.monotonic() + CARDS_TIMEOUT, "cards")
         finally:
             stop(proc)
-        launcher_check(f"[dist] NCCL on {cards} cards "
-                       f"({torch.cuda.get_device_name(0)}, torch "
-                       f"{torch.__version__}, NCCL "
-                       f"{'.'.join(map(str, torch.cuda.nccl.version()))})",
-                       got, want, time.perf_counter() - t)
+        seconds = time.perf_counter() - t
+    recs = []
+    for r, text in enumerate(texts):
+        line = re.search(r"^\[cards\] (\{.*\})$", text, re.M)
+        check(bool(line), f"cards: rank {r} printed no record")
+        recs.append(json.loads(line.group(1)))
+    seq, tokens = CARDS_SEQ, CARDS_BATCH * CARDS_SEQ
+    first = recs[0]["losses"]
+    for rec in recs:
+        warm = sum(rec["ms"][1:]) / len(rec["ms"][1:])
+        flops = 6 * rec["params"] * tokens + rec["flop_attn"] * seq * tokens
+        print(f"[cards] rank {rec['rank']} ({rec['card']}): {CARDS_ARCH}"
+              f" whole, {rec['layers']} layers d_model {rec['d_model']}, "
+              f"{rec['params']:,} params, f32 AdamW, remat full, mesh "
+              f"{tuple(rec['mesh'])}; losses {fmt_losses(rec['losses'])}; "
+              f"step ms {', '.join(f'{x:.1f}' for x in rec['ms'])}; steps "
+              f"2-{len(rec['ms'])}: {warm:.1f} ms, "
+              f"{tokens / warm * 1e3:.1f} tokens/s, {flops / 1e12:.2f} TFLOP"
+              f" a step = {flops / (warm / 1e3) / 1e12:.1f} TFLOP/s, "
+              f"{flops / (warm / 1e3) / (cards * F32_FLOP_PER_S):.1%} of "
+              f"{cards} x 67 TFLOP/s; peak {rec['peak_gib']:.1f} GiB; "
+              f"launcher {rec['wall_s']:.1f} s; gradients autograd returns "
+              f"Partial: " + (", ".join(
+                  f"{k} {v[0]} {v[1] / 1e6:.3f} MB"
+                  for k, v in rec["partial"].items()) or "none"))
+        pr = rec["profile"]
+        if pr is None:
+            print(f"[cards] rank {rec['rank']}: profiled step: device time "
+                  f"not measured (the profiler recorded no device time)")
+        else:
+            compute = pr["products_ms"] + pr["other_ms"]
+            print(f"[cards] rank {rec['rank']} ({rec['card']}): profiled "
+                  f"step, {pr['window_ms']:.1f} ms wall: compute kernels "
+                  f"{compute:.1f} ms (products {pr['products_ms']:.1f}, the "
+                  f"rest {pr['other_ms']:.1f}; the compute stream idle "
+                  f"{1 - compute / pr['window_ms']:.1%}), NCCL kernels "
+                  f"{pr['nccl_ms']:.1f} ms summed (overlapping, waits "
+                  f"included); {pr['kernels']} kernels; largest: "
+                  + "; ".join(
+                      f"{ms} ms x{n} {name}" for ms, n, name in pr["top"]))
+        for g in rec["gemm"]:
+            print(f"[cards] rank {rec['rank']} ({rec['card']}): crossbar "
+                  f"sharded_gemm_op {'x'.join(map(str, CARDS_GEMM))} "
+                  f"{g['dtype']}, {CARDS_GEMM[0] // cards} rows a card: "
+                  f"launches {g['launches'][0]} ({g['route']} route; wgmma"
+                  f" {g['launches'][1]}, ffma {g['launches'][2]}); rows and "
+                  f"local gradients bit-equal to gemm_op on this card "
+                  f"{g['bit_equal']}; the rhs gradient's all-reduce over "
+                  f"data against the four one-card gradients summed in rank "
+                  f"order: max diff {g['reduce_max_diff']:.3e}, "
+                  f"{g['reduce_share']:.3g} of its bound; {g['ms']:.3f} ms a"
+                  f" call (gemm_op {g['gemm_op_ms']:.3f}), bound "
+                  f"{g['bound_ms']:.3f} ms ({g['bound_by']}), {g['library']}"
+                  f"; all-reduce of {g['all_reduce_mb']:.1f} MB "
+                  f"{g['all_reduce_ms']:.3f} ms")
+    rel = abs(first[0] - want) / abs(want)
+    print(f"[cards] {cards} ranks in {seconds:.1f} s: rank 0's first loss "
+          f"{first[0]:.6f} against one card's forward {want:.6f}: relative "
+          f"{rel:.2e} (bound {CARDS_TOL:g}); every rank's losses equal to "
+          f"rank 0's: {all(rec['losses'] == first for rec in recs)}")
+    check(len(first) == CARDS_STEPS
+          and all(math.isfinite(x) for x in first), f"cards: losses {first}")
+    check(first[-1] < first[0], f"cards: loss rose {first}")
+    check(rel <= CARDS_TOL, f"cards: first loss {rel:.2e} from one card's")
+    check(all(rec["losses"] == first for rec in recs),
+          "cards: ranks' losses differ")
+    check(all(rec["mesh"] == [cards, 1] for rec in recs),
+          f"cards: meshes {[rec['mesh'] for rec in recs]}")
 
 
 def dist_ranks():
@@ -4069,10 +4459,22 @@ def main() -> int:
                      help="phase 14g's gloo CPU rank RANK over DIR (the "
                           "smoke starts these itself)")
     cli.add_argument("--launcher-cards", type=int, metavar="N",
-                     help="run only phase 14g's launcher comparison, its "
-                          "ranks NCCL ranks on N cards of this machine")
+                     help="run only the launcher's reduced comparison "
+                          "and qwen2-7b whole through the launcher's "
+                          "torchrun on N cards of this machine (NCCL), "
+                          "then the crossbar on them")
+    cli.add_argument("--cards-rank", action="store_true",
+                     help="one rank of --launcher-cards (the smoke starts "
+                          "these itself, under torchrun)")
     opts = cli.parse_args()
+    if opts.cards_rank:
+        cards_rank()
+        return 0
     if opts.launcher_cards:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; nothing was run",
+                  file=sys.stderr)
+            return 1
         launcher_cards(opts.launcher_cards)
         return 0
     if opts.mesh_rank:
@@ -4123,7 +4525,7 @@ def main() -> int:
     autos = compile_autos(dev)
     raised = compile_raised(dev)
     sources = sorted({ck.run_cuda.source for _, _, ck in gemms + autos}
-                     | {fn.source for fn in dist_gemm_products()})
+                     | {fn.source for fn in dist_gemm_products(*DIST_GEMM)})
     general = [ck.run_cuda.source for *_, ck in compiled]
     general += [fn.source for _, fn, *_ in repaired]
     general += raised["sources"]

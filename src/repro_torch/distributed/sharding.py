@@ -33,6 +33,7 @@ Logical axes used across the framework:
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import (Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple,
@@ -199,6 +200,38 @@ def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     return x.redistribute(mesh, want)
 
 
+def placed_grad(mesh, placements, grad: torch.Tensor) -> torch.Tensor:
+    """``grad`` redistributed to ``placements`` on ``mesh``, those of the
+    tensor it is the gradient of: a ``Partial`` gradient is reduced (a
+    reduce-scatter where the tensor is sharded).  A plain tensor, or one
+    placed so already, as it is."""
+    if not is_dtensor(grad) or tuple(grad.placements) == tuple(placements):
+        return grad
+    return grad.redistribute(mesh, placements)
+
+
+class _PlacedGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return placed_grad(ctx.mesh, ctx.placements, g)
+
+
+def reduced_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its gradient placed as ``x`` is (``placed_grad``) as soon as
+    the backward makes it, before it flows on: a ``Partial`` gradient,
+    whole-size on every rank, is reduced then and not where its stack or
+    its sum is formed.  ``x`` itself unless it is a DTensor that takes a
+    gradient."""
+    if not (is_dtensor(x) and x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _PlacedGrad.apply(x)
+
+
 def _view(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``x.reshape(shape)``, a DTensor first redistributed where DTensor
     cannot view it: a sharded dim that the reshape splits keeps its
@@ -351,6 +384,25 @@ def replicate_plain(x):
             yield
     finally:
         _ctx.implicit = 0
+
+
+def in_context(fn):
+    """``fn`` run, from whichever thread calls it, under the mesh and
+    rules active where ``in_context`` is called.  This module's state is
+    thread-local, and the autograd engine runs a CUDA backward on its
+    device thread: there a checkpointed group's recompute (``remat``)
+    would otherwise see no mesh, skip every ``shard`` constraint and
+    differ from its forward.  (DTensor's implicit-replication flag, which
+    ``replicate_plain`` sets, is torch's own and reaches that thread.)"""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with axis_rules(mesh, rules):
+            return fn(*args, **kwargs)
+    return run
 
 
 def full(x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import reshape, shard
+from repro_torch.distributed.sharding import is_dtensor, reshape, shard
 from repro_torch.models.layers import Maker, Params, _gelu, rmsnorm
 
 
@@ -204,7 +204,10 @@ def apply_ssd(p: Params, x: torch.Tensor, cfg,
 def _ssd_with_state(xs, dt, A, Bmat, Cmat, D, h0, chunk):
     """Batched chunked SSD that threads an initial / final state.
     xs: (B,S,H,P), dt: (B,S,H), Bmat/Cmat: (B,S,N), h0: (B,H,P,N) or None.
-    Returns (y in xs' dtype, the f32 final state)."""
+    Returns (y in xs' dtype, the f32 final state).  Under a mesh each
+    rank scans its own rows and heads (``_ssd_per_shard``)."""
+    if is_dtensor(xs):
+        return _ssd_per_shard(xs, dt, A, Bmat, Cmat, D, h0, chunk)
     B_, S, H, P = xs.shape
     N = Bmat.shape[-1]
     chunk = min(chunk, S)
@@ -238,6 +241,54 @@ def _ssd_with_state(xs, dt, A, Bmat, Cmat, D, h0, chunk):
     y = torch.stack(ys, dim=1).reshape(B_, S, H, P)
     y = y + D[None, None, :, None] * xs.float()
     return y.to(xs.dtype), h
+
+
+def _ssd_per_shard(xs, dt, A, Bmat, Cmat, D, h0, chunk):
+    """``_ssd_with_state`` for DTensor ``xs``: a ``local_map`` region in
+    which each rank scans its own rows (``xs``'s batch sharding) and heads
+    (its head sharding), which needs no communication.  DTensor (torch
+    2.11) refuses the chunk einsums' flatten of the batch and a sharded
+    head dim.  An input replicated over a mesh dim the region splits
+    (Bmat and Cmat over the heads', A and D over the rows') gets a
+    ``Partial`` gradient over it: each rank holds its rows' or heads'
+    part of the sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xs.device_mesh
+
+    def placed(dims):
+        """Each mesh dim's placement for a tensor whose batch dim is
+        ``dims[0]`` and head dim ``dims[1]`` (None: it has none)."""
+        out = []
+        for p in xs.placements:
+            if p == Shard(0) and dims[0] is not None:
+                out.append(Shard(dims[0]))
+            elif p == Shard(2) and dims[1] is not None:
+                out.append(Shard(dims[1]))
+            else:
+                out.append(Replicate())
+        return out
+    split = placed((0, 2))
+    ins = [(xs, split), (dt, placed((0, 2))), (A, placed((None, 0))),
+           (Bmat, placed((0, None))), (Cmat, placed((0, None))),
+           (D, placed((None, 0)))]
+    if h0 is not None:
+        ins.append((h0, placed((0, 1))))
+    grads = [[Partial() if p == Replicate() and s != Replicate() else p
+              for p, s in zip(pl, split)] for _, pl in ins]
+    rep = [Replicate()] * mesh.ndim
+
+    def dtensor(x):
+        return x if is_dtensor(x) else DTensor.from_local(
+            x, mesh, rep, run_check=False)
+
+    def local(xs, dt, A, Bmat, Cmat, D, h0=None):
+        return _ssd_with_state(xs, dt, A, Bmat, Cmat, D, h0, chunk)
+    return local_map(local, out_placements=(split, placed((0, 1))),
+                     in_placements=tuple(pl for _, pl in ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(
+        *(dtensor(x) for x, _ in ins))
 
 
 def ssd_cache_spec(cfg, batch: int, dtype: torch.dtype) -> dict:

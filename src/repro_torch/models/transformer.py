@@ -20,7 +20,9 @@ embeddings).
 
 Under autograd each stacked leaf is unbound once per forward, so its
 gradient is stacked once (an integer index per layer would write a
-zero tensor the size of the whole stack per layer), and ``remat``
+zero tensor the size of the whole stack per layer); under a mesh each
+layer's gradients are reduced to their shards as the backward makes
+them (``_placed``), and ``remat``
 checkpoints each stacked group as the reference's ``jax.checkpoint`` of
 its scan body: ``"full"`` keeps only the group's input, ``"dots"`` also
 keeps the plain products (``aten.mm`` / ``addmm``), the counterpart of
@@ -39,7 +41,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import replicate_plain, shard
+from repro_torch.distributed.sharding import (in_context, reduced_grad,
+                                              replicate_plain, shard)
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -282,9 +285,22 @@ def _groups(cfg: ModelConfig, plan: StackPlan, params: Params,
             if cache is not None else [None] * plan.groups
             for pos in range(period)]
     for g in range(plan.groups):
-        yield [(kind, per[pos][g], cper[pos][g],
+        yield [(kind, _placed(per[pos][g]), cper[pos][g],
                 windows[start + g * period + pos])
                for pos, kind in enumerate(plan.pattern)]
+
+
+def _placed(tree):
+    """A layer's param tree whose gradients are placed as the params are
+    as soon as the backward makes them (``sharding.reduced_grad``): under
+    a mesh a data-sharded weight's gradient comes back ``Partial``,
+    whole-size on every rank, and is reduced to its shard there, the
+    reduce-scatter GSPMD inserts in the reference's backward, rather than
+    at the stack or the end.  Made just before the layer runs, so the
+    backward reaches each layer's reduction before the layer below (the
+    autograd engine runs the later-made of two ready nodes first)."""
+    return {k: _placed(v) if isinstance(v, dict) else reduced_grad(v)
+            for k, v in tree.items()}
 
 
 # the products "dots" remat keeps: plain 2-D ones, as the reference's
@@ -409,7 +425,7 @@ def _forward(params, cfg, tokens, extra_embeds, cache, backend, remat):
     windows = cfg.layer_windows()
 
     def unrolled(name, idxs):
-        return [(kinds[i], params[name][str(i)],
+        return [(kinds[i], _placed(params[name][str(i)]),
                  cache[name][str(i)] if cache is not None else None,
                  windows[i]) for i in idxs]
 
@@ -419,8 +435,10 @@ def _forward(params, cfg, tokens, extra_embeds, cache, backend, remat):
     for layers in _groups(cfg, plan, params, cache):
         if checkpointed:
             kw = {"context_fn": _dots_context} if remat == "dots" else {}
-            x, a = ckpt.checkpoint(functools.partial(run, layers), x,
-                                   use_reentrant=False, **kw)
+            # recomputed in the backward, on the autograd engine's device
+            # thread for CUDA tensors: under this thread's mesh
+            x, a = ckpt.checkpoint(in_context(functools.partial(run, layers)),
+                                   x, use_reentrant=False, **kw)
         else:
             x, a = run(layers, x)
         aux = aux + a
@@ -429,9 +447,9 @@ def _forward(params, cfg, tokens, extra_embeds, cache, backend, remat):
 
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = x @ reduced_grad(params["embed"]).T
     else:
-        logits = x @ params["lm_head"]
+        logits = x @ reduced_grad(params["lm_head"])
     logits = shard(logits, "batch", None, "vocab")
     if cache is not None:
         cache["len"] = kv_len + S

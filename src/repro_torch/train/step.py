@@ -11,7 +11,9 @@ groups of the forward (``models.transformer.forward``).
 
 Under a mesh the params and moments are DTensors
 (``init_state_sharded``); the step is the same code, with each gradient
-redistributed to its param's placements before the in-place update.
+redistributed to its param's placements before the in-place update (the
+layers' weights and the head's are placed already: the forward reduces
+each as the backward makes it, ``transformer._placed``).
 ``TrainConfig.grad_compress`` is accepted and not read, as in the
 reference.
 
@@ -168,10 +170,11 @@ def make_train_step(model: Model, optimizer: Optimizer,
         with torch.enable_grad(), replicate_plain(leaves[0]):
             loss, metrics = loss_fn(params, batch)
             grads = torch.autograd.grad(shard(loss), leaves)
-            # under a mesh each gradient comes back with the placements
+            # under a mesh a gradient comes back with the placements
             # autograd gives it (a data-sharded weight's is Partial over
-            # data): redistributing it to its param's placements is the
-            # data-parallel reduction GSPMD inserts in the reference
+            # data) unless the forward placed it already: redistributing
+            # it to its param's placements is the data-parallel reduction
+            # GSPMD inserts in the reference
             grads = [g.redistribute(p.device_mesh, p.placements)
                      if is_dtensor(p) else g for p, g in zip(leaves, grads)]
         it = iter(grads)

@@ -1,12 +1,13 @@
 """Multi-rank bodies for the distribution tests (no JAX).
 
-``run(name, world, tmp, payload)`` starts ``world`` CPU processes in a
-gloo group over a ``FileStore`` under ``tmp`` (no TCP port, so parallel
-test workers cannot collide), runs the function ``name`` of this module
-as ``fn(rank, world, payload)`` on each, and returns their results in
-rank order.  A run that outlives its ``timeout`` is killed and raises, so
-a hang cannot eat the suite's time; the group's own timeout also ends a
-stuck collective.
+``run(name, world, tmp, payload)`` starts ``world`` processes in a group
+over a ``FileStore`` under ``tmp`` (no TCP port, so parallel test workers
+cannot collide), runs the function ``name`` of this module as
+``fn(rank, world, payload)`` on each, and returns their results in rank
+order: gloo CPU ranks, or with ``device="cuda"`` NCCL ranks, one card
+each (rank r on card r).  A run that outlives its ``timeout`` is killed
+and raises, so a hang cannot eat the suite's time; the group's own
+timeout also ends a stuck collective.
 """
 
 from __future__ import annotations
@@ -20,13 +21,17 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+# this rank's device: the CPU, or its own card under ``device="cuda"``
+DEVICE = torch.device("cpu")
 
-def run(name: str, world: int, tmp, payload=None, timeout: float = 120.0):
+
+def run(name: str, world: int, tmp, payload=None, timeout: float = 120.0,
+        device: str = "cpu"):
     tmp = str(tmp)
     with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
         pickle.dump(payload, f)
-    ctx = mp.start_processes(_main, args=(world, tmp, name), nprocs=world,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(_main, args=(world, tmp, name, device),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
@@ -41,11 +46,21 @@ def run(name: str, world: int, tmp, payload=None, timeout: float = 120.0):
     return out
 
 
-def _main(rank: int, world: int, tmp: str, name: str) -> None:
-    torch.set_num_threads(1)
+def _main(rank: int, world: int, tmp: str, name: str,
+          device: str = "cpu") -> None:
+    global DEVICE
+    kw = {}
+    if device == "cuda":
+        DEVICE = torch.device("cuda", rank)
+        torch.cuda.set_device(DEVICE)
+        kw["device_id"] = DEVICE
+    else:
+        torch.set_num_threads(1)
     dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
-        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=90))
+        "nccl" if device == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=90),
+        **kw)
     try:
         with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
             payload = pickle.load(f)
@@ -60,13 +75,68 @@ def _np(tree):
     from repro_torch.distributed.sharding import full
     if isinstance(tree, dict):
         return {k: _np(v) for k, v in tree.items()}
-    return full(tree).detach().numpy()
+    return full(tree).detach().cpu().numpy()
 
 
 def _mesh(data: int, model: int):
     from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh("cpu", torch.arange(data * model).reshape(data, model),
+    return DeviceMesh(DEVICE.type,
+                      torch.arange(data * model).reshape(data, model),
                       mesh_dim_names=("data", "model"))
+
+
+def optimizer(name, lr):
+    """AdamW (weight decay 0.01) or SGD at a constant ``lr`` (a 0-d
+    tensor on the step counter's device, as ``optim.schedule``'s), or at
+    the schedule ``optim.schedule.make(**lr)`` where ``lr`` is a dict."""
+    from repro_torch.optim import schedule
+    from repro_torch.optim.optimizer import adamw, sgd
+
+    def rate(step):
+        return torch.tensor(lr, device=step.device)
+    if isinstance(lr, dict):
+        rate = schedule.make(**lr)
+    if name == "adamw":
+        return adamw(rate, weight_decay=0.01)
+    return sgd(rate)
+
+
+def plain_steps(cfg, params, batches, opt, lr, device="cpu",
+                run=None):
+    """The port's train steps of ``cfg`` without a mesh, from ``params``
+    (a tree of numpy arrays, or a seed the params are drawn from on
+    ``device``), one a batch of ``batches`` (numpy), the model built with
+    ``RunConfig(**run)`` (default ``max_seq=64``): the losses and the
+    final params (on ``device``)."""
+    from repro_torch.convert import to_torch
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.train.step import TrainState, make_train_step, new_rng
+    m = Model(cfg, RunConfig(**(run or {"max_seq": 64})), device=device)
+    po = optimizer(opt, lr)
+    tp = (m.init(torch.Generator(device=device).manual_seed(params))
+          if isinstance(params, int) else to_torch(params, device))
+    st = TrainState(tp, po.init(tp), new_rng(0, 1))
+    fn = make_train_step(m, po)
+    losses = []
+    for b in batches:
+        st, met = fn(st, {k: torch.from_numpy(v).to(device)
+                          for k, v in b.items()})
+        losses.append(met["loss"].item())
+    return losses, st.params
+
+
+def leaf_shares(got, want, prefix=""):
+    """{leaf path: (largest difference, the leaf's largest magnitude)} of
+    two param trees of tensors (DTensors gathered)."""
+    from repro_torch.distributed.sharding import full
+    if isinstance(want, dict):
+        out = {}
+        for k in sorted(want):
+            out.update(leaf_shares(got[k], want[k], f"{prefix}/{k}"))
+        return out
+    w = want.detach().float()
+    g = full(got).detach().float().to(w.device)
+    return {prefix: (float((g - w).abs().max()), float(w.abs().max()))}
 
 
 # --------------------------------------------------------------------------
@@ -123,32 +193,43 @@ def shardmap_moe(rank, world, p):
 
 def train_steps(rank, world, p):
     """Train steps of ``p["cfg"]`` on a (data, model) mesh from the params
-    ``p["params"]`` (numpy), AdamW or SGD (``p["opt"]``), one a batch of
-    ``p["batches"]``: the losses and the final params."""
+    ``p["params"]`` (numpy, or a seed they are drawn from on this rank's
+    device by ``Model.init(mesh=)``), AdamW or SGD (``p["opt"]``) at
+    ``p["lr"]`` (``optimizer``), the model built with ``RunConfig(
+    **p["run"])`` (default ``max_seq=64``), one a batch of
+    ``p["batches"]`` (a stub frontend's ``extra_embeds`` too):
+    the losses and the final params; with ``p["plain"]``, instead of the
+    params, the same steps without a mesh on this rank's device
+    (``plain_steps``): their losses and each leaf's largest difference
+    and magnitude (``leaf_shares``)."""
     from repro_torch.distributed.sharding import (axis_rules, distribute,
                                                   sharding_for,
                                                   tree_map_axes)
     from repro_torch.models import moe
     from repro_torch.models.model import Model, RunConfig
-    from repro_torch.optim.optimizer import adamw, sgd
     from repro_torch.train.step import TrainState, make_train_step, new_rng
     mesh = _mesh(*p["mesh"])
-    model = Model(p["cfg"], RunConfig(max_seq=64), device="cpu")
-    lr = lambda s: torch.tensor(p["lr"])              # noqa: E731
-    opt = (adamw(lr, weight_decay=0.01) if p["opt"] == "adamw"
-           else sgd(lr))
+    run = p.get("run", {"max_seq": 64})
+    model = Model(p["cfg"], RunConfig(**run), device=DEVICE)
+    opt = optimizer(p["opt"], p["lr"])
     moe.set_moe_impl(p.get("impl", "auto"))
     with axis_rules(mesh):
-        params = tree_map_axes(
-            lambda ax, a: distribute(torch.from_numpy(a),
-                                     sharding_for(ax, a.shape, mesh)),
-            model.param_axes(), p["params"])
+        if isinstance(p["params"], int):
+            params = model.init(
+                torch.Generator(device=DEVICE).manual_seed(p["params"]),
+                mesh=mesh)
+        else:
+            params = tree_map_axes(
+                lambda ax, a: distribute(torch.from_numpy(a).to(DEVICE),
+                                         sharding_for(ax, a.shape, mesh)),
+                model.param_axes(), p["params"])
         state = TrainState(params, opt.init(params), new_rng(0, 1))
         fn = make_train_step(model, opt)
         losses, shardmap = [], []
         for b in p["batches"]:
-            batch = {k: distribute(torch.from_numpy(v),
-                                   sharding_for("batch -", v.shape, mesh))
+            batch = {k: distribute(torch.from_numpy(v).to(DEVICE),
+                                   sharding_for(("batch",) + ("-",) *
+                                                (v.ndim - 1), v.shape, mesh))
                      for k, v in b.items()}
             state, metrics = fn(state, batch)
             losses.append(float(metrics["loss"]))
@@ -157,9 +238,120 @@ def train_steps(rank, world, p):
                             if p["cfg"].moe is not None else None)
         placements = {k: str(v.placements) for k, v in
                       state.params["scan"]["pos0"].get("mlp", {}).items()}
-        out = {"losses": losses, "params": _np(state.params),
-               "shardmap": shardmap, "placements": placements}
+        out = {"losses": losses, "shardmap": shardmap,
+               "placements": placements}
+        if p.get("plain"):
+            del fn, batch
+            params = state.params
+            del state
+            out["plain_losses"], want = plain_steps(
+                p["cfg"], p["params"], p["batches"], p["opt"], p["lr"],
+                DEVICE, run)
+            out["shares"] = leaf_shares(params, want)
+        else:
+            out["params"] = _np(state.params)
     moe.set_moe_impl("auto")
+    return out
+
+
+def grad_peak(rank, world, p):
+    """One SGD step of ``p["cfg"]`` (remat full) on a (data, model) mesh
+    from params drawn from seed 0, twice: with ``sharding.placed_grad``
+    as it is, which reduces each layer's gradient of a stacked leaf as the
+    backward makes it (``transformer._placed`` through
+    ``sharding.reduced_grad``), and with one that only
+    watches (each layer's gradient then waits for the stack, as without
+    the reduction).  Both record the bytes of this rank's whole-size
+    (``Partial``) gradients of the stacked leaves alive at once.  Returns
+    each run's largest such total, its loss and its params."""
+    import weakref
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.train.step import TrainState, make_train_step, new_rng
+    mesh = _mesh(*p["mesh"])
+    model = Model(p["cfg"], RunConfig(max_seq=64, remat="full"),
+                  device=DEVICE)
+    opt = optimizer("sgd", p["lr"])
+    reduce = S.placed_grad
+    out = {}
+    for mode in ("reduce", "watch"):
+        live = {"now": 0, "peak": 0}
+
+        def drop(n, live=live):
+            live["now"] -= n
+
+        def hook(mesh_, placements, g, mode=mode, live=live):
+            if S.is_dtensor(g) and any(pl.is_partial() for pl in g.placements):
+                n = g.to_local().numel() * g.element_size()
+                live["now"] += n
+                live["peak"] = max(live["peak"], live["now"])
+                weakref.finalize(g, drop, n)
+            return reduce(mesh_, placements, g) if mode == "reduce" else g
+        S.placed_grad = hook
+        try:
+            with S.axis_rules(mesh):
+                params = model.init(torch.Generator().manual_seed(0),
+                                    mesh=mesh)
+                state = TrainState(params, opt.init(params), new_rng(0, 1))
+                batch = {k: S.distribute(torch.from_numpy(v), S.sharding_for(
+                    "batch -", v.shape, mesh)) for k, v in p["batch"].items()}
+                state, metrics = make_train_step(model, opt)(state, batch)
+                out[mode] = {"peak": live["peak"],
+                             "loss": float(metrics["loss"]),
+                             "params": _np(state.params)}
+        finally:
+            S.placed_grad = reduce
+    return out
+
+
+def thread_backward(rank, world, p):
+    """The gradients of ``p["cfg"]``'s loss (remat full) on a (data,
+    model) mesh from params drawn from seed 0, once with the backward run
+    in this thread and once in another, as the autograd engine runs a
+    CUDA backward on its device thread: there this thread's ``axis_rules``
+    are not set, and DTensor's implicit replication is (torch carries it
+    there); both gathered."""
+    import threading
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  replicate_plain, shard,
+                                                  sharding_for)
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.optim.optimizer import tree_leaves
+    mesh = _mesh(*p["mesh"])
+    model = Model(p["cfg"], RunConfig(max_seq=64, remat="full"),
+                  device=DEVICE)
+    out = {}
+    with axis_rules(mesh):
+        params = model.init(torch.Generator().manual_seed(0), mesh=mesh)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {k: distribute(torch.from_numpy(v), sharding_for(
+            "batch -", v.shape, mesh)) for k, v in p["batch"].items()}
+        for where in ("here", "thread"):
+            with torch.enable_grad(), replicate_plain(leaves[0]):
+                loss, _ = model.loss(params, batch)
+                got = {}
+
+                def backward(got=got, loss=loss):
+                    try:
+                        got["grads"] = torch.autograd.grad(shard(loss),
+                                                           leaves)
+                    except Exception as e:      # reported, not raised
+                        got["error"] = f"{type(e).__name__}: {e}"[:300]
+
+                def device_thread():
+                    with implicit_replication():
+                        backward()
+                if where == "here":
+                    backward()
+                else:
+                    t = threading.Thread(target=device_thread)
+                    t.start()
+                    t.join()
+            out[where] = ([_np(g) for g in got["grads"]] if "grads" in got
+                          else got["error"])
     return out
 
 

@@ -9,15 +9,32 @@ Each case starts 4 gloo CPU ranks (``_torch_dist_ranks``) and holds the
 result of one rank body to the port's own run of the same function
 without a mesh, from the same numpy params and batches: train steps on
 (2, 2), (1, 4) and (4, 1) meshes (qwen2-7b, and deepseek-v2 with its MoE
-on the expert-parallel path), the sharded GEMM, the int8 all-reduce, the
-expert-parallel MoE layer, the elastic restore onto another mesh and the
-launcher's host mesh.  DTensor decides which ops a sharded tensor may
-take in Python, the same on the CPU and on CUDA, so gloo ranks meet the
+on the expert-parallel path), two train steps of every other registry
+family on (2, 2), the sharded GEMM, the int8 all-reduce, the
+expert-parallel MoE layer, the elastic restore onto another mesh, the
+launcher's host mesh and the per-layer reduction of the stacked leaves'
+gradients.  DTensor decides which ops a sharded tensor may take in
+Python, the same on the CPU and on CUDA, so gloo ranks meet the
 refusals that NCCL ranks on cards would.  ``test_torch_distributed.py``
 holds the same bodies to the JAX reference.
+
+The state split of full qwen2-7b on four ranks is reckoned from shapes
+and ``pspec_for`` alone, and its forward traced on a ``"fake"`` group of
+meta tensors (in a subprocess, so no worker keeps a group).  The cases
+marked ``cuda`` need four cards (NCCL ranks, one a card) and skip with
+fewer: qwen2-7b at full width cut to two layers on (2, 2) and (4, 1)
+against one card without a mesh, with SGD, and with the launcher's
+recipe (AdamW, its cosine schedule, remat full, its batches) on (4, 1):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mesh_ranks.py
 """
 
 import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +44,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import to_torch
 from repro_torch.core.integrate import gemm_op
+from repro_torch.distributed.sharding import pspec_for, spec_axes
 from repro_torch.distributed import compression as C
 from repro_torch.models import moe
 from repro_torch.models.layers import Maker
@@ -59,47 +77,47 @@ def _flat(tree, prefix=()):
     return {"/".join(prefix): tree}
 
 
-def _moe_cfg():
-    """Reduced deepseek-v2 with 8 experts at a capacity factor at which
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _moe_cfg(arch="deepseek_v2_236b"):
+    """A reduced MoE config with 8 experts at a capacity factor at which
     no path drops a token."""
-    c = reduced(get_config("deepseek_v2_236b"))
+    c = reduced(get_config(arch))
     return dataclasses.replace(c, moe=dataclasses.replace(
         c.moe, capacity_factor=8.0, num_experts=8))
 
 
 def _cfg(arch):
-    return _moe_cfg() if arch == "deepseek_v2_236b" else reduced(
-        get_config(arch))
+    c = get_config(arch)
+    return _moe_cfg(arch) if c.moe is not None else reduced(c)
 
 
-def _batches(vocab, n=3, seed=9):
+def _batches(cfg, n=3, seed=9):
+    """``n`` batches of 4 x 8 tokens, with the stub frontend's input
+    (whisper's frames, pixtral's patches) as ``tests/test_torch_train.py``
+    makes it."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        t = rng.integers(0, vocab, (4, 9)).astype(np.int32)
-        out.append({"tokens": t[:, :-1], "labels": t[:, 1:],
-                    "mask": np.ones((4, 8), np.float32)})
+        t = rng.integers(0, cfg.vocab_size, (4, 9)).astype(np.int32)
+        b = {"tokens": t[:, :-1], "labels": t[:, 1:],
+             "mask": np.ones((4, 8), np.float32)}
+        if cfg.encoder is not None:
+            b["extra_embeds"] = rng.standard_normal(
+                (4, cfg.encoder.context, cfg.encoder.d_model)).astype(
+                    np.float32)
+        elif cfg.frontend:
+            b["extra_embeds"] = rng.standard_normal(
+                (4, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        out.append(b)
     return out
-
-
-def _optimizer(name, lr):
-    if name == "adamw":
-        return opt_mod.adamw(lambda s: torch.tensor(lr), weight_decay=0.01)
-    return opt_mod.sgd(lambda s: torch.tensor(lr))
 
 
 def _plain_steps(cfg, params, batches, opt, lr):
     """The port's train steps without a mesh: losses and final params."""
-    m = Model(cfg, RunConfig(max_seq=64), device="cpu")
-    po = _optimizer(opt, lr)
-    tp = to_torch(params, "cpu")
-    st = step_mod.TrainState(tp, po.init(tp), step_mod.new_rng(0, 1))
-    fn = step_mod.make_train_step(m, po)
-    losses = []
-    for b in batches:
-        st, met = fn(st, {k: torch.from_numpy(v) for k, v in b.items()})
-        losses.append(met["loss"].item())
-    return losses, _numpy(st.params)
+    losses, final = ranks.plain_steps(cfg, params, batches, opt, lr)
+    return losses, _numpy(final)
 
 
 def _close_to_scale(got, want, tol, what):
@@ -128,7 +146,7 @@ def test_train_steps_on_a_mesh_match_no_mesh(tmp_path, mesh, arch, opt):
     cfg = _cfg(arch)
     params = _numpy(Model(cfg, RunConfig(max_seq=64), device="cpu").init(
         torch.Generator().manual_seed(1)))
-    batches = _batches(cfg.vocab_size)
+    batches = _batches(cfg)
     lr = 3e-3 if opt == "adamw" else 0.3
     out = ranks.run("train_steps", 4, tmp_path,
                     {"cfg": cfg, "params": params, "batches": batches,
@@ -263,3 +281,303 @@ def test_host_mesh_launcher_in_four_ranks(tmp_path, arch):
     for r in range(4):
         assert out[r]["mesh"] == "(4, 1)"
         np.testing.assert_allclose(out[r]["losses"], base, rtol=1e-6)
+
+
+FAMILIES = ("recurrentgemma_2b", "mamba2_130m", "gemma3_4b", "qwen1_5_32b",
+            "minicpm_2b", "kimi_k2_1t", "whisper_base", "pixtral_12b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_steps_on_a_2x2_mesh_match_no_mesh(tmp_path, arch):
+    """2 SGD steps of each other registry family (reduced; kimi-k2 with 8
+    experts at capacity factor 8, so no token is dropped; whisper-base
+    and pixtral-12b on their stub frames and patches) on a (2, 2) gloo
+    mesh against the port's run without a mesh from the same params and
+    batches: losses within 1e-6 relative, every param within 1e-6 of its
+    leaf's largest magnitude."""
+    cfg = _cfg(arch)
+    params = _numpy(Model(cfg, RunConfig(max_seq=64), device="cpu").init(
+        torch.Generator().manual_seed(1)))
+    batches = _batches(cfg, n=2)
+    out = ranks.run("train_steps", 4, tmp_path,
+                    {"cfg": cfg, "params": params, "batches": batches,
+                     "mesh": (2, 2), "lr": 0.3, "opt": "sgd"})
+    losses, final = _plain_steps(cfg, params, batches, "sgd", 0.3)
+    assert all(np.isfinite(losses))
+    for r in range(4):
+        np.testing.assert_allclose(out[r]["losses"], losses, rtol=1e-6)
+        _close_to_scale(out[r]["params"], final, 1e-6, r)
+
+
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_stacked_gradients_are_reduced_as_the_backward_makes_them(
+        tmp_path, mesh):
+    """``transformer._placed`` (through ``sharding.reduced_grad``)
+    reduces each layer's ``Partial`` gradient of a stacked leaf as the
+    backward produces it: one SGD step
+    (remat full) on a gloo mesh gives the loss and params of the same step
+    where each layer's gradient waits for the stack (a ``placed_grad``
+    that only watches), and the whole-size gradient bytes alive at
+    once on a rank fall from every layer's and the head's to the largest
+    one (reduced qwen2-7b at 4 layers).  The params agree within 1e-6 of each
+    leaf's largest magnitude: an all-reduce of one layer's slice may sum
+    the ranks in another order than one of the stack."""
+    cfg = reduced(get_config("qwen2_7b"), layers=4)
+    rng = np.random.default_rng(3)
+    t = rng.integers(0, cfg.vocab_size, (4, 9)).astype(np.int32)
+    out = ranks.run("grad_peak", 4, tmp_path,
+                    {"cfg": cfg, "mesh": mesh, "lr": 0.3,
+                     "batch": {"tokens": t[:, :-1], "labels": t[:, 1:]}})
+    # the leaves whose gradient comes back Partial over data (the fsdp dim
+    # is their contraction dim): wq, wk, wv, w_gate, w_up of each layer,
+    # and the head
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    layer = 4 * (d * d + 2 * d * kv + 2 * d * ff) // mesh[1]
+    head = 4 * d * V // mesh[1]
+    for r in range(4):
+        o = out[r]
+        print(f"rank {r} mesh {mesh}: whole-size gradient bytes alive at "
+              f"once {o['reduce']['peak']} (reduced as made) against "
+              f"{o['watch']['peak']} (waiting for the stack); one layer's "
+              f"{layer}, the head's {head}")
+        assert o["reduce"]["loss"] == o["watch"]["loss"]
+        _close_to_scale(o["reduce"]["params"], o["watch"]["params"], 1e-6, r)
+        assert o["watch"]["peak"] >= cfg.num_layers * layer + head
+        assert 0 < o["reduce"]["peak"] <= max(head, 4 * d * ff // mesh[1])
+
+
+def _flat_meta(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_meta(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_qwen2_7b_state_splits_four_ways(mesh):
+    """Full qwen2-7b's params (meta tensors, their logical axes and
+    ``pspec_for`` over the mesh's axis sizes; nothing allocated) split to
+    1.904 G a rank on four ranks, 30.5 GB of f32 AdamW state (params,
+    gradients, m, v) a card against 121.8 GB whole; the only leaves not
+    split four ways are the norms and the QKV biases."""
+    model = Model(get_config("qwen2-7b"), RunConfig(max_seq=256),
+                  device="meta")
+    shapes = _flat_meta(model.param_shapes())
+    axes = _flat_meta(model.param_axes())
+    sizes = {"data": mesh[0], "model": mesh[1]}
+    per, whole = 0, {}
+    for k, t in shapes.items():
+        spec = pspec_for(axes[k].split(), t.shape, sizes)
+        n = int(np.prod([sizes[a] for e in spec for a in spec_axes(e)]))
+        assert t.numel() % n == 0, k
+        per += t.numel() // n
+        if n != 4:
+            whole[k] = t.numel()
+    total = sum(t.numel() for t in shapes.values())
+    assert total == 7_615_616_512
+    assert sorted(whole) == ["/final_norm", "/scan/pos0/attn/bk",
+                             "/scan/pos0/attn/bq", "/scan/pos0/attn/bv",
+                             "/scan/pos0/attn/norm", "/scan/pos0/mlp/norm"]
+    assert sum(whole.values()) == 333_312
+    assert round(per / 1e6) == 1904
+    assert round(16 * per / 1e8) == 305 and round(16 * total / 1e8) == 1218
+
+
+_TRACE = r"""
+import json, sys
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.distributed_c10d import _resolve_process_group
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch.configs.base import get_config
+from repro_torch.distributed.sharding import (axis_rules, distribute,
+    map_shardings, replicate_plain, sharding_for, tree_shardings)
+from repro_torch.launch.dryrun import fake_group
+from repro_torch.models.model import Model, RunConfig
+from repro_torch.optim.optimizer import tree_leaves
+
+fake_group(4)
+out = {}
+for data, model in ((4, 1), (2, 2)):
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(data, model),
+                      mesh_dim_names=("data", "model"))
+    axis = {tuple(dist.get_process_group_ranks(mesh.get_group(n))): n
+            for n in ("data", "model")}
+    rec = {"forward": [], "backward": []}
+    phase = ["forward"]
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            kwargs = kwargs or {}
+            names = [a.name for a in func._schema.arguments]
+            if func.namespace == "_c10d_functional" and "group_name" in names:
+                vals = dict(zip(names, args), **kwargs)
+                pg = _resolve_process_group(vals["group_name"])
+                rec[phase[0]].append(
+                    (func.overloadpacket.__name__,
+                     axis.get(tuple(dist.get_process_group_ranks(pg)), "?"),
+                     list(args[0].shape)))
+            return func(*args, **kwargs)
+
+    m = Model(get_config("qwen2-7b"),
+              RunConfig(max_seq=256, remat="full", backend="torch"),
+              device="meta")
+    with axis_rules(mesh):
+        shapes = m.param_shapes()
+        params = map_shardings(lambda s, t: distribute(t, s),
+                               tree_shardings(m.param_axes(), shapes, mesh),
+                               shapes)
+        tok = torch.empty((8, 256), dtype=torch.int64, device="meta")
+        tok = distribute(tok, sharding_for("batch -", tok.shape, mesh))
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        with Mode(), replicate_plain(leaves[0]):
+            loss, _ = m.loss(params, {"tokens": tok, "labels": tok})
+            phase[0] = "backward"
+            torch.autograd.grad(loss, leaves)
+    out[f"{data}x{model}"] = rec
+print(json.dumps(out))
+"""
+
+
+def test_qwen2_7b_forward_gathers_one_layer_at_a_time():
+    """Full qwen2-7b's loss and gradients (remat full, 8 x 256 tokens)
+    traced on a ``"fake"`` group of 4 ranks with meta DTensors (nothing
+    allocated) on (4, 1) and (2, 2): no collective carries a tensor with
+    the layer-stack axis (each stacked leaf is unbound once, and each
+    layer's slice is gathered where it is used), and on (2, 2) the
+    forward gathers nothing over ``model`` but the logits for the loss
+    (the 28 query and 4 KV heads divide by 2)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _TRACE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    layers = get_config("qwen2-7b").num_layers
+    V = get_config("qwen2-7b").padded_vocab
+    for mesh, rec in out.items():
+        every = rec["forward"] + rec["backward"]
+        assert any(k == "all_gather_into_tensor" for k, _, _ in
+                   rec["forward"]), mesh
+        assert not [c for c in every if len(c[2]) == 3
+                    and c[2][0] % layers == 0 and c[2][0] >= layers], mesh
+        over_model = [c for c in rec["forward"]
+                      if c[0] == "all_gather_into_tensor" and c[1] == "model"]
+        if mesh == "2x2":
+            assert over_model == [["all_gather_into_tensor", "model",
+                                   [4, 256, V // 2]]]
+        else:
+            assert over_model == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_full_width_on_four_cards_matches_one_card(tmp_path, mesh):
+    """qwen2-7b at full width cut to 2 layers (1.556 G params) on four
+    NCCL ranks, a card each: 3 SGD steps from the params of seed 0 (drawn
+    on each card, ``Model.init(mesh=)``) against the same steps without a
+    mesh on one card (each rank's own, after its mesh run): losses within
+    1e-5 relative, every param within 1e-5 of its leaf's largest
+    magnitude."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    assert round(Model(cfg, RunConfig(max_seq=64), device="meta")
+                 .param_count() / 1e6) == 1556
+    out = ranks.run("train_steps", 4, tmp_path,
+                    {"cfg": cfg, "params": 0, "batches": _batches(cfg),
+                     "mesh": mesh, "lr": 0.1, "opt": "sgd", "plain": True},
+                    timeout=900, device="cuda")
+    for r in range(4):
+        o = out[r]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(o["losses"], o["plain_losses"]))
+        share = max(err / max(scale, 1e-30)
+                    for err, scale in o["shares"].values())
+        print(f"rank {r} mesh {mesh}: losses {o['losses']} against one "
+              f"card's {o['plain_losses']}: worst relative {rel:.3e} "
+              f"(bound 1e-5); params: worst difference {share:.3e} of its "
+              f"leaf's largest magnitude (bound 1e-5)")
+        assert len(o["losses"]) == 3 and all(np.isfinite(o["losses"]))
+        np.testing.assert_allclose(o["plain_losses"],
+                                   out[0]["plain_losses"], rtol=1e-6)
+        assert rel <= 1e-5 and share <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peak", [1e-4, 3e-3], ids=lambda x: f"lr{x:g}")
+def test_launcher_recipe_on_four_cards_matches_one_card(tmp_path, peak):
+    """The launcher's training recipe (``launch/train.py``: AdamW with
+    weight decay 0.01, the cosine schedule of an 8-step run, warmup 1,
+    remat full, its pipeline's 8 x 256-token batches of seed 0) at
+    qwen2-7b's full width cut to 2 layers, its first 3 steps from the
+    params of seed 0 on the launcher's (4, 1) mesh over four NCCL ranks
+    (a card each) against the same steps without a mesh on one card: the
+    backward of remat full and AdamW on NCCL past its first step.  Losses
+    within 1e-5 relative.  The params' worst difference is printed, not
+    held: Adam's first step moves each param by about ``peak`` times the
+    sign of its gradient, so a gradient within rounding of 0 may move
+    another way on the mesh.  At ``--lr 1e-4``, which ``chip_smoke.py
+    --launcher-cards`` trains whole qwen2-7b at, and at the launcher's
+    default 3e-3."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                               global_batch=8, seed=0))
+    lr = {"name": "cosine", "peak": peak, "warmup_steps": 1,
+          "total_steps": 8}
+    out = ranks.run("train_steps", 4, tmp_path,
+                    {"cfg": cfg, "params": 0, "mesh": (4, 1),
+                     "batches": [pipe.batch(s) for s in range(3)],
+                     "run": {"max_seq": 256, "remat": "full"}, "lr": lr,
+                     "opt": "adamw", "plain": True},
+                    timeout=900, device="cuda")
+    for r in range(4):
+        o = out[r]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(o["losses"], o["plain_losses"]))
+        share = max(err / max(scale, 1e-30)
+                    for err, scale in o["shares"].values())
+        print(f"rank {r} lr {peak:g}: losses {o['losses']} against one "
+              f"card's {o['plain_losses']}: worst relative {rel:.3e} "
+              f"(bound 1e-5); params: worst difference {share:.3e} of its "
+              f"leaf's largest magnitude (not held)")
+        assert len(o["losses"]) == 3 and all(np.isfinite(o["losses"]))
+        np.testing.assert_allclose(o["plain_losses"],
+                                   out[0]["plain_losses"], rtol=1e-6)
+        assert rel <= 1e-5
+
+
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_remat_recompute_in_another_thread_keeps_the_mesh(tmp_path, mesh):
+    """A checkpointed group's recompute runs where the backward runs: for
+    CUDA tensors on the autograd engine's device thread, where the mesh
+    and implicit replication of ``axis_rules`` / ``replicate_plain``
+    (thread-local) are not set.  ``sharding.in_context`` carries them
+    there: the gradients of a backward run in another thread equal those
+    of one run in the forward's thread (reduced qwen2-7b, remat full, on a
+    gloo mesh)."""
+    cfg = reduced(get_config("qwen2_7b"))
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, cfg.vocab_size, (4, 9)).astype(np.int32)
+    out = ranks.run("thread_backward", 4, tmp_path,
+                    {"cfg": cfg, "mesh": mesh,
+                     "batch": {"tokens": t[:, :-1], "labels": t[:, 1:]}})
+    for r in range(4):
+        here, there = out[r]["here"], out[r]["thread"]
+        assert not isinstance(there, str), there
+        for a, b in zip(here, there):
+            np.testing.assert_array_equal(a, b)
