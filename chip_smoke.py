@@ -406,6 +406,47 @@ CARDS_TOL = 1e-5
 CARDS_REDUCED = [DIST_RANK_LAUNCH, DIST_RANK_LAUNCH + ["--remat", "full"]]
 CARDS_GEMM = (2048, 18944, 3584)
 CARDS_TIMEOUT = 900
+# then deepseek-v2-236b at full width (MOE_ARCH: d 5120, 128 MLA heads,
+# 160 experts top-6 and 2 shared of ff 1536, vocab 102,400), params of
+# seed 0 drawn on every card (Model.init(mesh=)), one torchrun of 4 NCCL
+# ranks for each mesh of MOE_MESHES, each part against the same work on
+# one card (every rank's own, after its mesh run).  On a mesh with more
+# than one data shard the expert-parallel path sizes each expert's slots
+# from the shard's tokens (the reference's arithmetic), so the one-card
+# run of (a), (c) and (d) takes that capacity too (ShardedMoE): at the
+# whole batch's capacity other pairs drop, also at capacity factor 8 on
+# the pipeline's Zipf batches, where one token can be a quarter of them.
+# (a) the MoE layer, f32, MOE_TOKENS tokens at the config's capacity
+#     factor: output, aux loss, the input's and every param's gradient
+#     within MOE_TOL of its largest magnitude; on (2, 2) against the layer
+#     on each data shard's rows apart (its capacity), with the whole
+#     batch's aux loss; tokens re-routed at near-ties held apart;
+# (b) serving, (1, 4) only: MOE_SERVE_LAYERS layers at DIST_MOE_CF, f32
+#     and bf16, a BATCH x PROMPT prefill (the expert-parallel path), then
+#     MOE_DECODE greedy decode steps (the dense path): the logits through
+#     routed_compare at phase 6d's gates; each decode step's ms and its
+#     collectives by kind and mesh axis, none carrying an expert weight;
+# (c) MOE_TRAIN_STEPS steps of plain SGD (no momentum) at MOE_TRAIN_LR of
+#     the MOE_TRAIN_LAYERS cut (params and gradients, 44.2 GB, fit one
+#     card; AdamW's state would not) on the launcher's batches, at the
+#     config's capacity factor: losses within MOE_TOL relative, params
+#     within MOE_TOL of each leaf's largest magnitude;
+# (d) the MOE_STATE_LAYERS cut (153.1 GB of f32 AdamW state, 38.3 GB a
+#     card) with the launcher's recipe (CARDS_LR, cosine, warmup 1, remat
+#     full), CARDS_STEPS steps of CARDS_BATCH x CARDS_SEQ: losses finite
+#     and equal on every rank, the first within MOE_TOL relative of one
+#     card's forward (and printed beside its forward at the whole batch's
+#     capacity); a profiled step and one more whose collectives are
+#     counted by kind and axis
+MOE_ARCH = "deepseek-v2-236b"
+MOE_MESHES = ((1, 4), (2, 2))
+MOE_TOKENS = (8, 256)
+MOE_TOL = 1e-5
+MOE_SERVE_LAYERS, MOE_DECODE = 2, 8
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 2, 3, 0.1
+MOE_STATE_LAYERS = 3
+# a stuck collective ends the rank job after this many seconds
+MOE_GROUP_TIMEOUT = 300
 # the raising entry point (phase 15): three configs whose blocks cover
 # every raisable block kind, each with its raised blocks and its blocked
 # ones with their first unraisable ATen op (docs/RAISING.md's rows, the
@@ -2117,6 +2158,26 @@ class RouterLog:
                 for i in range(layers)]
 
 
+def route_flips(ra, rb, top_k):
+    """Two runs' router logits ``ra``, ``rb`` (..., E): where their top-K
+    sets differ, and where such a flip is explained by the runs' rounding:
+    the gap between the K-th and (K+1)-th logits (in either run) is at
+    most twice the largest difference of that token's router logits."""
+    sa = torch.sort(torch.softmax(ra, -1), dim=-1, descending=True,
+                    stable=True)[1]
+    sb = torch.sort(torch.softmax(rb, -1), dim=-1, descending=True,
+                    stable=True)[1]
+    flip = (sa[..., :top_k].sort(-1)[0] != sb[..., :top_k].sort(-1)[0]
+            ).any(-1)
+    delta = (ra - rb).abs().amax(-1)
+
+    def gap(r, order):
+        return (r.gather(-1, order[..., top_k - 1:top_k])
+                - r.gather(-1, order[..., top_k:top_k + 1]))[..., 0]
+    near = torch.minimum(gap(ra, sa), gap(rb, sb)) <= 2 * delta
+    return flip, near
+
+
 def routed_compare(label, a, b, routes_a, routes_b, top_k, limit_of):
     """Logits ``a`` against ``b`` (B, S, V), position by position, where
     an MoE model's two runs may route a token to other experts: the
@@ -2142,18 +2203,7 @@ def routed_compare(label, a, b, routes_a, routes_b, top_k, limit_of):
         router = max(router, moved)
         check(moved <= limit_of(rb.abs().max().item()),
               f"{label}: router logits differ by {moved}")
-        sa = torch.sort(torch.softmax(ra, -1), dim=-1, descending=True,
-                        stable=True)[1]
-        sb = torch.sort(torch.softmax(rb, -1), dim=-1, descending=True,
-                        stable=True)[1]
-        flip = (sa[..., :top_k].sort(-1)[0] != sb[..., :top_k].sort(-1)[0]
-                ).any(-1)
-        delta = (ra - rb).abs().amax(-1)
-
-        def gap(r, order):
-            return (r.gather(-1, order[..., top_k - 1:top_k])
-                    - r.gather(-1, order[..., top_k:top_k + 1]))[..., 0]
-        near = torch.minimum(gap(ra, sa), gap(rb, sb)) <= 2 * delta
+        flip, near = route_flips(ra, rb, top_k)
         unexplained += int((flip & ~near).sum())
         flipped |= flip
     worst = err[~flipped].max().item() if (~flipped).any() else 0.0
@@ -3629,13 +3679,34 @@ def cards_profile(res):
     res["state"] = state["s"]
     if busy is None:
         return None
-    products = sum(ms for ms, _, name in rows
-                   if any(k in name for k in PRODUCT_KERNELS))
-    nccl = sum(ms for ms, _, name in rows if "nccl" in name.lower())
-    return {"window_ms": window, "products_ms": products,
-            "nccl_ms": nccl, "other_ms": busy - products - nccl,
-            "kernels": sum(r[1] for r in rows),
-            "top": [[round(ms, 2), n, name[:80]] for ms, n, name in rows[:6]]}
+    return dict(step_split(rows), window_ms=window,
+                top=[[round(ms, 2), n, name[:80]] for ms, n, name in rows[:6]])
+
+
+def step_split(rows):
+    """A profiled step's device rows (``profile_steps``) split into the
+    products (PRODUCT_KERNELS), the NCCL kernels by kind (the <Kind> of
+    their ``ncclDevKernel_<Kind>`` names; they run on their own streams,
+    overlap the compute and include each wait for the other ranks) and
+    the other kernels, in ms, and the kernels counted.  Rows that name
+    NCCL but no kernel (the ranges its calls mark on the device, over
+    those same kernels) are left out."""
+    out = {"products_ms": 0.0, "other_ms": 0.0, "nccl": {}, "kernels": 0}
+    for ms, n, name in rows:
+        if "nccl" in name.lower():
+            m = re.search(r"nccl(?:DevKernel|Kernel)_([A-Za-z]+)", name)
+            if m is None:
+                continue
+            kind = out["nccl"].setdefault(m.group(1), [0.0, 0])
+            kind[0] += ms
+            kind[1] += n
+        elif any(k in name for k in PRODUCT_KERNELS):
+            out["products_ms"] += ms
+        else:
+            out["other_ms"] += ms
+        out["kernels"] += n
+    out["nccl_ms"] = sum(v[0] for v in out["nccl"].values())
+    return out
 
 
 def cards_rank():
@@ -3780,7 +3851,10 @@ def launcher_cards(cards):
                   f"rest {pr['other_ms']:.1f}; the compute stream idle "
                   f"{1 - compute / pr['window_ms']:.1%}), NCCL kernels "
                   f"{pr['nccl_ms']:.1f} ms summed (overlapping, waits "
-                  f"included); {pr['kernels']} kernels; largest: "
+                  f"included: " + ", ".join(
+                      f"{k} {v[0]:.1f} ms x{v[1]}"
+                      for k, v in pr["nccl"].items())
+                  + f"); {pr['kernels']} kernels; largest: "
                   + "; ".join(
                       f"{ms} ms x{n} {name}" for ms, n, name in pr["top"]))
         for g in rec["gemm"]:
@@ -3811,6 +3885,823 @@ def launcher_cards(cards):
           "cards: ranks' losses differ")
     check(all(rec["mesh"] == [cards, 1] for rec in recs),
           f"cards: meshes {[rec['mesh'] for rec in recs]}")
+
+
+def moe_cfg(layers=None, cf=None, reduced=False):
+    """MOE_ARCH at full width cut to ``layers`` layers (whole when None),
+    at capacity factor ``cf`` (the config's own when None); with
+    ``reduced``, the family's reduced config with 16 experts instead
+    (small enough for gloo CPU ranks, and still on the dense path at a
+    decode step of BATCH rows)."""
+    import dataclasses
+    from repro_torch.configs import base
+    cfg = base.get_config(MOE_ARCH)
+    if reduced:
+        cfg = base.reduced(cfg, layers=layers or 2)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=16))
+    elif layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def free(dev):
+    """Return what the dropped tensors held to the card, before a part's
+    run on one card."""
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def seeded(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def expert_weight_of(cfg):
+    """Whether a tensor of a given shape is a piece of one of ``cfg``'s
+    expert weights or of its gradient: its last two dims a piece of
+    d_model by a piece of expert_ff, either way round, each cut at most
+    four ways."""
+    d, f = cfg.d_model, cfg.moe.expert_ff
+    pieces = {(d // a, f // b) for a in (1, 2, 4) for b in (1, 2, 4)}
+
+    def test(shape):
+        return len(shape) >= 3 and (tuple(shape[-2:]) in pieces
+                                    or tuple(shape[-2:])[::-1] in pieces)
+    return test
+
+
+class Collectives:
+    """While active, counts the collectives this rank makes below DTensor
+    (the functional collectives and DTensor's own all-to-all,
+    ``shard_dim_alltoall``, seen by a dispatch mode) by kind and mesh axis:
+    calls and the bytes of their local inputs; and the calls whose tensor
+    ``watch(shape)`` picks."""
+
+    def __init__(self, mesh, watch=lambda shape: False):
+        import torch.distributed as dist
+        self.axis = {tuple(dist.get_process_group_ranks(mesh.get_group(n))):
+                     n for n in mesh.mesh_dim_names}
+        self.watch, self.counts, self.watched = watch, {}, []
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+        rec = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                kwargs = kwargs or {}
+                names = [a.name for a in func._schema.arguments]
+                if (func.namespace in ("_c10d_functional", "_dtensor")
+                        and "group_name" in names):
+                    vals = dict(zip(names, args), **kwargs)
+                    pg = vals["group_name"]
+                    if isinstance(pg, str):
+                        pg = _resolve_process_group(pg)
+                    axis = rec.axis.get(
+                        tuple(dist.get_process_group_ranks(pg)), "world")
+                    kind = func.overloadpacket.__name__
+                    ts = args[0] if isinstance(args[0], (list, tuple)) \
+                        else [args[0]]
+                    n = rec.counts.setdefault((kind, axis), [0, 0])
+                    n[0] += 1
+                    n[1] += sum(t.numel() * t.element_size() for t in ts)
+                    rec.watched += [[kind, axis, list(t.shape)] for t in ts
+                                    if rec.watch(tuple(t.shape))]
+                return func(*args, **kwargs)
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+    def rows(self):
+        """[kind, axis, calls, bytes], in kind and axis order."""
+        return [[k, a, n, b] for (k, a), (n, b) in sorted(self.counts.items())]
+
+
+def fmt_calls(rows):
+    return "; ".join(f"{k} over {a} x{n} {b / 1e6:.3f} MB"
+                     for k, a, n, b in rows) or "none"
+
+
+def local_share(mesh, got, want, mask=None):
+    """The largest difference between a DTensor ``got`` (or its (local
+    piece, placements)) and the whole tensor ``want`` (each rank comparing
+    its own piece, ``mask`` zeroing the differences it picks), over
+    ``want``'s largest magnitude, the same on every rank (an all-reduce of
+    the maximum)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    local, pl = (got.to_local(), got.placements) if hasattr(
+        got, "to_local") else got
+    mine = distribute_tensor(want.detach(), mesh, tuple(pl),
+                             src_data_rank=None).to_local()
+    diff = (local.detach().to(mine.device).float() - mine.float()).abs()
+    if mask is not None:
+        diff = torch.where(mask(diff), torch.zeros_like(diff), diff)
+    worst = diff.max().reshape(1) if diff.numel() else torch.zeros(
+        1, device=diff.device)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return worst.item() / max(want.detach().abs().max().item(), 1e-30)
+
+
+def drops_of(top_idx, n_experts, capacity, shards):
+    """(token, expert) pairs past their expert's ``capacity`` when each of
+    ``shards`` row blocks of ``top_idx`` fills its own slots."""
+    T = top_idx.shape[0]
+    out = 0
+    for r in range(shards):
+        rows = top_idx[r * T // shards:(r + 1) * T // shards].reshape(-1)
+        counts = torch.zeros(n_experts, dtype=torch.int64,
+                             device=rows.device).scatter_add_(
+            0, rows, torch.ones_like(rows))
+        out += int((counts - capacity).clamp_min(0).sum())
+    return out
+
+
+def moe_layer_part(mesh, dev, cfg, tokens):
+    """(a) The MoE layer on the mesh, f32: x and the output weights wy
+    from seed 1, params of seed 0 drawn on the card (``init_moe``'s Maker
+    with the mesh); the output, the aux loss and the gradients of
+    (y * wy).sum() + aux against the same layer on one card: on the whole
+    batch, or with more than one data shard on each shard's rows apart
+    (each at its own capacity, as the expert-parallel path computes it)
+    with the whole batch's aux loss.  Tokens whose top-K set differs
+    between the two runs' router logits are held apart: their rows of the
+    output and the input's gradient, and the experts they reach in the
+    expert weights' gradients; the router's, the norm's and the shared
+    experts' gradients are then printed, not held."""
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  full, mesh_shape,
+                                                  sharding_for)
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Maker, rmsnorm
+    B, S = tokens
+    T, d, E, K = B * S, cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
+    shards = mesh_shape(mesh)["data"]
+    gen = seeded(dev, 1)
+    x = torch.randn((B, S, d), generator=gen, device=dev)
+    wy = torch.randn((B, S, d), generator=gen, device=dev)
+
+    def router(p, xx):
+        h = rmsnorm(xx, p["norm"], cfg.norm_eps).reshape(-1, d)
+        return full((h @ p["router"]).float())
+
+    rec = {"tokens": T, "shards": shards}
+    with axis_rules(mesh):
+        p = moe.init_moe(cfg, Maker("init", generator=seeded(dev),
+                                    device=dev, mesh=mesh))
+        names = sorted(p)
+        dx = distribute(x, sharding_for("batch - -", x.shape, mesh))
+        leaves = [dx.requires_grad_(True)] + [p[k].requires_grad_(True)
+                                              for k in names]
+        sync(dev)
+        t0 = time.perf_counter()
+        y, aux = moe.apply_moe(p, dx, cfg)
+        grads = torch.autograd.grad(
+            (y * distribute(wy, sharding_for("batch - -", wy.shape, mesh))
+             ).sum() + aux, leaves)
+        sync(dev)
+        rec["s"] = time.perf_counter() - t0
+        rec["ep"] = moe._can_shardmap(cfg, T)
+        got_y, got_dx = full(y).detach(), full(grads[0]).detach()
+        got_aux = float(full(aux))
+        got = {k: g.redistribute(mesh, p[k].placements)
+               for k, g in zip(names, grads[1:])}
+        with torch.no_grad():
+            r_mesh = router(p, dx.detach())
+        del y, aux, grads, leaves, dx, p
+    free(dev)
+    p1 = moe.init_moe(cfg, Maker("init", generator=seeded(dev), device=dev))
+    xs = x.clone().requires_grad_(True)
+    leaves = [xs] + [p1[k].requires_grad_(True) for k in names]
+    rows = B // shards
+    if shards == 1:
+        y1, aux1 = moe.apply_moe(p1, xs, cfg)
+    else:
+        y1 = torch.cat([moe.apply_moe(p1, xs[r * rows:(r + 1) * rows],
+                                      cfg)[0] for r in range(shards)])
+        aux1 = moe.apply_moe(p1, xs, cfg)[1]
+    want = torch.autograd.grad((y1 * wy).sum() + aux1, leaves)
+    with torch.no_grad():
+        r_one = router(p1, x)
+    flip, near = route_flips(r_mesh, r_one, K)
+    top_mesh = torch.topk(r_mesh, K, dim=-1).indices
+    top_one = torch.topk(r_one, K, dim=-1).indices
+    reached = torch.zeros(E, dtype=torch.bool, device=dev)
+    reached[torch.cat([top_mesh[flip], top_one[flip]]).reshape(-1)] = True
+    alike = ~flip
+
+    def share(a, b):
+        a, b = a.reshape(T, -1).float(), b.reshape(T, -1).float()
+        diff = (a - b).abs().amax(-1)[alike]
+        return (diff.max().item() if diff.numel() else 0.0) / max(
+            b.abs().max().item(), 1e-30)
+    cap = moe.capacity(cfg, T // shards)
+    rec.update({
+        "flips": int(flip.sum()), "unexplained": int((flip & ~near).sum()),
+        "router_diff": (r_mesh - r_one).abs().max().item(),
+        "reached": int(reached.sum()), "capacity": cap,
+        "drops": drops_of(top_mesh, E, cap, shards),
+        "y": share(got_y, y1.detach()), "dx": share(got_dx, want[0]),
+        "aux": abs(got_aux - aux1.item()) / abs(aux1.item()),
+        "aux_value": got_aux, "grads": {}})
+    experts = ("w_gate", "w_up", "w_down")
+    for k, w in zip(names, want[1:]):
+        mask = None
+        if k in experts and rec["flips"]:
+            def mask(diff, lo=mesh.get_local_rank("model")):
+                n = diff.shape[0]
+                mine = reached[lo * n:(lo + 1) * n] if n < E else reached
+                return mine.reshape((n,) + (1,) * (diff.dim() - 1)
+                                    ).expand_as(diff)
+        rec["grads"][k] = [local_share(mesh, got[k], w, mask),
+                           k in experts or not rec["flips"]]
+    return rec
+
+
+def moe_serve_part(mesh, dev, cfg, batch, prompt, decode):
+    """(b) Serving on the mesh, f32 and bf16: a ``batch`` x ``prompt``
+    prefill of seed 1's tokens into a DTensor cache (``place_cache``),
+    then ``decode`` greedy steps; the logits against the same steps on
+    one card (fed the mesh's tokens) through ``routed_compare``; each
+    decode step timed again from the prefilled state, and once more with
+    its collectives counted (``Collectives``, expert weights watched)."""
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  full, sharding_for)
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.models.transformer import layer_kinds
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int64)).to(dev)
+    depth, moes = prompt + decode + 1, layer_kinds(cfg).count("moe")
+    watch = expert_weight_of(cfg)
+    out = {"prefill_ep": None, "decode_dense": None}
+    for dtype in ("float32", "bfloat16"):
+        run = RunConfig(param_dtype=dtype, cache_dtype=dtype)
+        model = Model(cfg, run, dev)
+        rec = out[dtype] = {}
+        with axis_rules(mesh), torch.no_grad():
+            params = model.init(seeded(dev), mesh=mesh)
+
+            def place(t):
+                return distribute(t, sharding_for("batch -", t.shape, mesh))
+            out["prefill_ep"] = moe._can_shardmap(cfg, batch * prompt)
+            out["decode_dense"] = not moe._can_shardmap(cfg, batch)
+            cache = place_cache(model.cache_init(batch, depth),
+                                model.cache_axes(batch, depth), mesh)
+            sync(dev)
+            t0 = time.perf_counter()
+            with RouterLog() as log:
+                lg, cache = model.apply(params, place(toks), cache=cache)
+                logits = [full(lg)]
+                sync(dev)
+                rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                start = clone(cache)
+                fed = []
+                for _ in range(decode):
+                    fed.append(logits[-1][:, -1:].argmax(-1))
+                    lg, cache = model.apply(params, place(fed[-1]),
+                                            cache=cache)
+                    logits.append(full(lg))
+            routes = log.per_layer(moes)
+            rec["ms"], rec["calls"], rec["watched"] = [], [], []
+            cache = clone(start)
+            for tok in fed:
+                sync(dev)
+                t = time.perf_counter()
+                _, cache = model.apply(params, place(tok), cache=cache)
+                sync(dev)
+                rec["ms"].append((time.perf_counter() - t) * 1e3)
+            cache = clone(start)
+            for tok in fed:
+                with Collectives(mesh, watch) as calls:
+                    _, cache = model.apply(params, place(tok), cache=cache)
+                rec["calls"].append(calls.rows())
+                rec["watched"].append(calls.watched)
+            del params, cache, start, lg
+        got = torch.cat(logits, dim=1)
+        del logits
+        free(dev)
+        one = Model(cfg, run, dev)
+        with torch.no_grad():
+            p1 = one.init(seeded(dev))
+            c1 = one.cache_init(batch, depth)
+            with RouterLog() as log1:
+                lg, c1 = one.apply(p1, toks, cache=c1)
+                ones = [lg]
+                for tok in fed:
+                    lg, c1 = one.apply(p1, tok, cache=c1)
+                    ones.append(lg)
+            del p1, c1
+        want = torch.cat(ones, dim=1)
+        f32 = dtype == "float32"
+        limit_of = ((lambda scale: TOL_TEACHER) if f32 else
+                    (lambda scale: TOL_BF16_LOGITS * scale))
+        rec["err"], rec["flips"], rec["positions"] = routed_compare(
+            f"cards {MOE_ARCH} {cfg.num_layers}L {dtype} on "
+            f"{tuple(mesh.shape)}, prefill {batch} x {prompt} + {decode} "
+            f"decode steps vs one card (logits max |x| "
+            f"{want.float().abs().max().item():.2f})", got, want, routes,
+            log1.per_layer(moes), cfg.moe.top_k, limit_of)
+        del got, want, ones
+        free(dev)
+    return out
+
+
+def plain_sgd(lr):
+    """SGD without momentum at a constant ``lr``, in place: no state but
+    the step count.  The port's ``sgd`` keeps a momentum buffer the size
+    of the params, which beside the params and their gradients does not
+    fit one card at deepseek-v2's full width cut to 2 layers (3 x 22.1
+    GB)."""
+    from repro_torch.optim.optimizer import (OptState, Optimizer,
+                                             tree_leaves, tree_map)
+
+    def init(params):
+        return OptState(step=torch.zeros((), dtype=torch.int32,
+                                         device=tree_leaves(params)[0].device),
+                        m=(), v=())
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        rate = torch.tensor(lr, device=state.step.device)
+        tree_map(lambda p, g: p.sub_(rate * g), params, grads)
+        state.step.add_(1)
+        return params, state, {"lr": rate}
+    return Optimizer(init=init, update=update)
+
+
+class ShardedMoE:
+    """While active, ``models.moe.apply_moe`` on one card runs on each of
+    ``shards`` row blocks of the batch apart, each at the capacity of its
+    own tokens, with the aux loss of the whole batch: the arithmetic of
+    the expert-parallel path on a mesh with ``shards`` data shards (the
+    reference's ``_shardmap_moe``), which drops other tokens than one
+    capacity over the whole batch does.  Records each call's dropped
+    (token, expert) pairs at the blocks' capacity and at the whole
+    batch's, from the layer's own routing."""
+
+    def __init__(self, shards):
+        self.shards, self.drops = shards, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.models.layers import rmsnorm
+        self._moe, self._orig = moe, moe.apply_moe
+        orig, n = moe.apply_moe, self.shards
+
+        def apply(p, x, cfg):
+            B, S, d = x.shape
+            with torch.no_grad():
+                h = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(B * S, d)
+                top = moe._top_k(torch.softmax((h @ p["router"]).float(),
+                                               -1), cfg.moe.top_k)[1]
+            E = cfg.moe.num_experts
+            self.drops.append([
+                drops_of(top, E, moe.capacity(cfg, B * S // n), n),
+                drops_of(top, E, moe.capacity(cfg, B * S), 1)])
+            if n == 1:
+                return orig(p, x, cfg)
+            rows = B // n
+            y = torch.cat([orig(p, x[r * rows:(r + 1) * rows], cfg)[0]
+                           for r in range(n)])
+            return y, orig(p, x, cfg)[1]
+        moe.apply_moe = apply
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.apply_moe = self._orig
+
+
+def moe_train_part(mesh, dev, cfg, batches, lr):
+    """(c) Steps of plain SGD at ``lr`` (``plain_sgd``) on the mesh, one a
+    numpy batch of ``batches``, from the params of seed 0 drawn on the
+    card, against the same steps on one card with the mesh's per-shard
+    capacity (``ShardedMoE``): the losses, and each param's largest
+    difference over its largest magnitude (``local_share``); and the
+    pairs the first step drops at that capacity and at the whole
+    batch's."""
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  mesh_shape, sharding_for)
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.train.step import TrainState, make_train_step, new_rng
+
+    def leaf(tree, path):
+        for k in path.split("/"):
+            tree = tree[k]
+        return tree
+    seq = batches[0]["tokens"].shape[1]
+    model = Model(cfg, RunConfig(max_seq=seq), dev)
+    opt = plain_sgd(lr)
+    rec = {"ep": None, "losses": [], "plain_losses": []}
+    sync(dev)
+    t0 = time.perf_counter()
+    with axis_rules(mesh):
+        params = model.init(seeded(dev), mesh=mesh)
+        state = TrainState(params, opt.init(params), new_rng(0, 1))
+        fn = make_train_step(model, opt)
+        for b in batches:
+            state, met = fn(state, {k: distribute(
+                torch.from_numpy(v).to(dev), sharding_for(
+                    ("batch",) + ("-",) * (v.ndim - 1), v.shape, mesh))
+                for k, v in b.items()})
+            rec["losses"].append(float(met["loss"]))
+        rec["ep"] = moe._can_shardmap(cfg, batches[0]["tokens"].size)
+        # each rank's pieces wait on the host: one card's run needs the room
+        got = {k: (leaf(state.params, k).to_local().cpu(),
+                   leaf(state.params, k).placements)
+               for k in _paths(state.params)}
+        del state, fn, params
+    rec["s"] = time.perf_counter() - t0
+    free(dev)
+    one = Model(cfg, RunConfig(max_seq=seq), dev)
+    p1 = one.init(seeded(dev))
+    st = TrainState(p1, opt.init(p1), new_rng(0, 1))
+    fn = make_train_step(one, opt)
+    with ShardedMoE(mesh_shape(mesh)["data"]) as split:
+        for b in batches:
+            st, met = fn(st, {k: torch.from_numpy(v).to(dev)
+                              for k, v in b.items()})
+            rec["plain_losses"].append(met["loss"].item())
+    rec["drops"] = split.drops[0]
+    want = st.params
+    del st, fn, p1
+    rec["shares"] = {k: local_share(mesh, got[k], leaf(want, k))
+                     for k in _paths(want)}
+    return rec
+
+
+def moe_state_part(mesh, dev, cfg, batch, seq, steps):
+    """(d) The launcher's recipe (``launch/train.py``: AdamW with weight
+    decay 0.01, the cosine schedule of a ``steps``-step run at peak
+    CARDS_LR with warmup max(steps // 20, 1), remat full, the pipeline's
+    ``batch`` x ``seq`` batches of seed 0, ``Trainer``) on the mesh, the
+    state built as DTensors (``init_state_sharded``): losses, ms a step,
+    peak GiB; one more step profiled (products, NCCL kernels by kind, the
+    rest, the compute stream's idle share) and one whose collectives are
+    counted by kind and axis; then one card's forward of the same params
+    on the first batch, at the mesh's per-shard capacity (``ShardedMoE``)
+    and at the whole batch's."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed.sharding import (axis_rules, mesh_shape,
+                                                  sharding_for)
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import schedule as sched
+    from repro_torch.optim.optimizer import adamw, tree_leaves
+    from repro_torch.train.step import (TrainConfig, init_state_sharded,
+                                        make_train_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    model = Model(cfg, RunConfig(max_seq=seq, remat="full"), dev)
+    lr = sched.make("cosine", peak=CARDS_LR,
+                    warmup_steps=max(steps // 20, 1), total_steps=steps)
+    opt = adamw(lr, weight_decay=0.01)
+    step_fn = make_train_step(model, opt, TrainConfig(microbatches=1))
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch, seed=0))
+    trainer = Trainer(TrainerConfig(total_steps=steps), step_fn, pipe)
+    m, a = cfg.moe, cfg.mla
+    active = model.param_count() - layer_kinds(cfg).count("moe") * (
+        m.num_experts - m.top_k) * 3 * cfg.d_model * m.expert_ff
+    rec = {"params": model.param_count(), "active": active,
+           "batch": batch, "seq": seq, "steps": steps,
+           "flop_attn": 6 * cfg.num_layers * cfg.num_heads * (
+               a.qk_nope_dim + a.qk_rope_dim + a.v_dim),
+           "ranks": dist.get_world_size()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with axis_rules(mesh):
+        sharding = sharding_for("batch -", (batch, seq), mesh)
+        state = init_state_sharded(model, opt, seeded(dev), mesh)
+        # params, gradients, m and v: four f32 copies of each param's piece
+        rec["state_gb"] = 4 * sum(t.to_local().numel() * t.element_size()
+                                  for t in tree_leaves(state.params)) / 1e9
+        state = {"s": trainer.run(state, sharding=sharding)}
+        rec["wall_s"] = time.perf_counter() - t0
+        hist = trainer.metrics_history
+        rec["losses"] = [h["loss"] for h in hist]
+        rec["ms"] = [h["step_time_s"] * 1e3 for h in hist]
+        rec["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                           if dev.type == "cuda" else None)
+
+        def step_on(k):
+            b = pipe.torch_batch(k, dev, sharding)
+
+            def step():
+                state["s"], met = step_fn(state["s"], b)
+                met["loss"].item()
+            return step
+        rec["profile"] = None
+        if dev.type == "cuda":
+            busy, window, rows, _ = profile_steps(step_on(steps), 1)
+            if busy is not None:
+                rec["profile"] = dict(step_split(rows), window_ms=window)
+        with Collectives(mesh) as calls:
+            step_on(steps + 1)()
+        rec["calls"] = calls.rows()
+        del state, trainer
+    free(dev)
+    one = Model(cfg, RunConfig(max_seq=seq), dev)
+    with torch.no_grad():
+        p1 = one.init(seeded(dev))
+        first = pipe.torch_batch(0, dev)
+        with ShardedMoE(mesh_shape(mesh)["data"]) as split:
+            rec["one_card_loss"] = one.loss(p1, first)[0].item()
+        rec["drops"] = split.drops[0]
+        rec["whole_batch_loss"] = one.loss(p1, first)[0].item()
+        del p1
+    return rec
+
+
+MOE_PARTS = ("layer", "serve", "train", "state")
+
+
+def moe_parts(mesh, dev, parts=MOE_PARTS, reduced=False, layer_tokens=None,
+              batch=None, serve=None, steps=CARDS_STEPS):
+    """The parts of the four-card deepseek-v2 run on this rank's ``mesh``
+    (``serve`` on (1, model) only): each part's record, or its error
+    (printed with its traceback, so the other parts still run).  Sizes
+    default to MOE_TOKENS, CARDS_BATCH x CARDS_SEQ and BATCH x PROMPT +
+    MOE_DECODE; ``reduced`` runs the family's reduced config (CPU
+    ranks)."""
+    import traceback
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed.sharding import mesh_shape
+    layer_tokens = layer_tokens or MOE_TOKENS
+    b, s = batch or (CARDS_BATCH, CARDS_SEQ)
+    serve = serve or (BATCH, PROMPT, MOE_DECODE)
+    data = mesh_shape(mesh)["data"]
+    out = {"mesh": list(mesh.shape), "card": (
+        card_of(dev.index) if dev.type == "cuda" else "gloo CPU")}
+
+    def cfg(layers=None, cf=None):
+        return moe_cfg(layers, cf, reduced)
+
+    def batches():
+        base = cfg(MOE_TRAIN_LAYERS)
+        pipe = Pipeline(DataConfig(vocab_size=base.vocab_size, seq_len=s,
+                                   global_batch=b, seed=0))
+        return [pipe.batch(k) for k in range(MOE_TRAIN_STEPS)]
+    jobs = {
+        "layer": lambda: moe_layer_part(mesh, dev, cfg(), layer_tokens),
+        "serve": lambda: moe_serve_part(
+            mesh, dev, cfg(MOE_SERVE_LAYERS, DIST_MOE_CF), *serve),
+        "train": lambda: moe_train_part(
+            mesh, dev, cfg(MOE_TRAIN_LAYERS), batches(), MOE_TRAIN_LR),
+        "state": lambda: moe_state_part(mesh, dev, cfg(MOE_STATE_LAYERS),
+                                        b, s, steps)}
+    for part in parts:
+        if part == "serve" and data != 1:
+            continue
+        t = time.perf_counter()
+        try:
+            out[part] = jobs[part]()
+        except Exception as e:          # reported, the other parts run on
+            traceback.print_exc(file=sys.stdout)
+            out[part] = {"error": f"{type(e).__name__}: {e}"[:2000]}
+        out[part]["part_s"] = time.perf_counter() - t
+        free(dev)
+    return out
+
+
+def moe_rank(data, model, parts):
+    """``--moe-rank DATA MODEL [PART ...]``: one NCCL rank under torchrun
+    (this rank's card) of ``moe_parts`` on a (DATA, MODEL) mesh; prints
+    its record as one ``[moe]`` JSON line."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    sys.path.insert(0, str(ROOT / "src"))
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda", local)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", device_id=dev,
+        timeout=datetime.timedelta(seconds=MOE_GROUP_TIMEOUT))
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(data * model).reshape(
+            data, model), mesh_dim_names=("data", "model"))
+        rec = moe_parts(mesh, dev, parts or MOE_PARTS)
+        rec["rank"] = dist.get_rank()
+        print("[moe] " + json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_cards(cards):
+    """The deepseek-v2 parts of ``--launcher-cards`` (MOE_ARCH at full
+    width; see MOE_MESHES): one torchrun of ``cards`` NCCL ranks for each
+    mesh, each rank this script again (``--moe-rank``); prints each part's
+    lines from rank 0's record (every rank's where they may differ) and
+    holds them (``moe_report``)."""
+    import tempfile
+    check(cards == 4, f"moe: the meshes {MOE_MESHES} need 4 cards, not "
+          f"{cards}")
+    t0 = time.perf_counter()
+    failed = []
+    for data, model in MOE_MESHES:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            proc = torchrun(cards, tmp, [str(ROOT / "chip_smoke.py"),
+                                         "--moe-rank", str(data), str(model)])
+            try:
+                texts = rank_outputs(proc, cards, tmp,
+                                     time.monotonic() + CARDS_TIMEOUT,
+                                     f"moe ({data}, {model})")
+            finally:
+                stop(proc)
+            seconds = time.perf_counter() - t
+        recs = []
+        for r, text in enumerate(texts):
+            line = re.search(r"^\[moe\] (\{.*\})$", text, re.M)
+            if line is None:
+                print(text[-6000:], file=sys.stderr)
+            check(bool(line), f"moe: rank {r} printed no record")
+            recs.append(json.loads(line.group(1)))
+        # rank 0's own lines (routed_compare's) and any rank's traceback
+        for line in texts[0].splitlines():
+            if line.startswith("[family] cards"):
+                print(line.replace("[family]", "[moe]", 1))
+        for r, text in enumerate(texts):
+            if "Traceback" in text:
+                print(f"[moe] rank {r}:\n{text[text.index('Traceback'):]}"
+                      [:4000], file=sys.stderr)
+        try:
+            moe_report(recs, (data, model), seconds)
+        except RuntimeError as e:
+            failed.append(str(e))
+    print(f"[moe] {MOE_ARCH} on {cards} cards: {time.perf_counter() - t0:.1f}"
+          f" s")
+    check(not failed, " | ".join(failed))
+
+
+def moe_report(recs, mesh, seconds):
+    """Print and hold the records of one mesh's ranks (``moe_parts``),
+    every part's before the first failure is raised."""
+    head = f"[moe] {MOE_ARCH} on {mesh} ({recs[0].get('card', 'CPU')})"
+    print(f"{head}: {len(recs)} ranks in {seconds:.1f} s (" + ", ".join(
+        f"{p} {recs[0][p]['part_s']:.1f} s" for p in MOE_PARTS
+        if p in recs[0]) + ")")
+    reports = {"layer": lambda: moe_layer_report(head, [r["layer"] for r
+                                                      in recs], mesh),
+               "serve": lambda: moe_serve_report(head, recs[0]["serve"]),
+               "train": lambda: moe_train_report(head, [r["train"] for r
+                                                      in recs], mesh),
+               "state": lambda: moe_state_report(head, [r["state"] for r
+                                                      in recs], mesh)}
+    failed = []
+    for p in MOE_PARTS:
+        if p not in recs[0]:
+            continue
+        errors = [f"rank {i}: {r[p]['error']}" for i, r in enumerate(recs)
+                  if "error" in r[p]]
+        try:
+            check(not errors, f"moe {mesh} {p}: {errors[:1]}")
+            reports[p]()
+        except RuntimeError as e:
+            print(f"{head} {p}: {e}")
+            failed.append(str(e))
+    check(not failed, "; ".join(failed))
+
+
+def moe_layer_report(head, recs, mesh):
+    r = recs[0]
+    worst = {k: max(x["grads"][k][0] for x in recs) for k in r["grads"]}
+    held = [k for k, (_, h) in r["grads"].items() if h]
+    print(f"{head} (a) MoE layer f32, {r['tokens']} tokens, "
+          f"{'expert-parallel' if r['ep'] else 'dense'} path, capacity "
+          f"{r['capacity']} a data shard ({r['shards']} shards), "
+          f"{r['drops']} (token, expert) pairs dropped: one forward and "
+          f"backward {r['s']:.2f} s; against one card"
+          + (" on each data shard's rows apart" if r["shards"] > 1 else "")
+          + f": router logits max diff {r['router_diff']:.3e}, "
+          f"{r['flips']} tokens re-routed at near-ties ({r['unexplained']} "
+          f"not; {r['reached']} experts they reach held apart); output "
+          f"{max(x['y'] for x in recs):.3e}, input gradient "
+          f"{max(x['dx'] for x in recs):.3e} of their largest magnitude, "
+          f"aux loss {r['aux_value']:.6f} relative "
+          f"{max(x['aux'] for x in recs):.3e}; gradients: " + ", ".join(
+              f"{k} {v:.3e}" + ("" if k in held else " (not held)")
+              for k, v in worst.items()) + f" (bound {MOE_TOL:g})")
+    check(all(x["ep"] for x in recs), f"moe {mesh} (a): not expert-parallel")
+    check(all(x["unexplained"] == 0 for x in recs),
+          f"moe {mesh} (a): tokens re-routed away from a near-tie")
+    check(max(max(x["y"], x["dx"], x["aux"]) for x in recs) <= MOE_TOL,
+          f"moe {mesh} (a): output / input gradient / aux off")
+    check(all(worst[k] <= MOE_TOL for k in held),
+          f"moe {mesh} (a): gradients {worst}")
+
+
+def moe_serve_report(head, rec):
+    check(rec["prefill_ep"] and rec["decode_dense"],
+          f"moe serve: prefill expert-parallel {rec['prefill_ep']}, decode "
+          f"dense {rec['decode_dense']}")
+    for dtype in ("float32", "bfloat16"):
+        r = rec[dtype]
+        print(f"{head} (b) serving {dtype}: prefill (expert-parallel) "
+              f"{r['prefill_ms']:.1f} ms (first call); decode steps "
+              f"(dense) ms " + ", ".join(f"{x:.1f}" for x in r["ms"])
+              + f"; logits max diff {r['err']:.3e} over the positions "
+              f"routed alike, {r['flips']} of {r['positions']} re-routed")
+        for i, (calls, watched) in enumerate(zip(r["calls"], r["watched"])):
+            print(f"{head} (b) {dtype} decode step {i}: {r['ms'][i]:.2f} ms;"
+                  f" collectives: {fmt_calls(calls)}; expert-weight pieces "
+                  f"moved: {len(watched)}")
+        check(not any(r["watched"]),
+              f"moe serve {dtype}: expert weights moved {r['watched'][0]}")
+
+
+def moe_train_report(head, recs, mesh):
+    r = recs[0]
+    rel = max(abs(a - b) / abs(b) for x in recs
+              for a, b in zip(x["losses"], x["plain_losses"]))
+    worst = max(max(x["shares"].values()) for x in recs)
+    leaf = max(r["shares"], key=r["shares"].get)
+    print(f"{head} (c) {len(r['losses'])} steps of plain SGD at lr "
+          f"{MOE_TRAIN_LR:g}"
+          f" ({'expert-parallel' if r['ep'] else 'dense'} MoE, {r['s']:.1f}"
+          f" s; the first step drops {r['drops'][0]} (token, expert) pairs "
+          f"at the mesh's capacity, {r['drops'][1]} at the whole batch's)"
+          f": losses {fmt_losses(r['losses'])} against one card's at the "
+          f"mesh's capacity "
+          f"{fmt_losses(r['plain_losses'])}: worst relative {rel:.3e}; "
+          f"params: worst difference {worst:.3e} of its leaf's largest "
+          f"magnitude ({leaf}) (bound {MOE_TOL:g})")
+    check(all(x["ep"] for x in recs), f"moe {mesh} (c): not expert-parallel")
+    check(all(math.isfinite(v) for v in r["losses"])
+          and rel <= MOE_TOL and worst <= MOE_TOL,
+          f"moe {mesh} (c): losses {rel:.3e}, params {worst:.3e}")
+
+
+def moe_state_report(head, recs, mesh):
+    r = recs[0]
+    seq, tokens = r["seq"], r["batch"] * r["seq"]
+    warm = sum(r["ms"][1:]) / max(len(r["ms"]) - 1, 1)
+    flops = 6 * r["active"] * tokens + r["flop_attn"] * seq * tokens
+    rel = abs(r["losses"][0] - r["one_card_loss"]) / abs(r["one_card_loss"])
+    whole = abs(r["losses"][0] - r["whole_batch_loss"]) / abs(
+        r["whole_batch_loss"])
+    print(f"{head} (d) {MOE_STATE_LAYERS} layers, {r['params']:,} params "
+          f"({r['active']:,} active a token), f32 AdamW state "
+          f"{r['state_gb']:.1f} GB a card, remat full, {len(r['losses'])} "
+          f"steps of {r['batch']} x {seq}: losses {fmt_losses(r['losses'])};"
+          f" step ms " + ", ".join(f"{x:.1f}" for x in r["ms"])
+          + f"; steps 2-{len(r['ms'])}: {warm:.1f} ms, "
+          f"{tokens / warm * 1e3:.1f} tokens/s, {flops / 1e12:.2f} model "
+          f"TFLOP a step = {flops / (warm / 1e3) / 1e12:.2f} TFLOP/s, "
+          f"{flops / (warm / 1e3) / (r['ranks'] * F32_FLOP_PER_S):.2%} of "
+          f"{r['ranks']} x 67 TFLOP/s; peak " + ", ".join(
+              "not measured" if x["peak_gib"] is None else
+              f"{x['peak_gib']:.1f}" for x in recs) + " GiB a card; "
+          f"{r['wall_s']:.1f} s; first loss {r['losses'][0]:.6f} against one"
+          f" card's forward at the mesh's capacity {r['one_card_loss']:.6f}:"
+          f" relative {rel:.3e} (bound {MOE_TOL:g}); at the whole batch's "
+          f"capacity {r['whole_batch_loss']:.6f}: relative {whole:.3e} (not "
+          f"held; pairs dropped at each capacity {r['drops'][0]} / "
+          f"{r['drops'][1]})")
+    pr = r["profile"]
+    if pr is None:
+        print(f"{head} (d) profiled step: device time not measured (the "
+              f"profiler recorded no device time)")
+    else:
+        compute = pr["products_ms"] + pr["other_ms"]
+        print(f"{head} (d) profiled step, {pr['window_ms']:.1f} ms wall: "
+              f"compute kernels {compute:.1f} ms (products "
+              f"{pr['products_ms']:.1f}, the rest {pr['other_ms']:.1f}; the "
+              f"compute stream idle {1 - compute / pr['window_ms']:.1%}), "
+              f"NCCL kernels (summed, waits included) " + ", ".join(
+                  f"{k} {v[0]:.1f} ms x{v[1]}" for k, v in pr["nccl"].items())
+              + f"; {pr['kernels']} kernels")
+    print(f"{head} (d) one more step's collectives: {fmt_calls(r['calls'])}")
+    check(all(len(x["losses"]) == r["steps"] and all(
+        math.isfinite(v) for v in x["losses"]) for x in recs),
+        f"moe {mesh} (d): losses {r['losses']}")
+    check(all(x["losses"] == r["losses"] for x in recs),
+          f"moe {mesh} (d): ranks' losses differ")
+    check(rel <= MOE_TOL,
+          f"moe {mesh} (d): first loss {rel:.3e} from one card's")
 
 
 def dist_ranks():
@@ -4466,16 +5357,28 @@ def main() -> int:
     cli.add_argument("--cards-rank", action="store_true",
                      help="one rank of --launcher-cards (the smoke starts "
                           "these itself, under torchrun)")
+    cli.add_argument("--moe-rank", nargs="+", metavar="ARG",
+                     help="DATA MODEL [PART ...]: one rank of the "
+                          "deepseek-v2 parts (the smoke starts these "
+                          "itself, under torchrun)")
     opts = cli.parse_args()
     if opts.cards_rank:
         cards_rank()
+        return 0
+    if opts.moe_rank:
+        moe_rank(int(opts.moe_rank[0]), int(opts.moe_rank[1]),
+                 opts.moe_rank[2:])
         return 0
     if opts.launcher_cards:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device; nothing was run",
                   file=sys.stderr)
             return 1
+        t0 = time.perf_counter()
         launcher_cards(opts.launcher_cards)
+        moe_cards(opts.launcher_cards)
+        print(f"[cards] every part passed in {time.perf_counter() - t0:.1f}"
+              f" s")
         return 0
     if opts.mesh_rank:
         sys.path.insert(0, str(ROOT / "src"))

@@ -29,9 +29,11 @@ gather of the dispatch have no DTensor sharding rule, so they run inside
     (``_local_expert_ffn``), and returns its partial sum as a
     ``Partial`` placement over ``model``: the one all-reduce over the
     model sub-group is that placement's reduction;
-  * ``"gspmd"``: the same dispatch as on one device, on replicated tokens
-    and experts (GSPMD's fallback for a scatter / gather with computed
-    indices, which the reference's docstring records).
+  * ``"gspmd"`` (``_dense_on_mesh``): the same dispatch as on one
+    device, its token buffers replicated (GSPMD's fallback for a scatter /
+    gather with computed indices, which the reference's docstring
+    records) and its expert products on each rank's own experts, as the
+    reference's ``experts`` constraints on the buffer keep them.
   * ``"auto"`` takes the expert-parallel path when ``_can_shardmap``
     allows it and at least one routed token falls to each expert.
 """
@@ -105,21 +107,18 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, T: int, K: int
     return y
 
 
-def _dispatch(h, top_idx, gates, w_gate, w_up, w_down, *, n_experts: int,
-              capacity: int, act, gated: bool) -> torch.Tensor:
-    """The sort-based dispatch over all ``n_experts`` experts: (T, d)
-    tokens, their (T, K) experts and gates -> the (T, d) combined expert
-    output (``w_gate`` unread when not ``gated``)."""
-    T, d = h.shape
-    K = top_idx.shape[1]
-    E, cap, dev = n_experts, capacity, h.device
+def _slots(top_idx: torch.Tensor, n_experts: int, capacity: int):
+    """The sort-based slot assignment of (T, K) expert ids over all
+    ``n_experts`` experts: the stable sort ``order`` of the (T*K,)
+    (token, expert) pairs by expert, each sorted pair's token, whether it
+    keeps a slot, and its row of the (E*C + 1, d) expert buffer (the
+    trash row E*C for a dropped pair)."""
+    T, K = top_idx.shape
+    E, cap, dev = n_experts, capacity, top_idx.device
     e_flat = top_idx.reshape(-1)                                  # (T*K,)
     t_flat = torch.arange(T * K, device=dev) // K
-    g_flat = gates.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sort = e_flat[order]
-    t_sort = t_flat[order]
-    g_sort = g_flat[order]
     counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
         0, e_flat, torch.ones_like(e_flat))
     seg_start = torch.cumsum(counts, 0) - counts                  # (E,)
@@ -127,22 +126,87 @@ def _dispatch(h, top_idx, gates, w_gate, w_up, w_down, *, n_experts: int,
     keep = rank < cap
     slot = torch.where(keep, e_sort * cap + rank,
                        torch.full_like(rank, E * cap))
+    return order, t_flat[order], keep, slot
 
-    # scatter tokens into the expert buffer; dropped tokens land in the
-    # trash row E*cap, which nothing reads
-    buf = torch.zeros((E * cap + 1, d), dtype=h.dtype, device=dev)
+
+def _expert_buffer(h, t_sort, slot, n_experts: int, capacity: int
+                   ) -> torch.Tensor:
+    """The (E, C, d) expert buffer: each kept (token, expert) pair's token
+    in its slot (``_slots``), zeros elsewhere; dropped tokens land in the
+    trash row E*C, which nothing reads."""
+    E, cap, d = n_experts, capacity, h.shape[1]
+    buf = torch.zeros((E * cap + 1, d), dtype=h.dtype, device=h.device)
     buf[slot] = h[t_sort]
-    xin = buf[:E * cap].reshape(E, cap, d)
+    return buf[:E * cap].reshape(E, cap, d)
+
+
+def _experts(xin, w_gate, w_up, w_down, *, act, gated: bool
+             ) -> torch.Tensor:
+    """(E, C, d) -> (E, C, d): each expert's FFN on its own slots, as
+    batched products (``w_gate`` unread when not ``gated``)."""
     if gated:
         hid = act(torch.bmm(xin, w_gate)) * torch.bmm(xin, w_up)
     else:
         hid = act(torch.bmm(xin, w_up))
-    flat = torch.bmm(hid, w_down).reshape(E * cap, d)
+    return torch.bmm(hid, w_down)
 
+
+def _combined(xout, gates, order, keep, slot) -> torch.Tensor:
+    """The (T, d) gate-weighted sums of each token's kept expert outputs
+    from the (E, C, d) buffer ``xout`` (``_slots``' sort, keep mask and
+    rows; ``gates`` (T, K))."""
+    T, K = gates.shape
+    E, cap, d = xout.shape
+    flat = xout.reshape(E * cap, d)
+    g_sort = gates.reshape(-1)[order]
     contrib = torch.where(keep[:, None], flat[torch.where(keep, slot, 0)],
-                          torch.zeros((), dtype=flat.dtype, device=dev))
+                          torch.zeros((), dtype=flat.dtype,
+                                      device=flat.device))
     contrib = contrib * (g_sort * keep.float())[:, None].to(flat.dtype)
     return _combine(contrib, order, T, K)
+
+
+def _dispatch(h, top_idx, gates, w_gate, w_up, w_down, *, n_experts: int,
+              capacity: int, act, gated: bool) -> torch.Tensor:
+    """The sort-based dispatch over all ``n_experts`` experts: (T, d)
+    tokens, their (T, K) experts and gates -> the (T, d) combined expert
+    output (``w_gate`` unread when not ``gated``)."""
+    order, t_sort, keep, slot = _slots(top_idx, n_experts, capacity)
+    xin = _expert_buffer(h, t_sort, slot, n_experts, capacity)
+    xout = _experts(xin, w_gate, w_up, w_down, act=act, gated=gated)
+    return _combined(xout, gates, order, keep, slot)
+
+
+def _dense_on_mesh(h, top_idx, gates, w_gate, w_up, w_down, *,
+                   n_experts: int, capacity: int, act, gated: bool
+                   ) -> torch.Tensor:
+    """``_dispatch`` on DTensors, partitioned as the reference's dense
+    path is: only the token side is replicated.  The expert buffer is
+    filled in a replicated region, constrained to ``experts`` (a local
+    slice), and the products run on each rank's own experts in a region
+    over the weights' expert placements (their ``fsdp`` pieces gathered,
+    as the expert-parallel path does); a last replicated region gathers
+    the (E, C, d) output buffer and combines it.  No expert weight
+    crosses the ``model`` axis.  Each replicated region sorts the routed
+    pairs itself (``_slots``), so only tensors cross the regions."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = h.device_mesh
+
+    def fill(hh, ti):
+        _, t_sort, _, slot = _slots(ti, n_experts, capacity)
+        return _expert_buffer(hh, t_sort, slot, n_experts, capacity)
+
+    def combine(xo, ti, g):
+        order, _, keep, slot = _slots(ti, n_experts, capacity)
+        return _combined(xo, g, order, keep, slot)
+    xin = _replicated(fill, mesh, 2)(h, top_idx)
+    xin = shard(xin, "experts", None, None)
+    ex = list(xin.placements)
+    xout = local_map(
+        lambda x, wg, wu, wd: _experts(x, wg, wu, wd, act=act, gated=gated),
+        out_placements=ex, in_placements=(ex,) * 4, device_mesh=mesh,
+        redistribute_inputs=True)(xin, w_gate, w_up, w_down)
+    return _replicated(combine, mesh, 3)(xout, top_idx, gates)
 
 
 def _local_expert_ffn(h, top_idx, gates, w_gate, w_up, w_down, *, rank: int,
@@ -185,11 +249,8 @@ def _local_expert_ffn(h, top_idx, gates, w_gate, w_up, w_down, *, rank: int,
     buf = torch.zeros((E_loc * capacity + 1, d), dtype=h.dtype, device=dev)
     buf[slot] = h[t_sort]
     xin = buf[:E_loc * capacity].reshape(E_loc, capacity, d)
-    if gated:
-        hid = act(torch.bmm(xin, w_gate)) * torch.bmm(xin, w_up)
-    else:
-        hid = act(torch.bmm(xin, w_up))
-    xout = torch.bmm(hid, w_down).reshape(E_loc * capacity, d)
+    xout = _experts(xin, w_gate, w_up, w_down, act=act, gated=gated
+                    ).reshape(E_loc * capacity, d)
     xout = torch.cat([xout, torch.zeros((1, d), dtype=xout.dtype,
                                         device=dev)], dim=0)
     contrib = xout[slot] * (g_sort * keep.float())[:, None].to(xout.dtype)
@@ -336,12 +397,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg
         y = _shardmap_moe(p, h, cfg, act, gated, top_idx, gates.float(),
                           current_mesh())
     elif is_dtensor(h):
-        # the reference's "experts" / "ff" constraints on the expert
-        # buffer fall inside this replicated region
-        y = _replicated(
-            lambda *a: _dispatch(*a, n_experts=E, capacity=cap, act=act,
-                                 gated=gated),
-            h.device_mesh, 6)(h, top_idx, gates, wg, p["w_up"], p["w_down"])
+        y = _dense_on_mesh(h, top_idx, gates, wg, p["w_up"], p["w_down"],
+                           n_experts=E, capacity=cap, act=act, gated=gated)
     else:
         y = _dispatch(h, top_idx, gates, wg, p["w_up"], p["w_down"],
                       n_experts=E, capacity=cap, act=act, gated=gated)

@@ -428,6 +428,21 @@ def elastic(rank, world, p):
             "step": extra["step"], "factored": factored}
 
 
+def smoke_parts(rank, world, p):
+    """``chip_smoke.py``'s four-card deepseek-v2 parts (``moe_parts``) on
+    a ``p["mesh"]`` (data, model) mesh of these ranks, with the rest of
+    ``p`` as their options (``parts``, ``reduced`` and sizes): their
+    record."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    opts = dict(p)
+    return smoke.moe_parts(_mesh(*opts.pop("mesh")), DEVICE, **opts)
+
+
 def host_mesh_train(rank, world, p):
     """``launch.train.main(--mesh host)`` inside a ``world``-rank group:
     the losses."""

@@ -28,6 +28,7 @@ from repro.data.pipeline import Pipeline as JaxPipeline
 from repro.distributed import compression as JC
 from repro.distributed import fault_tolerance as JF
 from repro.distributed import sharding as JS
+from repro.models import layers as JL
 from repro.models.layers import Maker as JMaker
 from repro.models import model as jax_model
 from repro.models import moe as jax_moe
@@ -324,6 +325,117 @@ def test_moe_on_a_mesh_matches_reference(tmp_path, impl, data):
         return (y * wy).sum() + a
     gx, gp = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jp)
     jgrads = dict(gp, x=gx)
+    for r in range(4):
+        assert out[r]["shardmap"] == (impl == "shardmap")
+        np.testing.assert_allclose(out[r]["y"], np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(out[r]["aux"], float(aux), rtol=1e-5)
+        assert sorted(out[r]["grads"]) == sorted(jgrads)
+        for k, g in jgrads.items():
+            np.testing.assert_allclose(out[r]["grads"][k], np.asarray(g),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def _jax_moe_per_shard(pp, xx, jcfg, shards, ranks_):
+    """The reference's layer as the expert-parallel path computes it on a
+    (``shards``, ``ranks_``) mesh: the routing and the aux loss of the
+    whole batch, then each data shard's rows through the reference's
+    ``_local_expert_ffn`` under a named vmap over ``ranks_`` model ranks
+    (its psum), at the capacity of that shard's tokens."""
+    m = jcfg.moe
+    B, S, d = xx.shape
+    T, E, K = B * S, m.num_experts, m.top_k
+    h = JL.rmsnorm(xx, pp["norm"], jcfg.norm_eps).reshape(T, d)
+    probs = jax.nn.softmax((h @ pp["router"]).astype(jnp.float32), -1)
+    top_vals, top_idx = jax.lax.top_k(probs, K)
+    gates = top_vals / jnp.maximum(top_vals.sum(-1, keepdims=True), 1e-9)
+    frac = jnp.zeros((E,), jnp.float32).at[top_idx.reshape(-1)].add(
+        1.0) / (T * K)
+    aux = E * jnp.sum(frac * probs.mean(0)) * m.router_aux_weight
+    T_loc = T // shards
+    cap = max(1, min(int(np.ceil(T_loc * K * m.capacity_factor / E)), T_loc))
+
+    def split(w):
+        return w.reshape((ranks_, E // ranks_) + w.shape[1:])
+    body = functools.partial(
+        jax_moe._local_expert_ffn, n_experts=E, top_k=K, capacity=cap,
+        act=jax.nn.silu, gated=True, axis="model")
+    ys = []
+    for r in range(shards):
+        rows = slice(r * T_loc, (r + 1) * T_loc)
+        ys.append(jax.vmap(body, in_axes=(None, None, None, 0, 0, 0),
+                           axis_name="model")(
+            h[rows], top_idx[rows], gates[rows].astype(jnp.float32),
+            split(pp["w_gate"]), split(pp["w_up"]), split(pp["w_down"]))[0])
+    y = jnp.concatenate(ys)
+    y = y + (jax.nn.silu(h @ pp["shared_gate"]) * (h @ pp["shared_up"])
+             ) @ pp["shared_down"]
+    return xx + y.reshape(B, S, d), aux
+
+
+def _drops(top_idx, E, cf, shards):
+    """The (token, expert) pairs dropped when each of ``shards`` row
+    blocks fills its own C = min(T_loc, ceil(T_loc * K * cf / E)) slots
+    per expert."""
+    top_idx = np.asarray(top_idx)
+    T, K = top_idx.shape
+    T_loc = T // shards
+    cap = max(1, min(int(np.ceil(T_loc * K * cf / E)), T_loc))
+    return sum(int(np.maximum(np.bincount(
+        top_idx[r * T_loc:(r + 1) * T_loc].reshape(-1), minlength=E) - cap,
+        0).sum()) for r in range(shards))
+
+
+@pytest.mark.parametrize("impl,data", [("shardmap", 1), ("shardmap", 2),
+                                       ("gspmd", 1), ("gspmd", 2)])
+def test_moe_dropping_tokens_on_a_mesh_matches_reference(tmp_path, impl,
+                                                         data):
+    """apply_moe on DTensors over 4 gloo ranks, (1, 4) or (2, 2), at a
+    capacity factor of 0.5 (8 experts, top-2, 24 tokens), where tokens
+    drop: the expert-parallel path (each data shard's capacity from its
+    own tokens, the reference's arithmetic) and the dense path (every
+    expert's slots from the whole batch, its experts kept sharded) against
+    the reference: ``jax_moe.apply_moe`` for the dense path and for (1, 4),
+    where one data shard holds every token; for the expert-parallel path
+    on (2, 2), the reference's ``_local_expert_ffn`` under a named vmap
+    over the 2 model ranks, once for each data shard at that shard's
+    capacity, with the aux loss of the whole batch.  Output, aux loss and
+    the gradients of the input and every param within 1e-5, with dropped
+    pairs asserted."""
+    jcfg, cfg = _moe_cfg(cap=0.5)
+    p = _moe_params(jcfg)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 6, jcfg.d_model)).astype(np.float32)
+    wy = rng.standard_normal(x.shape).astype(np.float32)
+    out = ranks.run("shardmap_moe", 4, tmp_path,
+                    {"cfg": cfg, "params": p, "x": x, "wy": wy, "impl": impl,
+                     "data": data})
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    m = jcfg.moe
+    shards = data if impl == "shardmap" else 1
+
+    def f(xx, pp):
+        if shards == 1:
+            return jax_moe.apply_moe(pp, xx, jcfg)
+        return _jax_moe_per_shard(pp, xx, jcfg, shards, 4 // data)
+
+    def loss(xx, pp):
+        y, a = f(xx, pp)
+        return (y * wy).sum() + a
+    want, aux = f(jnp.asarray(x), jp)
+    gx, gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jp)
+    jgrads = dict(gp, x=gx)
+    h = JL.rmsnorm(jnp.asarray(x), jp["norm"], jcfg.norm_eps).reshape(
+        -1, jcfg.d_model)
+    _, top_idx = jax.lax.top_k(jax.nn.softmax(
+        (h @ jp["router"]).astype(jnp.float32), -1), m.top_k)
+    dropped = _drops(top_idx, m.num_experts, m.capacity_factor, shards)
+    print(f"{impl} on ({data}, {4 // data}): {dropped} of "
+          f"{top_idx.size} (token, expert) pairs dropped")
+    assert dropped > 0
+    if shards > 1:
+        # the per-shard capacity drops other pairs than the whole batch's
+        assert dropped != _drops(top_idx, m.num_experts, m.capacity_factor, 1)
     for r in range(4):
         assert out[r]["shardmap"] == (impl == "shardmap")
         np.testing.assert_allclose(out[r]["y"], np.asarray(want), rtol=1e-5,

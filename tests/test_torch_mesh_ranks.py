@@ -18,13 +18,17 @@ Python, the same on the CPU and on CUDA, so gloo ranks meet the
 refusals that NCCL ranks on cards would.  ``test_torch_distributed.py``
 holds the same bodies to the JAX reference.
 
-The state split of full qwen2-7b on four ranks is reckoned from shapes
-and ``pspec_for`` alone, and its forward traced on a ``"fake"`` group of
-meta tensors (in a subprocess, so no worker keeps a group).  The cases
-marked ``cuda`` need four cards (NCCL ranks, one a card) and skip with
-fewer: qwen2-7b at full width cut to two layers on (2, 2) and (4, 1)
-against one card without a mesh, with SGD, and with the launcher's
-recipe (AdamW, its cosine schedule, remat full, its batches) on (4, 1):
+The state split of full qwen2-7b and of deepseek-v2 (2, 3 and 60 layers)
+on four ranks is reckoned from shapes and ``pspec_for`` alone, and
+qwen2-7b's step, deepseek-v2's MoE layer and its 2-layer loss traced on
+a ``"fake"`` group of meta tensors (in a subprocess, so no worker keeps
+a group).  ``chip_smoke.py``'s four-card deepseek-v2 parts run here on
+gloo ranks at the reduced width.  The cases marked ``cuda`` need four
+cards (NCCL ranks, one a card) and skip with fewer: qwen2-7b at full
+width cut to two layers on (2, 2) and (4, 1) against one card without a
+mesh, with SGD, and with the launcher's recipe (AdamW, its cosine
+schedule, remat full, its batches) on (4, 1); deepseek-v2 at full width
+on (1, 4) and (2, 2), its MoE layer and 3 SGD steps of 2 layers:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mesh_ranks.py
 """
@@ -388,47 +392,58 @@ def test_qwen2_7b_state_splits_four_ways(mesh):
     assert round(16 * per / 1e8) == 305 and round(16 * total / 1e8) == 1218
 
 
-_TRACE = r"""
+# the collectives a rank makes, recorded below DTensor on a "fake" group
+# of 4 ranks with meta DTensors: (op, mesh axis, the local tensor's shape)
+_RECORD = r"""
 import json, sys
 import torch, torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.distributed_c10d import _resolve_process_group
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from repro_torch.configs.base import get_config
-from repro_torch.distributed.sharding import (axis_rules, distribute,
-    map_shardings, replicate_plain, sharding_for, tree_shardings)
 from repro_torch.launch.dryrun import fake_group
-from repro_torch.models.model import Model, RunConfig
-from repro_torch.optim.optimizer import tree_leaves
 
 fake_group(4)
-out = {}
-for data, model in ((4, 1), (2, 2)):
+
+
+def make_mesh(data, model):
     mesh = DeviceMesh("cpu", torch.arange(4).reshape(data, model),
                       mesh_dim_names=("data", "model"))
     axis = {tuple(dist.get_process_group_ranks(mesh.get_group(n))): n
             for n in ("data", "model")}
-    rec = {"forward": [], "backward": []}
-    phase = ["forward"]
+    return mesh, axis
 
-    class Mode(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if any(issubclass(t, DTensor) for t in types):
-                return NotImplemented
-            kwargs = kwargs or {}
-            names = [a.name for a in func._schema.arguments]
-            if func.namespace == "_c10d_functional" and "group_name" in names:
-                vals = dict(zip(names, args), **kwargs)
-                pg = _resolve_process_group(vals["group_name"])
-                rec[phase[0]].append(
-                    (func.overloadpacket.__name__,
-                     axis.get(tuple(dist.get_process_group_ranks(pg)), "?"),
-                     list(args[0].shape)))
-            return func(*args, **kwargs)
 
-    m = Model(get_config("qwen2-7b"),
-              RunConfig(max_seq=256, remat="full", backend="torch"),
+class Record(TorchDispatchMode):
+    def __init__(self, axis):
+        super().__init__()
+        self.axis, self.phase = axis, "forward"
+        self.calls = {"forward": [], "backward": []}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        names = [a.name for a in func._schema.arguments]
+        if func.namespace == "_c10d_functional" and "group_name" in names:
+            vals = dict(zip(names, args), **kwargs)
+            pg = _resolve_process_group(vals["group_name"])
+            self.calls[self.phase].append(
+                (func.overloadpacket.__name__,
+                 self.axis.get(tuple(dist.get_process_group_ranks(pg)), "?"),
+                 list(args[0].shape)))
+        return func(*args, **kwargs)
+
+
+# the collectives of cfg's loss and gradients (remat full, 8 x 256 tokens)
+# on a (data, model) mesh of meta DTensors
+def traced_loss(cfg, data, model):
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+        map_shardings, replicate_plain, sharding_for, tree_shardings)
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.optim.optimizer import tree_leaves
+    mesh, axis = make_mesh(data, model)
+    m = Model(cfg, RunConfig(max_seq=256, remat="full", backend="torch"),
               device="meta")
     with axis_rules(mesh):
         shapes = m.param_shapes()
@@ -440,13 +455,27 @@ for data, model in ((4, 1), (2, 2)):
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        with Mode(), replicate_plain(leaves[0]):
+        rec = Record(axis)
+        with rec, replicate_plain(leaves[0]):
             loss, _ = m.loss(params, {"tokens": tok, "labels": tok})
-            phase[0] = "backward"
+            rec.phase = "backward"
             torch.autograd.grad(loss, leaves)
-    out[f"{data}x{model}"] = rec
-print(json.dumps(out))
+    return rec.calls
 """
+
+_TRACE = _RECORD + r"""
+from repro_torch.configs.base import get_config
+print(json.dumps({f"{d}x{m}": traced_loss(get_config("qwen2-7b"), d, m)
+                  for d, m in ((4, 1), (2, 2))}))
+"""
+
+
+def _traced(script):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", script], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def test_qwen2_7b_forward_gathers_one_layer_at_a_time():
@@ -457,11 +486,7 @@ def test_qwen2_7b_forward_gathers_one_layer_at_a_time():
     layer's slice is gathered where it is used), and on (2, 2) the
     forward gathers nothing over ``model`` but the logits for the loss
     (the 28 query and 4 KV heads divide by 2)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-c", _TRACE], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-3000:]
-    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out = _traced(_TRACE)
     layers = get_config("qwen2-7b").num_layers
     V = get_config("qwen2-7b").padded_vocab
     for mesh, rec in out.items():
@@ -477,6 +502,205 @@ def test_qwen2_7b_forward_gathers_one_layer_at_a_time():
                                    [4, 256, V // 2]]]
         else:
             assert over_model == []
+
+
+def _deepseek(layers):
+    """deepseek-v2-236b at full width cut to ``layers`` layers (the dense
+    first layer, then MoE layers)."""
+    return dataclasses.replace(get_config("deepseek-v2-236b"),
+                               num_layers=layers)
+
+
+@pytest.mark.parametrize("layers,params,whole,per_card", [
+    (2, 5_519_108_096, 88.3, (22.2, 22.1, 22.1)),
+    (3, 9_571_439_104, 153.1, (38.4, 38.3, 38.3)),
+    (60, 240_554_306_560, 3848.9, (964.9, 963.1, 962.2))],
+    ids=["2L", "3L", "60L"])
+def test_deepseek_v2_state_splits_four_ways(layers, params, whole, per_card):
+    """deepseek-v2-236b at full width cut to 2 and 3 layers, and whole
+    (meta tensors and ``pspec_for`` over each mesh's axis sizes; nothing
+    allocated): its params, its f32 AdamW state (params, gradients, m, v:
+    16 bytes a param) whole, and a card's share on (1, 4), (2, 2) and
+    (4, 1).  The 2-layer cut's state (88.3 GB) fits no one card, but its
+    SGD state (params and gradients, 44.2 GB) does; the 3-layer cut's
+    153.1 GB is 38.3-38.4 GB a card on every four-rank mesh."""
+    model = Model(_deepseek(layers), RunConfig(max_seq=256), device="meta")
+    shapes = _flat_meta(model.param_shapes())
+    axes = _flat_meta(model.param_axes())
+    total = sum(t.numel() for t in shapes.values())
+    assert total == params
+    assert round(16 * total / 1e9, 1) == whole
+    if layers == 2:
+        assert round(8 * total / 1e9, 1) == 44.2
+    for mesh, want in zip(((1, 4), (2, 2), (4, 1)), per_card):
+        sizes = {"data": mesh[0], "model": mesh[1]}
+        per = 0
+        for k, t in shapes.items():
+            spec = pspec_for(axes[k].split(), t.shape, sizes)
+            n = int(np.prod([sizes[a] for e in spec for a in spec_axes(e)]))
+            assert t.numel() % n == 0, k
+            per += t.numel() // n
+        assert round(16 * per / 1e9, 1) == want, mesh
+
+
+_MOE_TRACE = _RECORD + r"""
+from repro_torch.configs.base import get_config
+from repro_torch.distributed.sharding import (axis_rules, distribute,
+    replicate_plain, sharding_for)
+from repro_torch.models import moe
+from repro_torch.models.layers import Maker
+
+cfg = get_config("deepseek-v2-236b")
+out = {}
+for data, model in ((1, 4), (2, 2), (4, 1)):
+    mesh, axis = make_mesh(data, model)
+    for B, S in ((4, 1), (8, 256)):
+        with axis_rules(mesh):
+            axes = moe.init_moe(cfg, Maker("axes"))
+            p = {k: distribute(v, sharding_for(axes[k], v.shape, mesh)
+                               ).requires_grad_(True)
+                 for k, v in moe.init_moe(cfg, Maker("shape")).items()}
+            x = torch.empty((B, S, cfg.d_model), device="meta")
+            x = distribute(x, sharding_for("batch - -", x.shape, mesh)
+                           ).requires_grad_(True)
+            rec = Record(axis)
+            with rec, replicate_plain(x):
+                y, aux = moe.apply_moe(p, x, cfg)
+                rec.phase = "backward"
+                torch.autograd.grad(y.sum() + aux, [x] + list(p.values()))
+            out[f"{data}x{model} T{B * S}"] = dict(
+                rec.calls, expert_parallel=moe._can_shardmap(cfg, B * S))
+print(json.dumps(out))
+"""
+
+_DEEPSEEK_LOSS_TRACE = _RECORD + r"""
+import dataclasses
+from repro_torch.configs.base import get_config
+print(json.dumps(traced_loss(dataclasses.replace(
+    get_config("deepseek-v2-236b"), num_layers=2), 1, 4)))
+"""
+
+
+def _expert_weights(calls, cfg):
+    """The recorded collectives whose tensor is a piece of an expert
+    weight (or of its gradient): its last two dims a piece of d_model by
+    a piece of expert_ff, in either order, cut at most four ways each."""
+    d, f = cfg.d_model, cfg.moe.expert_ff
+    pieces = {(d // a, f // b) for a in (1, 2, 4) for b in (1, 2, 4)}
+    return [c for c in calls if len(c[2]) >= 3 and (
+        tuple(c[2][-2:]) in pieces or tuple(c[2][-2:])[::-1] in pieces)]
+
+
+def test_moe_layer_keeps_its_experts_sharded_on_both_paths():
+    """deepseek-v2's MoE layer at full width (160 experts of 5120 x 1536)
+    traced with its backward on a ``"fake"`` group of 4 ranks (meta
+    DTensors): at 4 tokens (a decode step, T * K = 24 < 160: the dense
+    path) and 2048 (8 x 256: the expert-parallel path) on (1, 4), (2, 2)
+    and (4, 1).  On (1, 4) no collective carries a piece of an expert
+    weight at either size: the dense path gathers only its (E, C, d)
+    token buffer, where it used to gather all 160 experts on every rank
+    (3 x 40 x 5120 x 1536 values a rank).  On (2, 2) expert weights move
+    only over ``data`` (the ``fsdp`` halves, as the reference's expert
+    specs gather them), never over ``model``."""
+    out = _traced(_MOE_TRACE)
+    cfg = get_config("deepseek-v2-236b")
+    assert sorted(out) == sorted(f"{m} T{t}" for m in ("1x4", "2x2", "4x1")
+                                 for t in (4, 2048))
+    for key, rec in out.items():
+        every = rec["forward"] + rec["backward"]
+        moved = _expert_weights(every, cfg)
+        print(key, "expert-parallel" if rec["expert_parallel"] else "dense",
+              f"{len(every)} collectives, {len(moved)} with expert weights",
+              moved)
+        assert rec["expert_parallel"] == key.endswith("T2048"), key
+        if key.startswith("1x4"):
+            assert moved == [], key
+        elif key.startswith("2x2"):
+            assert moved and {c[1] for c in moved} == {"data"}, key
+        if key == "1x4 T4":
+            # the token buffer: (E / 4, C, d) gathered over model, C = 1
+            assert ["all_gather_into_tensor", "model",
+                    [cfg.moe.num_experts // 4, 1, cfg.d_model]
+                    ] in rec["forward"]
+
+
+def test_deepseek_v2_loss_never_gathers_its_experts():
+    """deepseek-v2-236b at full width cut to 2 layers (the dense first
+    layer and one MoE layer; 5.519 G params), its loss and gradients over
+    8 x 256 tokens (remat full) traced on a ``"fake"`` group with meta
+    DTensors on (1, 4): no collective of the forward or the backward
+    carries a piece of an expert weight or of its gradient."""
+    rec = _traced(_DEEPSEEK_LOSS_TRACE)
+    every = rec["forward"] + rec["backward"]
+    assert rec["forward"] and rec["backward"]
+    assert _expert_weights(every, _deepseek(2)) == []
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module (its four-card parts and checks)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_four_card_deepseek_parts_hold_on_gloo_at_reduced_size(tmp_path,
+                                                               mesh):
+    """``chip_smoke.py --launcher-cards 4``'s deepseek-v2 parts
+    (``moe_parts``) on 4 gloo ranks with the family's reduced config (16
+    experts, top-2): (a) the MoE layer on 4 x 8 tokens, (b) on (1, 4)
+    serving a 4 x 8 prefill and 2 decode steps in f32 and bf16, (c) 3
+    steps of plain SGD and (d) 3 steps of the launcher's recipe on 4 x 16 batches,
+    each against its run without a mesh in the same rank; every check of
+    ``moe_report`` holds as on the cards (within 1e-5; the serving logits
+    at phase 6d's gates), and the decode steps move no expert weight."""
+    out = ranks.run("smoke_parts", 4, tmp_path,
+                    {"mesh": mesh, "reduced": True, "layer_tokens": (4, 8),
+                     "batch": (4, 16), "serve": (4, 8, 2), "steps": 3},
+                    timeout=300)
+    for part in ("layer", "train", "state") + (("serve",) if mesh[0] == 1
+                                               else ()):
+        assert "error" not in out[0][part], out[0][part]
+    _smoke().moe_report(out, mesh, 0.0)
+    if mesh[0] == 1:
+        assert out[0]["serve"]["prefill_ep"]
+        assert out[0]["serve"]["decode_dense"]
+    else:
+        assert "serve" not in out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_deepseek_v2_at_full_width_on_four_cards_matches_one_card(tmp_path,
+                                                                  mesh):
+    """deepseek-v2-236b at full width on four NCCL ranks, a card each,
+    params of seed 0 drawn on every card, through ``chip_smoke.py``'s parts
+    (a) and (c) against the same work on one card (each rank's own):
+    (a) the MoE layer (160 experts, top-6, f32) on 8 x 256 tokens at the
+    config's capacity factor of 1.25, on the expert-parallel path: output,
+    aux loss and the gradients of the input and every param within 1e-5
+    of their largest magnitude (on (2, 2) against the layer on each data
+    shard's rows apart, each at its own capacity; tokens re-routed at a
+    near-tie held apart); (c) 3 steps of plain SGD (lr 0.1, no momentum)
+    of the 2-layer cut (5.519 G params; its params and gradients fit one
+    card, with AdamW's or momentum's state they do not) on the launcher's
+    8 x 256 batches of seed 0 at capacity factor 1.25, on (2, 2) against
+    one card's run at each data shard's capacity (``ShardedMoE``): losses
+    within 1e-5 relative, params within 1e-5 of each leaf's largest
+    magnitude."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    out = ranks.run("smoke_parts", 4, tmp_path,
+                    {"mesh": mesh, "parts": ["layer", "train"]},
+                    timeout=900, device="cuda")
+    for part in ("layer", "train"):
+        assert "error" not in out[0][part], out[0][part]
+    _smoke().moe_report(out, mesh, 0.0)
 
 
 @pytest.mark.cuda
