@@ -204,7 +204,21 @@ sharded_gemm_op at 2048 x 18944 x 3584 (512 rows a card, phase 8's up
 product) in f32 and bf16 through the emitted GEMM, held to gemm_op on
 its own rows bit for bit and its rhs gradient's all-reduce to the four
 one-card gradients' sum, and timed beside its bound, gemm_op, the
-library call and the all-reduce.  It prints no result line.
+library call and the all-reduce.  Then the same launcher command with
+--checkpoint-dir (each rank writing only its own pieces of the state)
+is preempted: SIGTERM to one rank after step 4, every rank stopping
+after the same step and saving once; run again, it resumes and trains
+to step 8, its losses with the first run's held to the straight run's
+(bit-equal, or within 1e-5 where the first half already differs from
+run to run).  The checkpoints go to a directory of their own under the
+temporary directory (TMPDIR), removed when the part ends; it fails,
+with the numbers, where that file system cannot hold two checkpoints of
+the whole model (91.4 GB each): point TMPDIR at a memory-backed
+directory of the caller's own where the disk is too small.  Each rank
+prints its seconds, bytes and host memory growth to save and to
+restore, the file system's free space and write rate, and its card's
+name and power limit.  The deepseek-v2 parts follow
+([moe] lines).  It prints no result line.
 """
 
 from __future__ import annotations
@@ -406,6 +420,17 @@ CARDS_TOL = 1e-5
 CARDS_REDUCED = [DIST_RANK_LAUNCH, DIST_RANK_LAUNCH + ["--remat", "full"]]
 CARDS_GEMM = (2048, 18944, 3584)
 CARDS_TIMEOUT = 900
+# then the checkpointed run (cards_checkpoint): CARDS_LAUNCH plus
+# --checkpoint-dir in a directory of its own under TMPDIR, SIGTERM to one
+# rank once rank 0 has logged step CARDS_PREEMPT_AFTER (--log-every 1),
+# every rank stopping after the same step and saving its own pieces;
+# then the same command again, which resumes and trains to CARDS_STEPS.
+# The two halves' losses are held to the straight run's: bit-equal, or,
+# where the first half (a repeat of the straight run) already differs
+# (NCCL's sums from run to run), within CARDS_TOL.  One checkpoint of the
+# whole model is 91.4 GB (params, m, v in f32) and the resumed run writes
+# a second: the part fails where TMPDIR's file system cannot hold two.
+CARDS_PREEMPT_AFTER = 4
 # then deepseek-v2-236b at full width (MOE_ARCH: d 5120, 128 MLA heads,
 # 160 experts top-6 and 2 shared of ff 1536, vocab 102,400), params of
 # seed 0 drawn on every card (Model.init(mesh=)), one torchrun of 4 NCCL
@@ -3415,12 +3440,13 @@ def worst_share(got, want, tol):
     return float(np.abs(got - want).max()) / (tol * scale)
 
 
-def torchrun(ranks, logs, args, cpu=False):
+def torchrun(ranks, logs, args, cpu=False, env=None):
     """``args`` (a module's or this script's) in ``ranks`` processes
     under torchrun, each rank's output in files under ``logs``: gloo CPU
     ranks with no card visible for ``cpu``, else NCCL ranks with a card
-    each.  Returns torchrun's process."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    each; ``env`` adds to the environment.  Returns torchrun's
+    process."""
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
     if cpu:
         env["CUDA_VISIBLE_DEVICES"] = ""
@@ -3774,6 +3800,260 @@ def reduced_launches(cards):
             launcher_check(head, g, w, time.perf_counter() - t, args)
 
 
+def state_bytes():
+    """The bytes of CARDS_LAUNCH's train state (params, AdamW's m and v
+    in f32, its step and the rng) reckoned from meta shapes."""
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.optim.optimizer import adamw, tree_leaves
+    from repro_torch.train.step import state_shapes
+    model = Model(cards_config(), RunConfig(max_seq=CARDS_SEQ), "meta")
+    return sum(t.numel() * t.element_size() for t in
+               tree_leaves(state_shapes(model, adamw(lambda s: 1e-4))))
+
+
+def disk_rate(directory, nbytes=2 ** 31):
+    """Free bytes on ``directory``'s disk, and its write rate: ``nbytes``
+    written to a new file of a unique name there and fsync'd, in bytes/s
+    (the file removed)."""
+    import shutil
+    import tempfile
+    free = shutil.disk_usage(directory).free
+    block = np.ones(2 ** 26, np.uint8)
+    fd, path = tempfile.mkstemp(dir=directory)
+    t = time.perf_counter()
+    with os.fdopen(fd, "wb") as f:
+        for _ in range(nbytes // block.nbytes):
+            f.write(block.data)
+        f.flush()
+        os.fsync(f.fileno())
+    rate = nbytes / (time.perf_counter() - t)
+    os.remove(path)
+    return free, rate
+
+
+def mount_of(path):
+    """The mount point and file system type that hold ``path`` (the
+    longest mount point of /proc/mounts above it)."""
+    real, best = os.path.realpath(path), ("/", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            mnt, fstype = line.split()[1:3]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return best
+
+
+def host_available():
+    """MemAvailable of /proc/meminfo, bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def rank_pids(pid):
+    """{rank: pid} of torchrun's workers: the processes whose parent is
+    ``pid``, each rank read from its environment under /proc."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) != pid:
+                    continue
+            with open(f"/proc/{name}/environ", "rb") as f:
+                env = dict(x.split(b"=", 1) for x in f.read().split(b"\0")
+                           if b"=" in x)
+            out[int(env[b"RANK"])] = int(name)
+        except (OSError, KeyError, ValueError, IndexError):
+            continue
+    return out
+
+
+def wait_for(found, proc, deadline):
+    """``found()``'s first true value, polled every 50 ms while torchrun
+    (``proc``) runs, before ``deadline``; None if it never came."""
+    while time.monotonic() < deadline and proc.poll() is None:
+        got = found()
+        if got:
+            return got
+        time.sleep(0.05)
+    return None
+
+
+def checkpointed_launch(cards, args, logs, preempt=False):
+    """torchrun of ``launch.train`` ``args`` on ``cards`` NCCL ranks
+    (unbuffered output); with ``preempt``, SIGTERM to the last rank alone
+    once rank 0 has logged step CARDS_PREEMPT_AFTER.  Returns each rank's
+    standard output (``rank_outputs``)."""
+    import signal
+    proc = torchrun(cards, logs, ["-m", "repro_torch.launch.train", *args],
+                    env={"PYTHONUNBUFFERED": "1"})
+    deadline = time.monotonic() + CARDS_TIMEOUT
+    line = f"[trainer] step {CARDS_PREEMPT_AFTER}:"
+
+    def logged():
+        return any(line in f.read_text() for f in pathlib.Path(logs).glob(
+            "**/attempt_0/0/stdout.log"))
+    try:
+        if preempt:
+            pids = wait_for(lambda: (lambda p: p if len(p) == cards
+                                     else None)(rank_pids(proc.pid)),
+                            proc, deadline)
+            check(pids is not None and sorted(pids) == list(range(cards)),
+                  f"checkpoint: torchrun's workers {pids}")
+            check(wait_for(logged, proc, deadline),
+                  f"checkpoint: rank 0 never logged step "
+                  f"{CARDS_PREEMPT_AFTER}")
+            os.kill(pids[cards - 1], signal.SIGTERM)
+        return rank_outputs(proc, cards, logs, deadline, "checkpoint")
+    finally:
+        stop(proc)
+
+
+CKPT_IO = (r"\(([\d.]+) GB {} by this process in ([\d.]+) s; peak host "
+           r"memory \+([\d.]+) GB\)")
+
+
+def ckpt_record(text):
+    """One rank's run of ``checkpointed_launch`` from its log: losses,
+    each step's ms, the step it was preempted at (None if none), its
+    saves and its restore as (step, GB, s, GB of peak host memory
+    growth)."""
+    losses = re.search(r"^\[train\] losses: (.*)$", text, re.M)
+    pre = re.search(r"^\[trainer\] preempted at step (\d+);", text, re.M)
+    got = re.search(r"^\[trainer\] resumed from step (\d+) "
+                    + CKPT_IO.format("read"), text, re.M)
+    return {
+        "losses": [float(x) for x in losses.group(1).split()]
+        if losses else [],
+        "ms": {int(m.group(1)): int(m.group(2)) for m in re.finditer(
+            r"^\[trainer\] step (\d+): loss=\S+ lr=\S+ (\d+)ms$", text,
+            re.M)},
+        "preempted": int(pre.group(1)) if pre else None,
+        "saves": [(int(m.group(1)), *map(float, m.groups()[1:]))
+                  for m in re.finditer(
+                      r"^\[trainer\] checkpointed step (\d+) -> \S+ "
+                      + CKPT_IO.format("written"), text, re.M)],
+        "restore": (int(got.group(1)), *map(float, got.groups()[1:]))
+        if got else None}
+
+
+def cards_checkpoint(cards, straight):
+    """The launcher's checkpointed run on ``cards`` cards: CARDS_LAUNCH
+    with ``--checkpoint-dir`` in a temporary directory of its own (its
+    file system's free space, for a memory-backed one (tmpfs) the host's
+    available memory too, and its write rate measured first; the part
+    fails where they cannot hold two checkpoints), preempted by SIGTERM
+    to one rank after step CARDS_PREEMPT_AFTER, then the same command
+    again, resuming to CARDS_STEPS.  Held to: every rank stopped after the same step and
+    saved once; that checkpoint committed, then the resumed run's; the
+    bytes written by all ranks summing to the state's; each rank reading
+    about its share and its host memory growing by less; the two halves'
+    losses equal to ``straight`` (the whole model's, rank 0 of
+    ``cards_rank``) bit for bit, or within CARDS_TOL where the first half
+    already differs.  Prints each rank's seconds, bytes and host growth
+    to save and restore, with its card's name and power limit."""
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import all_steps
+    nbytes = state_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        mnt, fstype = mount_of(tmp)
+        free, rate = disk_rate(tmp)
+        avail = host_available()
+        room = free if fstype != "tmpfs" else min(free, avail)
+        print(f"[ckpt] {card_of(0)}: {tmp} on {mnt} ({fstype}"
+              f"{', memory' if fstype == 'tmpfs' else ''}): "
+              f"{free / 1e9:.1f} GB free, {rate / 1e9:.3f} GB/s written (one"
+              f" 2 GiB file, fsync'd); host memory {avail / 1e9:.1f} GB "
+              f"available; one checkpoint of {CARDS_ARCH} whole is "
+              f"{nbytes / 1e9:.2f} GB and a resumed run writes a second; "
+              f"the parent's writer (every rank gathering every leaf) would "
+              f"hold {cards} x {nbytes / 1e9:.1f} = "
+              f"{cards * nbytes / 1e9:.1f} GB on the host: not run")
+        check(room >= 2.1 * nbytes, f"checkpoint: room for "
+              f"{room / 1e9:.1f} GB under {tmp} ({fstype}), two checkpoints "
+              f"need {2 * nbytes / 1e9:.1f}: set TMPDIR to a larger "
+              f"directory")
+        t = time.perf_counter()
+        ck = os.path.join(tmp, "ck")
+        run = CARDS_LAUNCH + ["--checkpoint-dir", ck, "--log-every", "1"]
+        first = [ckpt_record(x) for x in checkpointed_launch(
+            cards, run, os.path.join(tmp, "first"), preempt=True)]
+        committed = [sorted(all_steps(ck)), sorted(os.listdir(ck))]
+        second = [ckpt_record(x) for x in checkpointed_launch(
+            cards, run, os.path.join(tmp, "second"))]
+        committed.append(sorted(all_steps(ck)))
+        seconds = time.perf_counter() - t
+    at = first[0]["preempted"]
+    share = nbytes / cards
+    none = (None, 0.0, 0.0, 0.0)
+    for r, (a, b) in enumerate(zip(first, second)):
+        sa, ga, ta, ha = (a["saves"] or [none])[0]
+        ra, rg, rt, rh = b["restore"] or none
+        sb, gb_, tb, hb = (b["saves"] or [none])[-1]
+        print(f"[ckpt] rank {r} ({card_of(r)}): {CARDS_ARCH} whole, "
+              f"mesh ({cards}, 1); first run preempted at step {a['preempted']}"
+              f" (SIGTERM to rank {cards - 1} alone after step "
+              f"{CARDS_PREEMPT_AFTER} was logged); saved step {sa}: {ga:.3f}"
+              f" GB written in {ta:.2f} s ({ga / max(ta, 1e-9):.3f} GB/s), "
+              f"peak host memory +{ha:.3f} GB; resumed from step {ra}: "
+              f"{rg:.3f} GB read in {rt:.2f} s (warm: just written), peak "
+              f"host memory +{rh:.3f} GB; saved step {sb}: {gb_:.3f} GB in "
+              f"{tb:.2f} s, +{hb:.3f} GB; the rank's share of the state "
+              f"{share / 1e9:.3f} GB; step ms " + ", ".join(
+                  f"{k}: {v}" for k, v in sorted({**a["ms"], **b["ms"]}
+                                                 .items())))
+    halves = first[0]["losses"] + second[0]["losses"]
+    equal = halves == straight
+    rel = max((abs(x - y) / abs(y) for x, y in zip(halves, straight)),
+              default=math.inf)
+    repeat = max((abs(x - y) / abs(y)
+                  for x, y in zip(first[0]["losses"], straight)), default=0)
+    written = sum(a["saves"][0][1] for a in first if a["saves"])
+    print(f"[ckpt] {cards} ranks, {seconds:.1f} s for the two runs: "
+          f"preempted at step "
+          f"{at}, resumed to {CARDS_STEPS}: losses {fmt_losses(halves)} "
+          f"against the straight run's {fmt_losses(straight)}: bit-equal "
+          f"{equal} (worst relative {rel:.2e}; the first half, a repeat of "
+          f"the straight run, {repeat:.2e}); all ranks wrote {written:.3f}"
+          f" GB, the state is {nbytes / 1e9:.3f} GB; steps committed "
+          f"after the first run {committed[0]} ({committed[1]}), after the "
+          f"second {committed[2]}")
+    check(at is not None and CARDS_PREEMPT_AFTER <= at < CARDS_STEPS
+          and all(a["preempted"] == at for a in first),
+          f"checkpoint: ranks stopped at {[a['preempted'] for a in first]}")
+    check(all([s[0] for s in a["saves"]] == [at] for a in first)
+          and committed[0] == [at] and committed[1] == [f"step_{at:08d}"],
+          f"checkpoint: first run's saves {[a['saves'] for a in first]}, "
+          f"{committed[:2]}")
+    check(all(b["restore"] and b["restore"][0] == at
+              and [s[0] for s in b["saves"]] == [CARDS_STEPS]
+              for b in second) and committed[2] == [at, CARDS_STEPS],
+          f"checkpoint: resumed runs {[(b['restore'], b['saves']) for b in second]}")
+    check(abs(written - nbytes / 1e9) <= 1e-3 * cards,
+          f"checkpoint: {written:.3f} GB written, state "
+          f"{nbytes / 1e9:.3f} GB")
+    check(all(b["restore"][1] <= 1.05 * share / 1e9 + 1e-3 for b in second),
+          "checkpoint: a rank read more than its share")
+    check(all(a["saves"][0][3] < share / 1e9 and b["restore"][3]
+              < share / 1e9 for a, b in zip(first, second)),
+          "checkpoint: host memory grew by a rank's share or more")
+    check(len(first[0]["losses"]) == at
+          and len(halves) == CARDS_STEPS
+          and all(math.isfinite(x) for x in halves)
+          and all(a["losses"] == first[0]["losses"] for a in first)
+          and all(b["losses"] == second[0]["losses"] for b in second),
+          f"checkpoint: losses {[a['losses'] for a in first]}, "
+          f"{[b['losses'] for b in second]}")
+    check(equal or (repeat > 0 and rel <= CARDS_TOL),
+          f"checkpoint: resumed losses {rel:.2e} from the straight run's "
+          f"(the repeat's own {repeat:.2e})")
+
+
 def launcher_cards(cards):
     """``--launcher-cards``: first the launcher's reduced comparison on
     ``cards`` cards (``reduced_launches``); then qwen2-7b whole through
@@ -3785,7 +4065,9 @@ def launcher_cards(cards):
     crossbar's checks (``cards_gemm``).  Prints each rank's mesh, losses,
     ms a step,
     tokens/s, model-FLOP share of ``cards`` x the f32 peak, peak GiB and
-    crossbar times, with its card's name and power limit."""
+    crossbar times, with its card's name and power limit.  Then the same
+    command checkpointed, preempted and resumed, held to that straight
+    run (``cards_checkpoint``)."""
     import tempfile
     check(torch.cuda.device_count() >= cards,
           f"cards: {torch.cuda.device_count()} cards, {cards} asked for")
@@ -3885,6 +4167,7 @@ def launcher_cards(cards):
           "cards: ranks' losses differ")
     check(all(rec["mesh"] == [cards, 1] for rec in recs),
           f"cards: meshes {[rec['mesh'] for rec in recs]}")
+    cards_checkpoint(cards, first)
 
 
 def moe_cfg(layers=None, cf=None, reduced=False):

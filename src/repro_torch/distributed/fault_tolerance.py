@@ -11,7 +11,9 @@ the in-process equivalent of a job restart, with the same guarantees
 On a real fleet this sits under a cluster scheduler that also replaces
 the failed host; the state machine here (checkpoint -> fail -> restore ->
 replay) is the reference's, which is what the tests exercise by
-injection.  A step ends by synchronising on its loss (the reference's
+injection.  On a group of more than one rank the ranks agree after each
+step whether any of them failed (``any_rank``), so all roll back to the
+same commit together and take the same saves and restores.  A step ends by synchronising on its loss (the reference's
 ``block_until_ready``), so a failure on the device surfaces in the step
 that caused it.  The port's optimizer updates the state in place and
 ``checkpointer.restore(target=state)`` writes the checkpoint back into
@@ -25,8 +27,10 @@ import time
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.distributed.sharding import group_size
 
 # torch.cuda.OutOfMemoryError and torch.distributed.DistBackendError are
 # RuntimeErrors already
@@ -47,6 +51,26 @@ def _sync(metrics: Dict) -> None:
         next(iter(metrics.values()))
     if torch.is_tensor(first):
         first.item()
+
+
+def any_rank(flag: bool, device) -> bool:
+    """``flag`` of this process, or on a group of more than one rank
+    whether any rank's is set: a MAX all-reduce of one integer on
+    ``device`` (the group's: a card for NCCL, the CPU for gloo)."""
+    if group_size() == 1:
+        return flag
+    t = torch.tensor(int(flag), device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _device(state) -> torch.device:
+    """The device of a state's first tensor (the CPU without one)."""
+    from repro_torch.optim.optimizer import tree_leaves
+    for leaf in tree_leaves(state):
+        if torch.is_tensor(leaf):
+            return leaf.device
+    return torch.device("cpu")
 
 
 class FailoverRunner:
@@ -70,22 +94,30 @@ class FailoverRunner:
                                         target=state)
             step = last_commit = extra["step"]
             self.log(f"[failover] resumed at step {step}")
+        device = _device(state)
         while step < total_steps:
+            err = None
             try:
                 state, metrics = self.train_step(state, self.batch_fn(step))
                 _sync(metrics)
+            except RECOVERABLE as e:
+                err = e
+            if any_rank(err is not None, device) and err is None:
+                err = RuntimeError("the step failed on another rank")
+            if err is None:
                 step += 1
                 if step % self.cfg.checkpoint_every == 0 or \
                         step == total_steps:
                     ckpt.save(self.cfg.checkpoint_dir, step, state)
                     last_commit = step
-            except RECOVERABLE as e:
+            else:
                 self.failures += 1
                 if self.failures > self.cfg.max_failures:
                     raise RuntimeError(
-                        f"exceeded {self.cfg.max_failures} failures") from e
-                self.log(f"[failover] step {step} failed ({type(e).__name__}:"
-                         f" {e}); restoring step {last_commit}")
+                        f"exceeded {self.cfg.max_failures} failures") from err
+                self.log(f"[failover] step {step} failed "
+                         f"({type(err).__name__}: {err}); restoring step "
+                         f"{last_commit}")
                 if self.cfg.backoff_s:
                     time.sleep(self.cfg.backoff_s)
                 if ckpt.latest_step(self.cfg.checkpoint_dir) is not None:

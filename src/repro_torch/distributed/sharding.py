@@ -408,3 +408,9 @@ def in_context(fn):
 def full(x: torch.Tensor) -> torch.Tensor:
     """The whole tensor of a DTensor (gathered), a plain tensor as is."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+def group_size() -> int:
+    """The ranks of this process's group (1 without one)."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1

@@ -24,7 +24,11 @@ directly (``train.step.init_state_sharded``) and batches are sharded over
 
 Under ``torchrun`` (``WORLD_SIZE`` set) the group is started from its
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``):
-NCCL on the card, gloo on the CPU.
+NCCL on the card, gloo on the CPU.  With ``--checkpoint-dir`` each rank
+writes and reads only its own pieces of the state
+(``checkpoint/checkpointer.py``); SIGTERM to any rank stops every rank
+after the same step with a checkpoint, and the same command run again
+resumes from it.
 
 The schedule defaults to WSD for minicpm (its paper's) and cosine
 otherwise, with a warmup of steps / 20; the optimizer is AdamW with weight
@@ -68,6 +72,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     choices=["none", "host", "single", "multi"])
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="log a step's loss every N steps (and the first)")
     ap.add_argument("--remat", default="none")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -108,7 +114,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     trainer = Trainer(TrainerConfig(
         total_steps=args.steps, checkpoint_every=args.checkpoint_every,
-        checkpoint_dir=args.checkpoint_dir), step_fn, pipe)
+        checkpoint_dir=args.checkpoint_dir, log_every=args.log_every),
+        step_fn, pipe)
     trainer.install_preemption_handler()
     if mesh is not None:
         with axis_rules(mesh):

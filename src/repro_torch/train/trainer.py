@@ -5,7 +5,11 @@ The PyTorch counterpart of ``repro/train/trainer.py``:
 
   * **preemption** — SIGTERM (``install_preemption_handler``) ends the
     loop after the current step with a final checkpoint; the next run
-    resumes from the latest commit (``Trainer.run`` is re-entrant);
+    resumes from the latest commit (``Trainer.run`` is re-entrant).  On
+    a group of more than one rank the signal reaches the ranks at
+    different moments, so before each step they combine their flags
+    (``fault_tolerance.any_rank``: a MAX all-reduce of one integer) and
+    all stop after the same step, then save once together;
   * **stragglers** — per-step wall time is tracked with an EMA; steps
     slower than ``straggler_factor`` x the EMA are logged and counted;
   * **data** — the pipeline is stateless; the step counter in the
@@ -25,6 +29,7 @@ from typing import Callable, Dict, List, Optional
 
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.data.pipeline import Pipeline
+from repro_torch.distributed.fault_tolerance import any_rank
 from repro_torch.optim.optimizer import tree_leaves
 from repro_torch.train.step import TrainState
 
@@ -67,7 +72,8 @@ class Trainer:
         if step is None:
             return state, 0
         state, extra = ckpt.restore(d, step=step, target=state)
-        self.log(f"[trainer] resumed from step {extra['step']}")
+        self.log(f"[trainer] resumed from step {extra['step']} "
+                 f"({_io_text(ckpt.io['restore'], 'read')})")
         return state, extra["step"]
 
     def _save(self, state: TrainState, step: int):
@@ -75,7 +81,18 @@ class Trainer:
             path = ckpt.save(self.cfg.checkpoint_dir, step, state,
                              extra={"data_step": step},
                              keep=self.cfg.keep_checkpoints)
-            self.log(f"[trainer] checkpointed step {step} -> {path}")
+            self.log(f"[trainer] checkpointed step {step} -> {path} "
+                     f"({_io_text(ckpt.io['save'], 'written')})")
+
+    def _stop(self, device) -> bool:
+        """Whether the loop ends here: this process was preempted, or on
+        a group any rank was (the same answer on every rank, which then
+        counts as preempted; the flag is only ever set, so a signal
+        that lands meanwhile is not lost)."""
+        agreed = any_rank(self._preempted, device)
+        if agreed:
+            self._preempted = True
+        return agreed
 
     # ---- loop ----------------------------------------------------------------
 
@@ -88,7 +105,7 @@ class Trainer:
         device = tree_leaves(state.params)[0].device
         ema = None
         first_step = True
-        while step < self.cfg.total_steps and not self._preempted:
+        while step < self.cfg.total_steps and not self._stop(device):
             batch = self.pipeline.torch_batch(step, device, sharding)
             t0 = time.perf_counter()
             state, metrics = self.train_step(state, batch)
@@ -122,3 +139,10 @@ class Trainer:
         elif self.cfg.checkpoint_dir:
             self._save(state, step)
         return state
+
+
+def _io_text(rec: Dict[str, float], verb: str) -> str:
+    """A checkpoint's ``ckpt.io`` record as the log prints it."""
+    return (f"{rec['bytes'] / 1e9:.3f} GB {verb} by this process in "
+            f"{rec['seconds']:.2f} s; peak host memory "
+            f"+{rec['peak_rss_growth'] / 1e9:.3f} GB")

@@ -452,3 +452,315 @@ def host_mesh_train(rank, world, p):
             "mesh": str(res["mesh"].shape)}
 
 
+
+
+def flat_np(tree):
+    """{``/``-joined key: numpy array} of a state (``checkpointer``'s
+    keys), each DTensor gathered, bf16 as its 16-bit words, so that
+    equal arrays mean equal bits."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.distributed.sharding import full
+    out = {}
+    for key, leaf in _flatten(tree):
+        t = full(leaf).detach().cpu()
+        out[key] = (t.view(torch.uint16) if t.dtype == torch.bfloat16
+                    else t).numpy()
+    return out
+
+
+def _trained_state(cfg, mesh, seed=0, run=None):
+    """``cfg``'s model (``RunConfig(**run)``, default ``max_seq=16``),
+    AdamW at 1e-3 (weight decay 0.01), its train step, and its state on
+    ``mesh`` from ``seed`` after one step on a batch of 4 x 8 tokens (so
+    the moments are not zeros)."""
+    import numpy as np
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  sharding_for)
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.train.step import init_state_sharded, make_train_step
+    model = Model(cfg, RunConfig(**(run or {"max_seq": 16})), device=DEVICE)
+    opt = optimizer("adamw", 1e-3)
+    fn = make_train_step(model, opt)
+    t = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 9))
+    with axis_rules(mesh):
+        state = init_state_sharded(
+            model, opt, torch.Generator(device=DEVICE).manual_seed(seed),
+            mesh)
+        batch = {k: distribute(torch.from_numpy(v.astype(np.int32)).to(
+            DEVICE), sharding_for("batch -", v.shape, mesh))
+            for k, v in (("tokens", t[:, :-1]), ("labels", t[:, 1:]))}
+        state, _ = fn(state, batch)
+    return model, opt, state
+
+
+def ckpt_sharded(rank, world, p):
+    """A train state of ``p["cfg"]`` on a (2, 2) mesh after one AdamW
+    step (``_trained_state``), saved as step 1 into ``p["dir"]`` with
+    ``DTensor.full_tensor`` / ``redistribute`` and ``np.save`` watched;
+    then restored from it onto each (data, model) mesh of ``p["onto"]``
+    (``restore(shardings=)`` into meta shapes).  Returns the saved state
+    (``flat_np``), the watched calls during the save, the largest array
+    this rank saved, ``checkpointer.io`` of the save, and each restore's
+    state, step, ``io`` and the bytes of this rank's pieces of it."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.train.step import state_shapes, state_shardings
+    model, opt, state = _trained_state(p["cfg"], _mesh(2, 2),
+                                       run=p.get("run"))
+    calls = {"full_tensor": 0, "redistribute": 0}
+    saved = []
+    real = DTensor.full_tensor, DTensor.redistribute, np.save
+
+    def watch(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def save(file, arr, *args, **kwargs):
+        saved.append(np.asarray(arr).nbytes)
+        return real[2](file, arr, *args, **kwargs)
+    DTensor.full_tensor = watch("full_tensor", real[0])
+    DTensor.redistribute = watch("redistribute", real[1])
+    np.save = save
+    try:
+        ckpt.save(p["dir"], 1, state)
+    finally:
+        DTensor.full_tensor, DTensor.redistribute, np.save = real
+    out = {"saved": flat_np(state), "calls": calls,
+           "largest": max(saved, default=0),
+           "io": dict(getattr(ckpt, "io", {}).get("save", {})),
+           "restored": {}}
+    for shape in p["onto"]:
+        got, extra = ckpt.restore(
+            p["dir"], target=state_shapes(model, opt),
+            shardings=state_shardings(model, opt, _mesh(*shape)))
+        out["restored"][shape] = {
+            "state": flat_np(got), "step": extra["step"],
+            "io": dict(getattr(ckpt, "io", {}).get("restore", {})),
+            "local_bytes": sum(
+                (x.to_local() if is_dtensor(x) else x).nbytes
+                for x in tree_leaves(got))}
+    return out
+
+
+def ckpt_whole(rank, world, p):
+    """A one-file checkpoint (``arrays.npz``, whole leaves) in ``p["dir"]``
+    restored on every rank onto each (data, model) mesh of ``p["onto"]``:
+    as new DTensors (``restore(shardings=)`` into meta shapes), and into
+    the DTensors of a state of ``p["cfg"]`` from another seed on that
+    mesh (``restore(target=)``).  Returns, per mesh and way, the state
+    (``flat_np``), the step, the meshes of its DTensor leaves, and for
+    the target whether every leaf came back as the target's own tensor
+    with its storage unchanged."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.train.step import state_shapes, state_shardings
+
+    def meshes(tree):
+        return sorted({str(tuple(x.device_mesh.shape))
+                       for _, x in _flatten(tree) if is_dtensor(x)})
+    out = {}
+    for shape in p["onto"]:
+        mesh = _mesh(*shape)
+        model, opt, state = _trained_state(p["cfg"], mesh, seed=1,
+                                           run=p.get("run"))
+        got, extra = ckpt.restore(
+            p["dir"], target=state_shapes(model, opt),
+            shardings=state_shardings(model, opt, mesh))
+        out[(shape, "shardings")] = {"state": flat_np(got),
+                                     "step": extra["step"],
+                                     "meshes": meshes(got)}
+        before = [(x, x.to_local().data_ptr()) for _, x in _flatten(state)
+                  if is_dtensor(x)]
+        got, extra = ckpt.restore(p["dir"], target=state)
+        after = {id(x): x for _, x in _flatten(got)}
+        out[(shape, "target")] = {
+            "state": flat_np(got), "step": extra["step"],
+            "meshes": meshes(got),
+            "in_place": bool(before) and all(
+                after.get(id(x)) is x and x.to_local().data_ptr() == ptr
+                for x, ptr in before)}
+    return out
+
+
+def _training(p):
+    """The ``p["mesh"]`` (data, model) mesh, ``p["cfg"]``'s model
+    (``RunConfig(max_seq=16)``), AdamW at 1e-3, its train step and the
+    pipeline of 4 x 16 batches (seed 3) of ``trainer_resume`` and
+    ``failover_group``."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.train.step import make_train_step
+    cfg = p["cfg"]
+    model = Model(cfg, RunConfig(max_seq=16), device=DEVICE)
+    opt = optimizer("adamw", 1e-3)
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                               global_batch=4, seed=3))
+    return _mesh(*p["mesh"]), model, opt, make_train_step(model, opt), pipe
+
+
+def trainer_resume(rank, world, p):
+    """``Trainer`` on a ``p["mesh"]`` (data, model) mesh (``_training``:
+    ``p["cfg"]``, AdamW, the pipeline's 4 x 16 batches).  Three runs: ``p["steps"]`` steps straight; with the
+    checkpoint directory ``p["dir"]`` a run that stops early, either at
+    ``total_steps=p["stop"]`` or, with ``p["signal"]`` = (rank, call),
+    by the SIGTERM that rank sends itself during that call of its train
+    step (``install_preemption_handler`` on every rank); then a run from
+    another seed's state that resumes from the checkpoint to
+    ``p["steps"]``.  Returns each run's losses, log and committed steps,
+    and the final states of the straight and resumed runs
+    (``flat_np``)."""
+    import signal
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.distributed.sharding import axis_rules, sharding_for
+    from repro_torch.train.step import init_state_sharded
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    mesh, model, opt, fn, pipe = _training(p)
+    calls = {"n": -1, "armed": False}
+
+    def step(state, batch):
+        calls["n"] += 1
+        out = fn(state, batch)
+        if calls["armed"] and p.get("signal") == (rank, calls["n"]):
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+    out = {}
+
+    def run(name, total, seed, directory=None):
+        logs = []
+        trainer = Trainer(TrainerConfig(total_steps=total,
+                                        checkpoint_dir=directory,
+                                        log_every=1),
+                          step, pipe, log_fn=logs.append)
+        if calls["armed"]:
+            trainer.install_preemption_handler()
+        with axis_rules(mesh):
+            state = init_state_sharded(
+                model, opt, torch.Generator(device=DEVICE).manual_seed(seed),
+                mesh)
+            state = trainer.run(state, sharding=sharding_for(
+                "batch -", (4, 16), mesh))
+        out[name] = {"losses": [h["loss"] for h in trainer.metrics_history],
+                     "log": logs,
+                     "steps": sorted(ckpt.all_steps(directory or ""))}
+        return state
+    straight = flat_np(run("straight", p["steps"], 0))
+    out["straight"]["state"] = straight
+    calls["armed"], calls["n"] = "signal" in p, -1
+    run("first", p["steps"] if calls["armed"] else p["stop"], 0, p["dir"])
+    calls["armed"] = False
+    out["resumed"]["state"] = flat_np(run("resumed", p["steps"], 1,
+                                          p["dir"]))
+    return out
+
+
+def failover_group(rank, world, p):
+    """``FailoverRunner`` on a ``p["mesh"]`` (data, model) mesh over
+    ``p["steps"]`` AdamW steps of ``p["cfg"]`` (``_training``), a
+    checkpoint every ``p["every"]`` into ``p["dir"]``, its train step
+    raising on one rank only (``p["fail"]`` = (rank, call)) once the
+    step's collectives are done (as a fault seen at its loss's sync; one
+    raised before them leaves the other ranks waiting in theirs); and
+    the same steps straight.  Returns the runner's failures, replayed steps and
+    last step, and both final states (``flat_np``)."""
+    from repro_torch.distributed import fault_tolerance as F
+    from repro_torch.distributed.sharding import axis_rules, sharding_for
+    from repro_torch.train.step import init_state_sharded
+    mesh, model, opt, fn, pipe = _training(p)
+    calls = {"n": -1}
+
+    def flaky(state, batch):
+        calls["n"] += 1
+        out = fn(state, batch)
+        if (rank, calls["n"]) == p["fail"]:
+            raise RuntimeError("injected chip failure")
+        return out
+    with axis_rules(mesh):
+        batch = sharding_for("batch -", (4, 16), mesh)
+
+        def fresh():
+            return init_state_sharded(
+                model, opt, torch.Generator(device=DEVICE).manual_seed(0),
+                mesh)
+        straight = fresh()
+        for i in range(p["steps"]):
+            straight, _ = fn(straight, pipe.torch_batch(i, DEVICE, batch))
+        runner = F.FailoverRunner(
+            F.FailoverConfig(checkpoint_dir=p["dir"],
+                             checkpoint_every=p["every"]),
+            flaky, lambda i: pipe.torch_batch(i, DEVICE, batch),
+            log_fn=lambda s: None)
+        final, end = runner.run(fresh(), 0, p["steps"])
+    return {"failures": runner.failures, "replayed": runner.replayed_steps,
+            "end": end, "state": flat_np(final),
+            "straight": flat_np(straight)}
+
+
+def digests(tree):
+    """{key: sha256 of the leaf's bytes} of a state (``checkpointer``'s
+    keys), each DTensor gathered one leaf at a time."""
+    import hashlib
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.distributed.sharding import full
+    out = {}
+    for key, leaf in _flatten(tree):
+        t = full(leaf).detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.uint16)
+        out[key] = hashlib.sha256(t.numpy().data).hexdigest()
+    return out
+
+
+def ckpt_cards(rank, world, p):
+    """``p["cfg"]`` (``RunConfig(max_seq=64)``) on a (4, 1) mesh from the
+    params of seed 0, AdamW at ``p["lr"]``: two steps on ``p["batches"]``,
+    saved as step 2 into ``p["dir"]``; restored onto (2, 2)
+    (``restore(shardings=)``) and compared leaf by leaf with the state it
+    was saved from; then the third step on each.  Returns the keys that
+    differ, the third step's losses on (4, 1) and (2, 2), the first two,
+    and the ``digests`` of the saved state."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  full, sharding_for)
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.train.step import (init_state_sharded, make_train_step,
+                                        state_shapes, state_shardings)
+    model = Model(p["cfg"], RunConfig(max_seq=64), device=DEVICE)
+    opt = optimizer("adamw", p["lr"])
+    fn = make_train_step(model, opt)
+
+    def placed(b, mesh):
+        return {k: distribute(torch.from_numpy(v).to(DEVICE), sharding_for(
+            "batch -", v.shape, mesh)) for k, v in b.items()}
+    mesh, other = _mesh(4, 1), _mesh(2, 2)
+    losses = []
+    with axis_rules(mesh):
+        state = init_state_sharded(
+            model, opt, torch.Generator(device=DEVICE).manual_seed(0), mesh)
+        for b in p["batches"][:2]:
+            state, met = fn(state, placed(b, mesh))
+            losses.append(met["loss"].item())
+        ckpt.save(p["dir"], 2, state)
+    out = {"losses": losses, "save": dict(ckpt.io["save"])}
+    restored, extra = ckpt.restore(
+        p["dir"], target=state_shapes(model, opt),
+        shardings=state_shardings(model, opt, other))
+    out["restore"], out["step"] = dict(ckpt.io["restore"]), extra["step"]
+    out["differ"] = [
+        key for (key, a), (_, b) in zip(_flatten(state), _flatten(restored))
+        if not torch.equal(full(a).to(DEVICE), full(b).to(DEVICE))]
+    out["digests"] = digests(state)         # a collective on every rank
+    with axis_rules(mesh):
+        _, met = fn(state, placed(p["batches"][2], mesh))
+        out["third"] = met["loss"].item()
+    del state
+    with axis_rules(other):
+        _, met = fn(restored, placed(p["batches"][2], other))
+        out["third_2x2"] = met["loss"].item()
+    return out

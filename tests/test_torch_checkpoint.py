@@ -2,6 +2,7 @@
 that cross between the two packages (``tests/test_checkpoint.py``'s cases
 on the port, plus cross-restores)."""
 
+import json
 import os
 
 import jax
@@ -186,3 +187,37 @@ def test_port_checkpoint_restores_into_the_reference(tmp_path):
             "opt/v/embed/row", "opt/m/embed"} <= keys
     got, _ = jck.restore(str(tmp_path), target=js)
     _same(got, state)
+
+
+def _flat_keys(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_keys(tree[k], prefix + (str(k),)))
+        return out
+    return {"/".join(prefix): np.asarray(tree)}
+
+
+def test_four_rank_checkpoint_reaches_the_reference_through_one_process(
+        tmp_path):
+    """A checkpoint of four gloo ranks on a (2, 2) mesh (each rank its
+    own pieces), restored whole in one process without a group and saved
+    again, is the reference's one-file format: the reference's
+    ``checkpointer.restore`` reads it, every leaf equal to the state the
+    ranks saved."""
+    import _torch_dist_ranks as ranks
+    out = ranks.run("ckpt_sharded", 4, tmp_path, {
+        "cfg": reduced(get_config("qwen2-7b")),
+        "dir": str(tmp_path / "ck"), "onto": []})
+    with open(tmp_path / "ck" / "step_00000001" / "manifest.json") as f:
+        assert all("pieces" in m for m in json.load(f)["index"].values())
+    whole, extra = ck.restore(str(tmp_path / "ck"))
+    ck.save(str(tmp_path / "one"), extra["step"], whole)
+    assert sorted(os.listdir(tmp_path / "one" / "step_00000001")) == \
+        ["arrays.npz", "manifest.json"]
+    tree, jextra = jck.restore(str(tmp_path / "one"))
+    assert jextra["step"] == 1
+    got, want = _flat_keys(tree), out[0]["saved"]
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_array_equal(got[key], w, err_msg=key)

@@ -597,8 +597,9 @@ def test_sharded_gemm_op_matches_a_at_b(tmp_path):
 
 def test_elastic_restore_onto_another_mesh(tmp_path):
     """A state saved from a (2, 2) mesh restores onto (4, 1) bit-equal,
-    with the new mesh's placements; the checkpoint is the whole arrays,
-    the format the reference reads."""
+    with the new mesh's placements; the checkpoint holds each rank's own
+    pieces, and restored whole in one process and saved again it is the
+    format the reference reads."""
     ck = tmp_path / "ck"
     out = ranks.run("elastic", 4, tmp_path, {"dir": str(ck)})
     for r in range(4):
@@ -618,7 +619,10 @@ def test_elastic_restore_onto_another_mesh(tmp_path):
         assert o["factored"] and all(m == w for m, w, _ in o["factored"])
         assert any("Shard" in m for m, _, _ in o["factored"])
     from repro.checkpoint import checkpointer as jck
-    tree, extra = jck.restore(str(ck))
+    from repro_torch.checkpoint import checkpointer as port_ck
+    whole, extra = port_ck.restore(str(ck))
+    port_ck.save(str(tmp_path / "one"), extra["step"], whole)
+    tree, extra = jck.restore(str(tmp_path / "one"))
     assert extra["step"] == 1 and sorted(tree) == ["opt", "params", "rng"]
     np.testing.assert_array_equal(tree["params"]["embed"], out[0]["a"][0])
 

@@ -13,7 +13,11 @@ on the expert-parallel path), two train steps of every other registry
 family on (2, 2), the sharded GEMM, the int8 all-reduce, the
 expert-parallel MoE layer, the elastic restore onto another mesh, the
 launcher's host mesh and the per-layer reduction of the stacked leaves'
-gradients.  DTensor decides which ops a sharded tensor may take in
+gradients.  Checkpoints on the group: a (2, 2) state saved with each
+rank writing only its own pieces and restored onto (4, 1), (1, 4), (2, 2)
+and one process; ``Trainer`` resumed from one, bit-equal to a straight
+run; a SIGTERM seen by one rank stopping all four at the same step; and
+``FailoverRunner`` rolling every rank back when one fails.  DTensor decides which ops a sharded tensor may take in
 Python, the same on the CPU and on CUDA, so gloo ranks meet the
 refusals that NCCL ranks on cards would.  ``test_torch_distributed.py``
 holds the same bodies to the JAX reference.
@@ -27,8 +31,10 @@ gloo ranks at the reduced width.  The cases marked ``cuda`` need four
 cards (NCCL ranks, one a card) and skip with fewer: qwen2-7b at full
 width cut to two layers on (2, 2) and (4, 1) against one card without a
 mesh, with SGD, and with the launcher's recipe (AdamW, its cosine
-schedule, remat full, its batches) on (4, 1); deepseek-v2 at full width
-on (1, 4) and (2, 2), its MoE layer and 3 SGD steps of 2 layers:
+schedule, remat full, its batches) on (4, 1), and its checkpoint after
+two AdamW steps on (4, 1) restored onto (2, 2) and one card; deepseek-v2
+at full width on (1, 4) and (2, 2), its MoE layer and 3 SGD steps of 2
+layers:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mesh_ranks.py
 """
@@ -269,6 +275,184 @@ def test_elastic_restore_from_2x2_onto_4x1(tmp_path):
         V, d = o["a"][0].shape
         assert o["local_a"][0] == (V // 2, d // 2)
         assert o["local_b"][0] == (V, d // 4)
+
+
+# checkpoints on a group of four ranks: each writes and reads only its own
+# pieces (checkpoint/checkpointer.py)
+
+ONTO = [(4, 1), (1, 4), (2, 2)]
+
+
+@pytest.fixture(scope="module", params=["qwen2_7b", "deepseek_v2_236b"])
+def sharded_ckpt(request, tmp_path_factory):
+    """A (2, 2) state after one AdamW step saved by four ranks and
+    restored by each onto ``ONTO`` (``ranks.ckpt_sharded``): reduced
+    qwen2-7b in f32, deepseek-v2 (8 experts) in bf16."""
+    tmp = tmp_path_factory.mktemp(request.param)
+    bf16 = request.param == "deepseek_v2_236b"
+    model = {"cfg": _cfg(request.param),
+             "run": {"max_seq": 16,
+                     "param_dtype": "bfloat16" if bf16 else "float32"}}
+    out = ranks.run("ckpt_sharded", 4, tmp, {
+        **model, "dir": str(tmp / "ck"), "onto": ONTO})
+    return tmp / "ck" / "step_00000001", out, model
+
+
+def test_group_save_writes_each_piece_once_and_gathers_nothing(
+        sharded_ckpt):
+    """On (2, 2) no rank calls ``full_tensor`` or ``redistribute`` while
+    it saves, every rank writes, the bytes all ranks write sum to the
+    state's bytes once (a piece replicated over an axis written by one
+    rank), no rank saves an array larger than the largest piece, and the
+    manifest keeps the reference's index (bf16 leaves as ``bfloat16``)
+    with pieces that tile each leaf."""
+    path, out, _ = sharded_ckpt
+    saved = out[0]["saved"]
+    with open(path / "manifest.json") as f:
+        index = json.load(f)["index"]
+    assert sorted(index) == sorted(saved)
+    largest = 0
+    for key, meta in index.items():
+        assert meta["shape"] == list(saved[key].shape)
+        assert meta["dtype"] in (str(saved[key].dtype), "bfloat16")
+        whole = np.zeros(saved[key].shape, np.int64)
+        for p in meta["pieces"]:
+            arr = np.load(path / p["file"], mmap_mode="r")
+            assert list(arr.shape) == p["shape"]
+            whole[tuple(slice(o, o + n) for o, n in
+                        zip(p["offset"], p["shape"]))] += 1
+            largest = max(largest, arr.nbytes)
+        assert (whole == 1).all(), key
+    assert any(m["dtype"] == "bfloat16" for m in index.values()) == (
+        "deepseek" in str(path))
+    assert sum(o["io"]["bytes"] for o in out) == \
+        sum(a.nbytes for a in saved.values())
+    for o in out:
+        assert o["calls"] == {"full_tensor": 0, "redistribute": 0}
+        assert 0 < o["largest"] <= largest
+        assert o["io"]["bytes"] > 0
+
+
+@pytest.mark.parametrize("onto", ONTO + [None],
+                         ids=lambda m: "x".join(map(str, m)) if m
+                         else "one-process")
+def test_group_checkpoint_restores_bit_equal_onto_any_mesh(sharded_ckpt,
+                                                           onto):
+    """The (2, 2) checkpoint restores bit-equal in params, m, v, step and
+    rng onto (4, 1), (1, 4) and (2, 2), each rank reading exactly the
+    bytes of its own pieces; and in this process, without a group or
+    shardings, as whole leaves."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    path, out, _ = sharded_ckpt
+    want = out[0]["saved"]
+    if onto is None:
+        tree, extra = ckpt.restore(str(path.parent))
+        got = [{"state": ranks.flat_np(tree), "step": extra["step"]}]
+        assert ckpt.io["restore"]["bytes"] == \
+            sum(a.nbytes for a in want.values())
+    else:
+        got = [o["restored"][onto] for o in out]
+        for g in got:
+            assert g["io"]["bytes"] == g["local_bytes"]
+            assert g["local_bytes"] < sum(a.nbytes for a in want.values())
+    for g in got:
+        assert g["step"] == 1
+        assert sorted(g["state"]) == sorted(want)
+        for key, w in want.items():
+            assert g["state"][key].dtype == w.dtype, key
+            np.testing.assert_array_equal(g["state"][key], w, err_msg=key)
+
+
+def test_one_file_checkpoint_restores_onto_a_group(sharded_ckpt,
+                                                   tmp_path):
+    """A one-file checkpoint (the reference's ``arrays.npz`` of whole
+    leaves, as a process without a group or the parent's mesh writer
+    saves) restores on four ranks onto (2, 2) and (4, 1), both as new
+    DTensors (``restore(shardings=)``) and into a mesh state's own
+    DTensors (``restore(target=)``), bit-equal in params, m, v, step and
+    rng to the state it was saved from."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    path, out, model = sharded_ckpt
+    want = out[0]["saved"]
+    whole, extra = ckpt.restore(str(path.parent))
+    ckpt.save(str(tmp_path / "one"), extra["step"], whole)
+    assert sorted(os.listdir(tmp_path / "one" / "step_00000001")) == \
+        ["arrays.npz", "manifest.json"]
+    onto = [(2, 2), (4, 1)]
+    got = ranks.run("ckpt_whole", 4, tmp_path, {
+        **model, "dir": str(tmp_path / "one"), "onto": onto})
+    for o in got:
+        assert sorted(o) == sorted((m, way) for m in onto
+                                   for way in ("shardings", "target"))
+        for (mesh, way), g in o.items():
+            assert g["step"] == 1 and g["meshes"] == [str(mesh)]
+            assert g.get("in_place", True), (mesh, way)
+            _same_state(g["state"], want)
+
+
+def _same_state(got, want):
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_array_equal(got[key], w, err_msg=key)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_resumed_training_on_a_mesh_is_bit_equal_to_straight(tmp_path,
+                                                             mesh):
+    """Through ``Trainer`` on four ranks (reduced qwen2-7b, AdamW): two
+    steps and a checkpoint, then a run from another seed's state that
+    resumes from it and takes two more, equal bit for bit to four steps
+    straight (losses, params, moments, step, rng)."""
+    out = ranks.run("trainer_resume", 4, tmp_path, {
+        "cfg": reduced(get_config("qwen2_7b")), "mesh": mesh, "steps": 4,
+        "stop": 2, "dir": str(tmp_path / "ck")})
+    for o in out:
+        straight = o["straight"]["losses"]
+        assert len(straight) == 4 and all(np.isfinite(straight))
+        assert o["first"]["losses"] == straight[:2]
+        assert o["resumed"]["losses"] == straight[2:]
+        assert o["first"]["steps"] == [2] and o["resumed"]["steps"] == [2, 4]
+        assert any("resumed from step 2" in line
+                   for line in o["resumed"]["log"])
+        _same_state(o["resumed"]["state"], o["straight"]["state"])
+
+
+def test_preemption_on_one_rank_stops_every_rank_at_the_same_step(
+        tmp_path):
+    """SIGTERM reaches rank 1 alone, during its third step of six: every
+    rank stops after that step, the checkpoint of step 3 commits once,
+    and the run that resumes from it ends bit-equal to six steps
+    straight.  (Were the flag not combined, rank 1 would enter the save
+    while the others ran step 4, and the run would hang.)"""
+    out = ranks.run("trainer_resume", 4, tmp_path, {
+        "cfg": reduced(get_config("qwen2_7b")), "mesh": (2, 2), "steps": 6,
+        "signal": (1, 2), "dir": str(tmp_path / "ck")}, timeout=150)
+    for o in out:
+        assert len(o["first"]["losses"]) == 3
+        assert any("preempted at step 3" in line
+                   for line in o["first"]["log"])
+        assert sum("checkpointed step" in line
+                   for line in o["first"]["log"]) == 1
+        assert o["first"]["steps"] == [3] and o["resumed"]["steps"] == [3, 6]
+        assert o["first"]["losses"] + o["resumed"]["losses"] == \
+            o["straight"]["losses"]
+        _same_state(o["resumed"]["state"], o["straight"]["state"])
+
+
+def test_failover_on_a_group_rolls_every_rank_back_together(tmp_path):
+    """``FailoverRunner`` on (2, 2) whose step raises on rank 2 alone, at
+    the end of its fourth call of six steps (a checkpoint every 2): every
+    rank counts the failure, rolls back to step 2 and replays, ending
+    bit-equal to six steps straight.  (Were the failure not combined,
+    rank 2 alone would restore and replay step 3 while the others ran
+    step 4, their collectives paired across steps.)"""
+    out = ranks.run("failover_group", 4, tmp_path, {
+        "cfg": reduced(get_config("qwen2_7b")), "mesh": (2, 2), "steps": 6,
+        "every": 2, "fail": (2, 3), "dir": str(tmp_path / "ck")})
+    for o in out:
+        assert (o["failures"], o["replayed"], o["end"]) == (1, 1, 6)
+        _same_state(o["state"], o["straight"])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "minicpm-2b"])
@@ -736,6 +920,55 @@ def test_full_width_on_four_cards_matches_one_card(tmp_path, mesh):
         np.testing.assert_allclose(o["plain_losses"],
                                    out[0]["plain_losses"], rtol=1e-6)
         assert rel <= 1e-5 and share <= 1e-5
+
+
+@pytest.mark.cuda
+def test_full_width_checkpoint_on_four_cards_restores_anywhere(tmp_path):
+    """qwen2-7b at full width cut to 2 layers (1.556 G params, 18.7 GB of
+    f32 AdamW state) on four NCCL ranks, a card each: two AdamW steps on
+    (4, 1) from the params of seed 0, saved (each rank its own pieces);
+    restored onto (2, 2) the state equals the saved one leaf by leaf, and
+    restored whole onto one card without a group its leaves' SHA-256
+    equal rank 0's of the saved state; the third step's loss from each
+    within 1e-6 relative of the third step on (4, 1)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch.checkpoint import checkpointer as ckpt
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    batches = _batches(cfg)
+    out = ranks.run("ckpt_cards", 4, tmp_path,
+                    {"cfg": cfg, "batches": batches, "lr": 1e-4,
+                     "dir": str(tmp_path / "ck")},
+                    timeout=900, device="cuda")
+    dev = torch.device("cuda", 0)
+    model = Model(cfg, RunConfig(max_seq=64), device=dev)
+    opt = ranks.optimizer("adamw", 1e-4)
+    state, extra = ckpt.restore(str(tmp_path / "ck"),
+                                target=step_mod.state_shapes(model, opt),
+                                device=dev)
+    one = ckpt.io["restore"]
+    same = ranks.digests(state) == out[0]["digests"]
+    _, met = step_mod.make_train_step(model, opt)(
+        state, {k: torch.from_numpy(v).to(dev) for k, v in batches[2].items()})
+    third_one = met["loss"].item()
+    del state, met
+    torch.cuda.empty_cache()
+    want = out[0]["third"]
+    for r, o in enumerate(out):
+        print(f"rank {r}: losses {o['losses']}, saved "
+              f"{o['save']['bytes'] / 1e9:.3f} GB in "
+              f"{o['save']['seconds']:.2f} s, read onto (2, 2) "
+              f"{o['restore']['bytes'] / 1e9:.3f} GB in "
+              f"{o['restore']['seconds']:.2f} s; third step on (4, 1) "
+              f"{o['third']!r}, on (2, 2) {o['third_2x2']!r}")
+        assert o["step"] == 2 and o["differ"] == []
+        assert o["third"] == want
+        assert abs(o["third_2x2"] - want) <= 1e-6 * abs(want)
+    print(f"one card: read {one['bytes'] / 1e9:.3f} GB in "
+          f"{one['seconds']:.2f} s, digests equal {same}, third step "
+          f"{third_one!r}")
+    assert extra["step"] == 2 and same
+    assert abs(third_one - want) <= 1e-6 * abs(want)
 
 
 @pytest.mark.cuda
