@@ -160,7 +160,13 @@ Phases, each printing its own lines; any failure exits nonzero:
      (2, 2) mesh, run sharded_gemm_op on it and launch.train --mesh host
      on (4, 1), each against the same run without a mesh in this process
      (losses 1e-6 relative; params, outputs and gradients 1e-6 of their
-     largest magnitude);
+     largest magnitude); (h), before the NCCL group ends: qwen1.5-32b at
+     full width cut to two layers, f32, params and caches on the (1, 1)
+     mesh, through ContinuousEngine on phase 6b's stream with captured
+     batched steps: its streams those of the same engine without a mesh,
+     decode_attention launched a layer a batched step by the replays,
+     the captured step bit-equal to the eager one on the mesh (timed, and
+     decode_attention's row at that shape);
  15. the raising entry point [raise]: (a) every block of qwen2_7b,
      mamba2_130m and recurrentgemma_2b raised from traced PyTorch
      (repro_torch.core.raise), their raisability against
@@ -218,7 +224,24 @@ directory of the caller's own where the disk is too small.  Each rank
 prints its seconds, bytes and host memory growth to save and to
 restore, the file system's free space and write rate, and its card's
 name and power limit.  The deepseek-v2 parts follow
-([moe] lines).  It prints no result line.
+([moe] lines).  Then serving on four cards ([serve] lines): qwen1.5-32b's
+memory reckoned from meta shapes first (the whole model's f32 params,
+140.8 GB, fit no card; Model.init(mesh=)'s peak a card, which fails the
+part with its numbers where it does not fit), then one torchrun of four
+NCCL ranks on a (1, 4) mesh (launch.mesh.make_host_mesh), each this
+script again (--serve-rank): (a) two layers at full width, f32: Engine
+(4 prompts of 128 tokens, 32 greedy) captured and eager on the mesh
+against one card without a mesh (sampled logits 1e-5 of their largest
+magnitude, the same tokens, captured bit-equal to eager); (b) the whole
+model, f32, params drawn on the mesh: Engine, the captured decode step
+against the eager one (bit-equal; ms a step beside the weight-bytes
+bound, idle share, host launch calls, the collectives a step by kind),
+decode_attention at a card's shape, ContinuousEngine on phase 6b's
+stream under a wall clock (TTFT, TPOT, tokens/s); every rank's tokens
+and streams equal, 64 decode_attention launches a step; then the whole
+model in bf16 on one card, teacher-forced on the mesh's tokens, against
+the logits the mesh sampled from (phase 6a's gate).  It prints no result
+line.
 """
 
 from __future__ import annotations
@@ -472,6 +495,30 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_LR = 2, 3, 0.1
 MOE_STATE_LAYERS = 3
 # a stuck collective ends the rank job after this many seconds
 MOE_GROUP_TIMEOUT = 300
+# serving on a mesh (phase 14h; the [serve] part of --launcher-cards):
+# SERVE_ARCH at full width (64 layers, d_model 5120, 40 query and 40 KV
+# heads, 10 a card on SERVE_MESH, d_ff 27392, vocab 152064, QKV bias),
+# BATCH prompts of PROMPT tokens, GEN generated, greedy; f32.
+# 14h: SERVE_LAYERS layers on the 1-rank (1, 1) NCCL mesh, ContinuousEngine
+#     on phase 6b's stream against the same engine without a mesh, the
+#     captured batched step bit-equal to the eager one on the mesh;
+# (a) SERVE_LAYERS layers on SERVE_MESH: Engine's sampled logits within
+#     SERVE_TOL of their largest magnitude of one card's, its tokens one
+#     card's, captured bit-equal to eager on the mesh;
+# (b) the whole model on SERVE_MESH (140.8 GB of f32 params, which no card
+#     holds; 35.2 GB a card), params from Model.init(mesh=): Engine, the
+#     captured step against the eager one (bit-equal, timed beside the
+#     weight-bytes bound), ContinuousEngine on phase 6b's stream under a
+#     wall clock; the Engine's logits teacher-forced on its own tokens
+#     against the whole model in bf16 on one card (70.4 GB), at phase 6a's
+#     gate (TOL_BF16_LOGITS of their largest magnitude)
+SERVE_ARCH = "qwen1.5-32b"
+SERVE_LAYERS = 2
+SERVE_MESH = (1, 4)
+SERVE_TOL = 1e-5
+SERVE_SLOT_REQUESTS = 8  # requests of (a)'s slot engines, the stream's first
+SERVE_MARGIN_GB = 4.0   # beside a reckoned peak: caches, activations
+SERVE_TIMEOUT = 1200
 # the raising entry point (phase 15): three configs whose blocks cover
 # every raisable block kind, each with its raised blocks and its blocked
 # ones with their first unraisable ATen op (docs/RAISING.md's rows, the
@@ -1778,7 +1825,8 @@ def event_ms(step) -> float:
 
 def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
     """The decode step from one state (``cache`` with its lengths, an int
-    or per-row, and the next tokens ``tok``) eagerly (``model.apply``) and
+    or per-row, and the next tokens ``tok``; on a mesh under its
+    ``axis_rules``, the logits gathered) eagerly (``model.apply``) and
     captured (``serve.graphs.DecodeGraph``, as the engines replay it),
     each on its own copy of the cache, greedy tokens fed back: first their
     logits over four steps side by side (bit-equal expected; held to
@@ -1786,7 +1834,10 @@ def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
     the same), then per path the wall ms a step, the device's busy ms (the
     profiler; a captured step's also from CUDA events around one replay)
     and idle share, and the host's launch calls a step.  Returns the rows
-    of both paths."""
+    of both paths.  On a mesh the NCCL kernels wait for the other ranks
+    inside their device time, so there busy counts the compute kernels
+    only (``step_split``), the NCCL kernels' ms printed beside it."""
+    from repro_torch.distributed.sharding import full
     from repro_torch.serve.graphs import DecodeGraph
     ce, cg = clone(cache), clone(cache)
     graph = DecodeGraph(model, params, cg, tok.shape[0], PROMPT + GEN + 1)
@@ -1794,8 +1845,9 @@ def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
 
     def eager():
         logits, _ = model.apply(params, st["eager"], cache=ce)
-        st["eager"] = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        return logits[:, -1]
+        logits = full(logits[:, -1])        # gathered on a mesh, as captured
+        st["eager"] = logits.argmax(-1, keepdim=True).to(torch.int32)
+        return logits
 
     def captured():
         logits = graph(st["captured"], cg["len"])
@@ -1823,17 +1875,22 @@ def graph_vs_eager(label, model, params, cache, tok, bound_ms, tol):
             ms = wall_ms(step)
             busy, window, krows, calls = profile_steps(step, 3)
             ev = event_ms(step)
+            split = step_split(krows)
             how = "profiler"
+            if split["nccl"]:
+                busy = split["products_ms"] + split["other_ms"]
+                how = (f"profiler, compute kernels; NCCL kernels "
+                       f"{split['nccl_ms']:.2f} ms apart, waits included")
             if busy is None and name == "captured":
                 busy, how = ev, "CUDA events around one replay"
             check(busy is not None, f"{label} {name}: no device time")
             rows[name] = {"ms": ms, "busy": busy, "events": ev,
-                          "calls": calls,
+                          "calls": calls, "nccl_ms": split["nccl_ms"],
                           "kernels": sum(r[1] for r in krows)}
             print(f"[graphs] {label} {name} step: {ms:.2f} ms wall a step; "
                   f"device busy {busy:.2f} ms ({how}; {ev:.2f} ms between "
                   f"events around one step), idle share "
-                  f"{max(0.0, 1 - busy / ms):.1%}; {calls:.0f} host launch "
+                  f"{1 - busy / ms:.1%}; {calls:.0f} host launch "
                   f"calls a step, {rows[name]['kernels']} kernels a step on "
                   f"the device; weight-bytes bound {bound_ms:.2f} ms")
     print(f"[graphs] {label}: captured step {rows['captured']['ms']:.2f} ms "
@@ -1872,9 +1929,10 @@ def engines_agree(label, model, params, prompts, captured_eng,
 
 def prefilled(model, params, toks, extra_embeds=None):
     """A cache of the serving depth holding ``toks``' first PROMPT tokens
-    (one length for every row; with a stub frontend's ``extra_embeds``),
-    and the next tokens."""
-    cache = model.cache_init(BATCH, PROMPT + GEN + 1)
+    (one length for every row; with a stub frontend's ``extra_embeds``;
+    made on the active mesh, if any), and the next tokens."""
+    from repro_torch.distributed.sharding import current_mesh
+    cache = model.cache_init(BATCH, PROMPT + GEN + 1, mesh=current_mesh())
     with torch.no_grad():
         model.apply(params, toks[:, :PROMPT], extra_embeds=extra_embeds,
                     cache=cache)
@@ -3059,16 +3117,6 @@ def dist_gemm(mesh, dev, flush, smi):
     return rows
 
 
-def place_cache(cache, axes, mesh):
-    """A cache tree's tensors as DTensors placed by its logical axes (the
-    host counters stay ints)."""
-    from repro_torch.distributed.sharding import distribute, sharding_for
-    return {k: (place_cache(v, axes[k], mesh) if isinstance(v, dict) else
-                v if not torch.is_tensor(v) else
-                distribute(v, sharding_for(axes[k], v.shape, mesh)))
-            for k, v in cache.items()}
-
-
 def dist_moe(mesh, dev, smi):
     """14c: deepseek-v2-236b at full width cut to 2 layers (the dense
     prefix and one MoE layer with all 160 experts), params as DTensors on
@@ -3104,9 +3152,7 @@ def dist_moe(mesh, dev, smi):
                     check(moe._can_shardmap(cfg, BATCH * PROMPT)
                           == (impl == "shardmap"),
                           f"14c: {impl} not taken")
-                    cache = place_cache(model.cache_init(BATCH, PROMPT),
-                                        model.cache_axes(BATCH, PROMPT),
-                                        mesh)
+                    cache = model.cache_init(BATCH, PROMPT, mesh=mesh)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     with RouterLog() as log:
@@ -4421,7 +4467,8 @@ def moe_layer_part(mesh, dev, cfg, tokens):
 
 def moe_serve_part(mesh, dev, cfg, batch, prompt, decode):
     """(b) Serving on the mesh, f32 and bf16: a ``batch`` x ``prompt``
-    prefill of seed 1's tokens into a DTensor cache (``place_cache``),
+    prefill of seed 1's tokens into a DTensor cache (``Model.cache_init(
+    mesh=)``),
     then ``decode`` greedy steps; the logits against the same steps on
     one card (fed the mesh's tokens) through ``routed_compare``; each
     decode step timed again from the prefilled state, and once more with
@@ -4447,8 +4494,7 @@ def moe_serve_part(mesh, dev, cfg, batch, prompt, decode):
                 return distribute(t, sharding_for("batch -", t.shape, mesh))
             out["prefill_ep"] = moe._can_shardmap(cfg, batch * prompt)
             out["decode_dense"] = not moe._can_shardmap(cfg, batch)
-            cache = place_cache(model.cache_init(batch, depth),
-                                model.cache_axes(batch, depth), mesh)
+            cache = model.cache_init(batch, depth, mesh=mesh)
             sync(dev)
             t0 = time.perf_counter()
             with RouterLog() as log:
@@ -4987,6 +5033,583 @@ def moe_state_report(head, recs, mesh):
           f"moe {mesh} (d): first loss {rel:.3e} from one card's")
 
 
+# --------------------------------------------------------------------------
+# serving on a mesh: phase 14h and the four-card [serve] part
+# --------------------------------------------------------------------------
+
+
+def serve_cfg(layers=None):
+    """SERVE_ARCH at full width, cut to ``layers`` layers (whole when
+    None)."""
+    import dataclasses
+    from repro_torch.configs import base
+    cfg = base.get_config(SERVE_ARCH)
+    return (cfg if layers is None else
+            dataclasses.replace(cfg, num_layers=layers))
+
+
+def serve_prompts(cfg):
+    """The launcher's prompts: BATCH x PROMPT tokens of seed 0."""
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+
+
+def engine_logits(model, params, prompts, cuda_graphs, steps=None,
+                  max_len=None):
+    """``Engine.generate`` greedy over ``prompts`` for ``steps`` tokens
+    (GEN by default; under the active mesh, if any; ``max_len`` the prompt
+    and the steps and one by default): (the engine, its tokens, the gathered logits it
+    sampled from at the prefill and at each decode step, stacked)."""
+    from repro_torch.serve.engine import Engine, EngineConfig
+    steps = steps or GEN
+    eng = Engine(model, params, EngineConfig(
+        max_len=max_len or prompts.shape[1] + steps + 1,
+        cuda_graphs=cuda_graphs))
+    logits, draw = [], eng._sample
+
+    def sample(lg, gen):
+        logits.append(lg.detach().float().clone())
+        return draw(lg, gen)
+    eng._sample = sample
+    toks = eng.generate(prompts, steps)
+    # no cycle (eng -> sample -> draw -> eng) outlives the call: a dropped
+    # engine frees its captured steps at once, and on a mesh they must be
+    # freed before the process group ends (see serve/graphs.py)
+    del eng._sample
+    return eng, toks, torch.stack(logits)
+
+
+def local_gb(params):
+    """GB of this rank's pieces of ``params`` (DTensors' local tensors)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.optim.optimizer import tree_leaves
+    return sum((t.to_local() if is_dtensor(t) else t).numel()
+               * t.element_size() for t in tree_leaves(params)) / 1e9
+
+
+def serve_memory(cfg, mesh_shape):
+    """Reckoned from meta shapes and the resolver, f32: (GB of params
+    whole, GB a card, GB a card at the peak of ``Model.init(mesh=)``):
+    there each leaf is drawn whole on every card (a normal draw in slices
+    of up to 1 GiB into it) before its piece is copied out, beside the
+    pieces of the leaves drawn before it."""
+    from repro_torch.distributed.sharding import (parse_axes, pspec_for,
+                                                  spec_axes)
+    from repro_torch.models.model import Model, RunConfig
+    model = Model(cfg, RunConfig(), "meta")
+    sizes = dict(zip(("data", "model"), mesh_shape))
+
+    def walk(shapes, axes):                 # in the order init draws them
+        for k, v in shapes.items():
+            if isinstance(v, dict):
+                yield from walk(v, axes[k])
+            else:
+                yield v, axes[k]
+    whole = placed = peak = 0.0
+    for t, ax in walk(model.param_shapes(), model.param_axes()):
+        n = t.numel() * 4
+        k = math.prod(sizes[a] for e in pspec_for(parse_axes(ax), t.shape,
+                                                  sizes) for a in spec_axes(e))
+        peak = max(peak, placed + n + min(n, 2 ** 30) + n / k)
+        placed += n / k
+        whole += n
+    return whole / 1e9, placed / 1e9, peak / 1e9
+
+
+def dist_serve(mesh, dev, smi):
+    """14h: SERVE_ARCH at full width cut to SERVE_LAYERS layers, f32, on
+    the 1-rank NCCL (1, 1) mesh, params of seed 0 drawn on it
+    (``Model.init(mesh=)``): ``ContinuousEngine`` with captured batched
+    steps over phase 6b's stream (4 slots), its caches made on the mesh:
+    every request completes, the streams those of the same engine over the
+    same seed's params without a mesh, decode_attention launched a layer
+    a batched step (the first eager, the rest replays of the captured
+    step, each adding its capture's launches); then the batched step
+    captured against eager on the mesh from one state (``graph_vs_eager``):
+    logits bit-equal.  Returns the kernel's row at this path's shape (B
+    4, KV 40, rep 1, hd 128), with the launches of the stream."""
+    from repro_torch.distributed.sharding import axis_rules, is_dtensor
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    cfg = serve_cfg(SERVE_LAYERS)
+    model = Model(cfg, RunConfig(), dev)
+    reqs = continuous_stream(cfg)
+    with axis_rules(mesh), torch.no_grad():
+        params = model.init(seeded(dev), mesh=mesh)
+        eng = ContinuousEngine(model, params, slots=BATCH,
+                               max_len=PROMPT + GEN + 1)
+        da.decode_attention.launches = 0
+        got = eng.serve(reqs)
+        launches, steps = da.decode_attention.launches, eng.steps
+        replays = eng._step.replays
+        placed = all(is_dtensor(t) for t in (eng._cache["scan"]["pos0"]
+                                             ["attn"]["k"], params["embed"]))
+        del eng
+        # one state of four occupied slots at other lengths, as step_time
+        eng = ContinuousEngine(model, params, slots=BATCH,
+                               max_len=PROMPT + GEN + 1, cuda_graphs=False)
+        rng = np.random.default_rng(4)
+        for i in range(BATCH):
+            eng.submit(Request(i, rng.integers(0, cfg.vocab_size, (
+                PROMPT - 16 * i,)).astype(np.int32), GEN))
+        eng.step()
+        graph_vs_eager(f"14h {SERVE_ARCH} {SERVE_LAYERS}L f32 on the (1, 1) "
+                       f"mesh, continuous batched step", model, params,
+                       eng._cache, eng._tok,
+                       model.param_count() * 4 / HBM_BYTES_PER_S * 1e3,
+                       lambda scale: 0.0)
+        del eng, params
+    free(dev)
+    with torch.no_grad():
+        plain = ContinuousEngine(model, model.init(seeded(dev)), slots=BATCH,
+                                 max_len=PROMPT + GEN + 1).serve(reqs)
+    same = sum(np.array_equal(got[r], plain[r]) for r in plain)
+    print(f"[dist] 14h {SERVE_ARCH} at full width cut to {cfg.num_layers} "
+          f"layers ({model.param_count():,} params), f32, ContinuousEngine "
+          f"on the (1, 1) NCCL mesh (params and caches DTensors: {placed}),"
+          f" captured batched steps, phase 6b's stream: {len(got)} of "
+          f"{len(reqs)} requests, streams of the engine without a mesh "
+          f"{same} of {len(plain)} identical; decode_attention launches "
+          f"{launches} = {cfg.num_layers} layers x {steps} batched steps "
+          f"({replays} replays); card {smi}")
+    check(placed, "14h: params or cache not placed on the mesh")
+    check(len(got) == len(reqs) and same == len(plain),
+          f"14h: {len(got)} requests, {same} streams as without a mesh")
+    check(launches == cfg.num_layers * steps and replays == steps - 1,
+          f"14h: {launches} launches, {steps} steps, {replays} replays")
+    free(dev)
+    return [serve_decode_row(f"decode_attention [14h {SERVE_ARCH} on the "
+                             f"(1, 1) mesh]", cfg.num_kv_heads, launches,
+                             dev, smi)]
+
+
+def serve_decode_row(name, kv, launches, dev, smi):
+    """decode_attention's row (``decode_row``) at a serving step's shape on
+    a card: B BATCH, ``kv`` KV heads of SERVE_ARCH, rep 1, the serving
+    depth, the continuous engine's per-row lengths (CONT_VALID); held to
+    its plain version at TOL_F32, with the path's ``launches``."""
+    from repro_torch.kernels import decode_attention as da
+    hd = serve_cfg().resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randn((BATCH, kv, 1, hd), generator=g, device=dev)
+    k, v = (torch.randn((BATCH, kv, PROMPT + GEN + 1, hd), generator=g,
+                        device=dev) for _ in range(2))
+    valid = torch.tensor(CONT_VALID, dtype=torch.int32, device=dev)
+    err = (da.decode_attention(q, k, v, valid) -
+           da.decode_attention_ref(q, k, v, valid)).abs().max().item()
+    check(err <= TOL_F32, f"{name}: error {err}")
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    return decode_row(name, (q, k, v, valid), 256, launches, err, flush, smi)
+
+
+def slot_streams(model, params):
+    """The first SERVE_SLOT_REQUESTS requests of the launcher's stream
+    through ``SerialSlotEngine`` greedy and ``ContinuousEngine`` at
+    temperature 0.8, captured (under the active mesh, if any): rid (a
+    string) -> tokens, for each."""
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.engine import SerialSlotEngine
+    reqs = continuous_stream(model.cfg)[:SERVE_SLOT_REQUESTS]
+    runs = {"serial": SerialSlotEngine(model, params, slots=BATCH,
+                                       max_len=PROMPT + GEN + 1).serve(reqs),
+            "continuous T0.8": ContinuousEngine(
+                model, params, slots=BATCH, max_len=PROMPT + GEN + 1,
+                temperature=0.8, seed=3).serve(reqs)}
+    return {k: {str(r): x.tolist() for r, x in v.items()}
+            for k, v in runs.items()}
+
+
+def serve_cut(mesh, dev, out_dir):
+    """(a) on this rank: SERVE_ARCH cut to SERVE_LAYERS layers, f32, params
+    of seed 0 drawn on ``mesh``: ``Engine`` (``engine_logits``) captured
+    and eager on the mesh; then the same params drawn whole on this card
+    and given to the engines on the mesh, which place them (as the
+    reference's ``serve_bench --mesh`` gives them): ``Engine`` captured,
+    ``SerialSlotEngine`` and ``ContinuousEngine`` at a temperature
+    (``slot_streams``); then each on this card alone without a mesh: the
+    logits' largest difference from one card's and their largest
+    magnitude, captured == eager (bit), tokens and streams equal, the
+    decode kernel's launches and replays on the mesh."""
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import Model, RunConfig
+    cfg = serve_cfg(SERVE_LAYERS)
+    model = Model(cfg, RunConfig(), dev)
+    prompts = serve_prompts(cfg)
+    out = {"layers": cfg.num_layers}
+    with axis_rules(mesh), torch.no_grad():
+        params = model.init(seeded(dev), mesh=mesh)
+        n = da.decode_attention.launches
+        eng, toks, got = engine_logits(model, params, prompts, True)
+        out["launches"] = da.decode_attention.launches - n
+        out["steps"] = eng.last_timing["decode_steps"]
+        out["replays"] = next(iter(eng._steps.values())).replays
+        del eng
+        _, etoks, eager = engine_logits(model, params, prompts, False)
+        out["captured_eq_eager"] = bool(torch.equal(got, eager)
+                                        and np.array_equal(toks, etoks))
+        del params, eager
+    free(dev)
+    with torch.no_grad():
+        whole = model.init(seeded(dev))
+        with axis_rules(mesh):
+            _, ptoks, placed = engine_logits(model, whole, prompts, True)
+            out["placed_err"] = (placed - got).abs().max().item()
+            out["placed_tokens_equal"] = bool(np.array_equal(ptoks, toks))
+            del placed
+            out["streams"] = slot_streams(model, whole)
+        free(dev)
+        _, ptoks, want = engine_logits(model, whole, prompts, True)
+        out["one_card_streams"] = slot_streams(model, whole)
+    out["err"] = (got - want).abs().max().item()
+    out["scale"] = want.abs().max().item()
+    out["tokens_equal"] = bool(np.array_equal(toks, ptoks))
+    out["tokens"] = toks.tolist()
+    return out
+
+
+def serve_whole(mesh, dev, out_dir):
+    """(b) on this rank: SERVE_ARCH whole, f32, params of seed 0 drawn on
+    ``mesh`` (``Model.init(mesh=)``): GB of this card's params and the
+    init's peak; ``Engine`` (``engine_logits``: tokens, decode_attention
+    launches, prefill and decode times; rank 0 writes its sampled logits
+    to ``out_dir``/logits.npy for the one-card comparison); the captured
+    step against the eager one from one prefilled state
+    (``graph_vs_eager``: bit-equal logits, ms, busy, idle, host calls),
+    the collectives of one eager step by kind and axis
+    (``Collectives``), decode_attention at this card's shape (B 4, KV 10,
+    rep 1, hd 128; ``decode_row``); ``ContinuousEngine`` on phase 6b's
+    stream under a wall clock (``continuous_run``): its metrics, streams
+    and launches; peak GiB."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import axis_rules, full
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import Model, RunConfig
+    cfg = serve_cfg()
+    model = Model(cfg, RunConfig(), dev)
+    prompts = serve_prompts(cfg)
+    smi = card_of(dev.index)
+    out = {"layers": cfg.num_layers, "params": model.param_count()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with axis_rules(mesh), torch.no_grad():
+        t = time.perf_counter()
+        params = model.init(seeded(dev), mesh=mesh)
+        sync(dev)
+        out["init_s"] = time.perf_counter() - t
+        out["params_gb"] = local_gb(params)
+        out["init_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        n = da.decode_attention.launches
+        eng, toks, got = engine_logits(model, params, prompts, True)
+        out["launches"] = da.decode_attention.launches - n
+        out["engine"] = dict(eng.last_timing)
+        out["replays"] = next(iter(eng._steps.values())).replays
+        out["tokens"] = toks.tolist()
+        if dist.get_rank() == 0:
+            np.save(os.path.join(out_dir, "logits.npy"), got.cpu().numpy())
+        del eng, got
+        toks1 = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (BATCH, PROMPT + 1)).astype(np.int64)).to(dev)
+        cache, tok = prefilled(model, params, toks1)
+        bound = out["params_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3
+        out["bound_ms"] = bound
+        out["graphs"] = graph_vs_eager(
+            f"{SERVE_ARCH} whole f32 on {tuple(mesh.shape)}, Engine's "
+            f"decode step", model, params, cache, tok, bound,
+            lambda scale: 0.0)
+        with Collectives(mesh) as calls:
+            lg, _ = model.apply(params, tok.to(torch.int32),
+                                cache=clone(cache))
+            full(lg[:, -1])                 # the engines' gathered logits
+        out["calls"] = calls.rows()
+        del lg
+        del cache
+        out["kernel"] = serve_decode_row(
+            f"decode_attention [{SERVE_ARCH} on {tuple(mesh.shape)}, a "
+            f"card's heads]", cfg.num_kv_heads // mesh.size(1),
+            out["launches"], dev, smi)
+        eng, snap, launches = continuous_run(model, params, True)
+        out["continuous"] = {
+            "snapshot": snap, "steps": eng.steps, "launches": launches,
+            "results": {str(r): x.tolist() for r, x in eng.results.items()}}
+        del eng, params
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+SERVE_PARTS = {"cut": serve_cut, "whole": serve_whole}
+
+
+def serve_rank(out_dir, parts):
+    """``--serve-rank DIR [PART ...]``: one NCCL rank under torchrun (this
+    rank's card) of the serving parts (SERVE_PARTS: ``cut`` (a),
+    ``whole`` (b)) on the SERVE_MESH mesh of ``launch.mesh.
+    make_host_mesh``; prints its record as one ``[serve]`` JSON line (a
+    part that raises records its error, after its traceback)."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda", local)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", device_id=dev,
+        timeout=datetime.timedelta(seconds=MOE_GROUP_TIMEOUT))
+    try:
+        mesh = make_host_mesh(model=SERVE_MESH[1], device="cuda")
+        rec = {"rank": dist.get_rank(), "card": card_of(local),
+               "mesh": list(mesh.shape)}
+        for part in parts or SERVE_PARTS:
+            t = time.perf_counter()
+            try:
+                rec[part] = SERVE_PARTS[part](mesh, dev, out_dir)
+            except Exception as e:          # reported, with the rank's record
+                traceback.print_exc(file=sys.stdout)
+                rec[part] = {"error": f"{type(e).__name__}: {e}"[:2000]}
+            rec[part]["part_s"] = time.perf_counter() - t
+            free(dev)
+        print("[serve] " + json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_cards(cards, parts=tuple(SERVE_PARTS)):
+    """The [serve] part of ``--launcher-cards``: the whole model's memory
+    reckoned first (``serve_memory``; it fails, with the numbers, where
+    the init's peak does not fit a card); one torchrun of ``cards`` NCCL
+    ranks, each this script again (``--serve-rank``), running ``parts``
+    on SERVE_MESH; then, for (b), the whole model in bf16 on the first
+    card alone, teacher-forced on the mesh's tokens, against the logits
+    the mesh's Engine sampled from.  Prints each part's lines and holds
+    them (``serve_report``)."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "src"))
+    check(cards == math.prod(SERVE_MESH), f"serve: the mesh {SERVE_MESH} "
+          f"needs {math.prod(SERVE_MESH)} cards, not {cards}")
+    dev = torch.device("cuda", 0)
+    cfg = serve_cfg()
+    whole, per_card, peak = serve_memory(cfg, SERVE_MESH)
+    room = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    print(f"[serve] {card_of(0)}: {SERVE_ARCH} whole, f32: {whole:.2f} GB "
+          f"of params, {per_card:.2f} GB a card on {SERVE_MESH}; "
+          f"Model.init(mesh=)'s peak reckoned {peak:.2f} GB a card (each "
+          f"leaf drawn whole before its piece is kept), + {SERVE_MARGIN_GB:g}"
+          f" GB for caches and activations, against the card's {room:.2f} "
+          f"GB; one card would need {whole:.2f} GB in f32, "
+          f"{whole / 2:.2f} GB in bf16")
+    check("whole" not in parts or peak + SERVE_MARGIN_GB <= room,
+          f"serve: the whole model's init peak {peak:.2f} GB + "
+          f"{SERVE_MARGIN_GB:g} does not fit {room:.2f} GB")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = torchrun(cards, tmp, [str(ROOT / "chip_smoke.py"),
+                                     "--serve-rank", tmp, *parts])
+        try:
+            texts = rank_outputs(proc, cards, tmp,
+                                 time.monotonic() + SERVE_TIMEOUT, "serve")
+        finally:
+            stop(proc)
+        seconds = time.perf_counter() - t0
+        recs = []
+        for r, text in enumerate(texts):
+            line = re.search(r"^\[serve\] (\{.*\})$", text, re.M)
+            if line is None:
+                print(text[-6000:], file=sys.stderr)
+            check(bool(line), f"serve: rank {r} printed no record")
+            recs.append(json.loads(line.group(1)))
+        for line in texts[0].splitlines():
+            if line.startswith(("[graphs]", "[timing]", "[continuous]")):
+                print("[serve] rank 0 " + line)
+        for r, text in enumerate(texts):
+            if "Traceback" in text:
+                print(f"[serve] rank {r}:\n{text[text.index('Traceback'):]}"
+                      [:4000], file=sys.stderr)
+        mesh_logits = (np.load(os.path.join(tmp, "logits.npy"))
+                       if os.path.exists(os.path.join(tmp, "logits.npy"))
+                       else None)
+    serve_report(recs, mesh_logits, seconds, dev)
+
+
+def serve_report(recs, mesh_logits, seconds, dev):
+    """Print and hold the ranks' records (``serve_rank``), every part's
+    before the first failure is raised; (b)'s logits against the whole
+    model in bf16 on ``dev`` (``serve_teacher``)."""
+    head = f"[serve] {SERVE_ARCH} on {SERVE_MESH}"
+    print(f"{head}: {len(recs)} ranks in {seconds:.1f} s (" + ", ".join(
+        f"{p} {recs[0][p]['part_s']:.1f} s" for p in SERVE_PARTS
+        if p in recs[0]) + ")")
+    failed = []
+    for part, report in (("cut", lambda: serve_cut_report(head, recs)),
+                         ("whole", lambda: serve_whole_report(
+                             head, recs, mesh_logits, dev))):
+        if part not in recs[0]:
+            continue
+        errors = [f"rank {i}: {r[part]['error']}" for i, r in enumerate(recs)
+                  if "error" in r[part]]
+        try:
+            check(not errors, f"serve {part}: {errors[:1]}")
+            report()
+        except RuntimeError as e:
+            print(f"{head} {part}: {e}")
+            failed.append(str(e))
+    check(not failed, "; ".join(failed))
+
+
+def serve_cut_report(head, recs):
+    """(a): every rank's logits within SERVE_TOL of one card's, its tokens
+    one card's and rank 0's, captured bit-equal to eager, decode_attention
+    launched a layer a step (replays of the captured step); the engines
+    given whole params on the mesh within SERVE_TOL of the mesh-drawn
+    ones, with the same tokens, and the slot engines' streams one card's
+    and rank 0's."""
+    for rec in recs:
+        a = rec["cut"]
+        print(f"{head} (a) rank {rec['rank']} ({rec['card']}): "
+              f"{a['layers']} layers at full width, f32, Engine B "
+              f"{BATCH}, {PROMPT} + {GEN} greedy: sampled logits max_abs_diff"
+              f" {a['err']:.3e} from one card's (largest magnitude "
+              f"{a['scale']:.2f}; bound {SERVE_TOL:g} of it = "
+              f"{SERVE_TOL * a['scale']:.3e}); tokens one card's "
+              f"{a['tokens_equal']}; captured bit-equal to eager on the "
+              f"mesh {a['captured_eq_eager']}; decode_attention launches "
+              f"{a['launches']} = {a['layers']} layers x {a['steps']} "
+              f"steps ({a['replays']} replays)")
+        check(a["err"] <= SERVE_TOL * a["scale"],
+              f"serve (a) rank {rec['rank']}: logits {a['err']:.3e}")
+        check(a["tokens_equal"] and a["tokens"] == recs[0]["cut"]["tokens"],
+              f"serve (a) rank {rec['rank']}: tokens differ")
+        check(a["captured_eq_eager"],
+              f"serve (a) rank {rec['rank']}: captured != eager")
+        check(a["launches"] == a["layers"] * a["steps"]
+              and a["replays"] == a["steps"] - 1,
+              f"serve (a) rank {rec['rank']}: {a['launches']} launches")
+        same = {k: sum(v[r] == a["one_card_streams"][k].get(r)
+                       for r in v) for k, v in a["streams"].items()}
+        print(f"{head} (a) rank {rec['rank']}: the same params whole on "
+              f"each card, placed by the engines: Engine's logits "
+              f"max_abs_diff {a['placed_err']:.3e} from the params drawn on"
+              f" the mesh (bound {SERVE_TOL:g} of {a['scale']:.2f}), tokens"
+              f" the same {a['placed_tokens_equal']}; "
+              + "; ".join(f"{k} over {SERVE_SLOT_REQUESTS} requests: "
+                          f"{same[k]} of {len(v)} streams one card's"
+                          for k, v in a["streams"].items()))
+        check(a["placed_err"] <= SERVE_TOL * a["scale"]
+              and a["placed_tokens_equal"],
+              f"serve (a) rank {rec['rank']}: placed params off by "
+              f"{a['placed_err']:.3e}")
+        for k, v in a["streams"].items():
+            check(len(v) == SERVE_SLOT_REQUESTS
+                  and v == a["one_card_streams"][k]
+                  and v == recs[0]["cut"]["streams"][k],
+                  f"serve (a) rank {rec['rank']}: {k} streams differ from "
+                  f"one card's or rank 0's")
+
+
+def serve_whole_report(head, recs, mesh_logits, dev):
+    """(b): every rank's tokens, streams and launches (a layer a step,
+    inside the replayed graph), the continuous stream complete on every
+    rank; the times beside the weight-bytes bound; then the teacher-forced
+    logits against one card in bf16 (``serve_teacher``)."""
+    b0 = recs[0]["whole"]
+    layers = b0["layers"]
+    for rec in recs:
+        b = rec["whole"]
+        steps = b["engine"]["decode_steps"]
+        gr = b["graphs"]
+        c = b["continuous"]
+        snap = c["snapshot"]
+        print(f"{head} (b) rank {rec['rank']} ({rec['card']}): "
+              f"{SERVE_ARCH} whole ({b['params']:,} params), f32: "
+              f"{b['params_gb']:.2f} GB of params on this card, drawn in "
+              f"{b['init_s']:.1f} s (init peak {b['init_peak_gib']:.1f} GiB),"
+              f" peak {b['peak_gib']:.1f} GiB; Engine B {BATCH}, {PROMPT} + "
+              f"{GEN}: prefill {b['engine']['prefill_s']:.2f} s, decode "
+              f"{b['engine']['decode_s'] / steps * 1e3:.1f} ms/step; "
+              f"decode_attention {b['launches']} launches = "
+              f"{b['launches'] / steps:g} a step x {steps} steps "
+              f"({b['replays']} replays)")
+        print(f"{head} (b) rank {rec['rank']}: decode step captured "
+              f"{gr['captured']['ms']:.2f} ms, eager {gr['eager']['ms']:.1f}"
+              f" ms wall, against the weight-bytes bound {b['bound_ms']:.2f}"
+              f" ms ({b['params_gb']:.2f} GB / 3.35 TB/s); compute "
+              f"kernels captured {gr['captured']['busy']:.2f} ms (compute "
+              f"idle share "
+              f"{1 - gr['captured']['busy'] / gr['captured']['ms']:.1%}; "
+              f"NCCL kernels {gr['captured']['nccl_ms']:.2f} ms, waits "
+              f"included), eager {gr['eager']['busy']:.2f} ms (compute idle"
+              f" share {1 - gr['eager']['busy'] / gr['eager']['ms']:.1%}; "
+              f"NCCL {gr['eager']['nccl_ms']:.2f} ms);"
+              f" host launch calls {gr['captured']['calls']:.0f} against "
+              f"{gr['eager']['calls']:.0f}; collectives a step (captured in "
+              f"the graph): {fmt_calls(b['calls'])}")
+        print(f"{head} (b) rank {rec['rank']}: ContinuousEngine, phase 6b's"
+              f" stream ({CONT_REQUESTS} requests, {BATCH} slots, wall "
+              f"clock): {snap['requests']['completed']} completed, "
+              f"{snap['tokens_per_s']:.1f} tok/s; TTFT p50 "
+              f"{snap['ttft']['p50'] * 1e3:.1f} ms p99 "
+              f"{snap['ttft']['p99'] * 1e3:.1f} ms; TPOT p50 "
+              f"{snap['tpot']['p50'] * 1e3:.1f} ms p99 "
+              f"{snap['tpot']['p99'] * 1e3:.1f} ms; {c['steps']} batched "
+              f"steps, decode_attention {c['launches']} launches")
+        check(b["tokens"] == b0["tokens"],
+              f"serve (b) rank {rec['rank']}: tokens differ from rank 0's")
+        check(b["launches"] == layers * steps
+              and b["replays"] == steps - 1,
+              f"serve (b) rank {rec['rank']}: {b['launches']} launches, "
+              f"{steps} steps, {b['replays']} replays")
+        check(snap["requests"]["completed"] == CONT_REQUESTS
+              and c["results"] == b0["continuous"]["results"]
+              and c["launches"] == layers * c["steps"],
+              f"serve (b) rank {rec['rank']}: continuous "
+              f"{snap['requests']['completed']} completed, "
+              f"{c['launches']} launches, {c['steps']} steps")
+    check(mesh_logits is not None, "serve (b): rank 0 wrote no logits")
+    serve_teacher(head, np.asarray(b0["tokens"]), mesh_logits, dev)
+
+
+def serve_teacher(head, tokens, mesh_logits, dev):
+    """SERVE_ARCH whole in bf16 (70.4 GB) on ``dev`` alone, params of seed
+    0 (each drawn in f32 and cast: the mesh's, rounded), one forward over
+    the mesh's ``tokens``: its logits at the positions the mesh's Engine
+    sampled from (the prompt's last and each decode step's) against
+    ``mesh_logits``, at TOL_BF16_LOGITS of their largest magnitude."""
+    from repro_torch.models.model import Model, RunConfig
+    free(dev)
+    cfg = serve_cfg()
+    model = Model(cfg, RunConfig(**BF16_RUN), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(seeded(dev))
+        lg, _ = model.apply(params, torch.from_numpy(
+            tokens.astype(np.int64)).to(dev))
+        want = lg[:, PROMPT - 1:].float()
+        del lg, params
+    got = torch.from_numpy(mesh_logits).to(dev).transpose(0, 1)
+    check(tuple(got.shape) == tuple(want.shape),
+          f"serve (b): mesh logits {tuple(got.shape)}, one card "
+          f"{tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"{head} (b) {card_of(dev.index)}: the mesh's sampled logits "
+          f"(f32, {got.shape[1]} positions of {got.shape[0]} rows) against "
+          f"{SERVE_ARCH} whole in bf16 on this one card, teacher-forced on "
+          f"the mesh's tokens: max_abs_diff {err:.3e}, largest magnitude "
+          f"{scale:.2f} (gate {TOL_BF16_LOGITS:g} of it = "
+          f"{TOL_BF16_LOGITS * scale:.3f}); one card: peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB, "
+          f"{time.perf_counter() - t:.1f} s")
+    check(bool(torch.isfinite(got).all()), "serve (b): non-finite logits")
+    check(err <= TOL_BF16_LOGITS * scale, f"serve (b): {err:.3e} from one "
+          f"card's bf16 logits")
+    del got, want
+    free(dev)
+
+
 def dist_ranks():
     """14g, host only: DIST_RANKS gloo CPU ranks on this machine's torch
     (this script again, ``--mesh-rank``, with no card visible) run
@@ -5096,9 +5719,9 @@ def tree_numpy(tree):
 
 
 def dist_phase(dev, flush, smi, p13):
-    """Phase 14 [dist]: 14a-14e on the 1-rank NCCL mesh, then the NCCL
-    group ends, 14f runs on a fake one and 14g in gloo CPU ranks.  Returns
-    14b's JSON rows."""
+    """Phase 14 [dist]: 14a-14e and 14h on the 1-rank NCCL mesh, then the
+    NCCL group ends, 14f runs on a fake one and 14g in gloo CPU ranks.
+    Returns 14b's and 14h's JSON rows."""
     t0 = time.perf_counter()
     took = {}
 
@@ -5112,6 +5735,7 @@ def dist_phase(dev, flush, smi, p13):
     timed("14c", dist_moe, mesh, dev, smi)
     timed("14d", dist_compress, mesh, dev, smi)
     timed("14e", dist_failover, mesh, dev, smi)
+    rows += timed("14h", dist_serve, mesh, dev, smi)
     torch.distributed.destroy_process_group()
     timed("14f", dist_dryrun)
     timed("14g", dist_ranks)
@@ -5636,7 +6260,9 @@ def main() -> int:
                      help="run only the launcher's reduced comparison "
                           "and qwen2-7b whole through the launcher's "
                           "torchrun on N cards of this machine (NCCL), "
-                          "then the crossbar on them")
+                          "then the crossbar, the checkpoints, "
+                          "deepseek-v2's parts and the serving parts on "
+                          "them")
     cli.add_argument("--cards-rank", action="store_true",
                      help="one rank of --launcher-cards (the smoke starts "
                           "these itself, under torchrun)")
@@ -5644,7 +6270,14 @@ def main() -> int:
                      help="DATA MODEL [PART ...]: one rank of the "
                           "deepseek-v2 parts (the smoke starts these "
                           "itself, under torchrun)")
+    cli.add_argument("--serve-rank", nargs="+", metavar="ARG",
+                     help="DIR [PART ...]: one rank of the serving parts "
+                          "on four cards (the smoke starts these itself, "
+                          "under torchrun)")
     opts = cli.parse_args()
+    if opts.serve_rank:
+        serve_rank(opts.serve_rank[0], opts.serve_rank[1:])
+        return 0
     if opts.cards_rank:
         cards_rank()
         return 0
@@ -5660,6 +6293,7 @@ def main() -> int:
         t0 = time.perf_counter()
         launcher_cards(opts.launcher_cards)
         moe_cards(opts.launcher_cards)
+        serve_cards(opts.launcher_cards)
         print(f"[cards] every part passed in {time.perf_counter() - t0:.1f}"
               f" s")
         return 0

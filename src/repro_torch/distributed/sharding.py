@@ -356,10 +356,82 @@ def map_shardings(fn, shardings, tree):
 def distribute(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     """``x`` (the whole tensor, the same on every rank) as a DTensor with
     ``sharding``'s placements: each rank keeps its own piece, with no
-    communication."""
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(x, sharding.mesh, sharding.placements,
-                             src_data_rank=None)
+    communication.  A piece that is a view of a larger storage (cut along
+    the leading dim only, as a vocab-sharded embedding table is) is
+    copied, or it would keep the whole tensor alive on every rank."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    t = distribute_tensor(x, sharding.mesh, sharding.placements,
+                          src_data_rank=None)
+    local = t.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        with torch.no_grad():
+            t = DTensor.from_local(local.clone(), sharding.mesh,
+                                   sharding.placements, run_check=False,
+                                   shape=t.shape, stride=t.stride())
+        t.requires_grad_(x.requires_grad)
+    return t
+
+
+def place(tree, axes, mesh, rules: Optional[Rules] = None):
+    """``tree`` (nested dicts) with each plain tensor a DTensor on ``mesh``
+    placed by its logical axes, the string leaf of ``axes`` at the same
+    key (``Model.param_axes``, ``Model.cache_axes``), under ``rules``:
+    each rank keeps its own piece (``distribute``).  A DTensor is kept as
+    it is (it must lie on ``mesh``), and so is a leaf that is not a
+    tensor (a cache's host counters)."""
+    if isinstance(tree, dict):
+        return {k: place(v, axes[k], mesh, rules) for k, v in tree.items()}
+    if is_dtensor(tree):
+        if tree.device_mesh != mesh:
+            raise ValueError(f"a DTensor on mesh {tree.device_mesh}, not on "
+                             f"the active {mesh}")
+        return tree
+    if not torch.is_tensor(tree):
+        return tree
+    return distribute(tree, sharding_for(axes, tree.shape, mesh, rules))
+
+
+def _rows_here(x: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(first, count): the span of ``x``'s dim ``dim`` that this rank
+    holds of DTensor ``x`` (a dim sharded evenly over one or more mesh
+    dims, as the resolver places it, or whole)."""
+    from torch.distributed.tensor import Shard
+    mesh, first, count = x.device_mesh, 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n = mesh.size(i)
+            if count % n:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split evenly over {n} ranks")
+            count //= n
+            first += mesh.get_local_rank(i) * count
+    return first, count
+
+
+def copy_row(dst: torch.Tensor, dim: int, d: int, src: torch.Tensor,
+             s: int) -> None:
+    """``dst.select(dim, d).copy_(src.select(dim, s))`` in place, where
+    ``dst`` may be a DTensor: each rank copies only its own piece of the
+    row (none where another rank holds row ``d``), from ``src`` placed as
+    ``dst`` is on every other dim (``src`` is redistributed so first, its
+    dim ``dim`` whole: a gather only where it was sharded).  A DTensor's
+    ``select`` of a sharded dim would copy the row out of the tensor, and
+    a write into it would be lost."""
+    if not is_dtensor(dst):
+        dst.select(dim, d).copy_(full(src).select(dim, s))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in dst.placements]
+    if not is_dtensor(src):
+        src = distribute(src, Sharding(mesh, (), tuple(want)))
+    elif list(src.placements) != want:
+        src = src.redistribute(mesh, want)
+    first, count = _rows_here(dst, dim)
+    if first <= d < first + count:
+        dst.to_local().select(dim, d - first).copy_(
+            src.to_local().select(dim, s))
 
 
 @contextlib.contextmanager

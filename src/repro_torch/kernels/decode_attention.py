@@ -84,13 +84,25 @@ def wide(k: torch.Tensor, v: torch.Tensor) -> bool:
                     for t in (k, v)))
 
 
+def _any_dtensor(*ts) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in ts)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, *, block_k: int = 256
                      ) -> torch.Tensor:
     """q: (B, KV, rep, hd); k/v: (B, KV, Smax, hd); valid: (B,) int32.
     Returns (B, KV, rep, hd) in q's dtype.  ``block_k`` is the reference's
     tile: it must divide Smax (the reference's rule), and the kernel's own
-    ranges (``split_plan``) do not follow it."""
+    ranges (``split_plan``) do not follow it.  A DTensor is refused: under
+    a mesh each rank calls this on its own rows and KV heads
+    (``layers.apply_attention``'s per-shard region)."""
+    if _any_dtensor(q, k, v, valid):
+        raise TypeError("decode_attention takes plain tensors, not DTensors:"
+                        " under a mesh call it on each rank's own rows and "
+                        "KV heads (a local_map region, as "
+                        "layers.apply_attention does)")
     B, KV, rep, hd = q.shape
     Smax = k.shape[2]
     block_k = min(block_k, Smax)

@@ -400,6 +400,92 @@ def cache_depth(max_len: int) -> int:
     return -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
 
 
+def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor,
+                      positions: torch.Tensor, kv_len, window, causal: bool,
+                      backend: str) -> torch.Tensor:
+    """Write the new keys and values ``k`` / ``v`` (B, S, KV, hd) into the
+    cache's ``ck`` / ``cv`` (B, Smax, KV, hd) in place, then attend ``q``
+    over the cache: plain tensors (under a mesh, each rank's own rows and
+    KV heads, ``_cached_per_shard``).  ``kv_len`` is the cached count, an
+    int for every row or a (B,) integer tensor of per-row counts, whose
+    rows write at their own ``positions`` (which the caller has checked
+    fit the cache)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if torch.is_tensor(kv_len):
+        rows = torch.arange(B, device=q.device)[:, None]
+        ck[rows, positions] = k.to(ck.dtype)
+        cv[rows, positions] = v.to(cv.dtype)
+        valid = kv_len + S
+    else:
+        start = int(kv_len or 0)
+        smax = ck.shape[1]
+        if start + S > smax:
+            raise ValueError(f"KV cache full: {start} + {S} > {smax}")
+        ck[:, start:start + S] = k.to(ck.dtype)
+        cv[:, start:start + S] = v.to(cv.dtype)
+        valid = start + S
+    if backend == "cuda" and S == 1 and window is None:
+        # serving fast path: the hand-written decode kernel attends the
+        # cache through strided (B, KV, Smax, hd) views, no copy
+        out = decode_attention(
+            q.reshape(B, KV, H // KV, hd), ck.transpose(1, 2),
+            cv.transpose(1, 2),
+            valid.to(torch.int32) if torch.is_tensor(valid) else
+            torch.full((B,), valid, dtype=torch.int32, device=q.device),
+            block_k=decode_block(ck.shape[1]))
+        return out.reshape(B, S, H, hd)
+    kpos = torch.arange(ck.shape[1], device=q.device).expand(B, ck.shape[1])
+    return attention_core(q, ck, cv, positions, kpos, valid, causal=causal,
+                          window=window)
+
+
+def _cached_per_shard(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cache: Params, *rows: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, cache["k"], cache["v"], *rows)`` for DTensor ``q``: a
+    ``local_map`` region in which each rank writes its own rows and KV
+    heads of the cache in place and attends them, which needs no
+    communication.  The cache enters as it is placed
+    (``Model.cache_init(mesh=)``: rows on the batch axes, KV heads on
+    ``model``; a redistributed cache would be a copy, and the writes would
+    be lost); q, k and v are placed as it is (a KV head's ``rep`` query
+    heads go with it), ``rows`` (positions, per-row lengths) as its
+    batch.  DTensor would have to find a rule for the per-row write into
+    a sharded cache, and the decode kernel launches on plain tensors
+    only."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ck, cv = cache["k"], cache["v"]
+    if not (is_dtensor(ck) and is_dtensor(cv)):
+        raise TypeError("under a mesh the KV cache must be placed on it "
+                        "(Model.cache_init(mesh=)): a plain cache would be "
+                        "written whole on every rank")
+    mesh, pl = ck.device_mesh, list(ck.placements)
+    if Shard(1) in pl:
+        # sharded on its sequence, as the dry run places a cache by the
+        # rule kv_seq where its batch does not divide: DTensor's own ops
+        # (a trace of the reference's layout; the engines' caches keep the
+        # sequence whole)
+        return fn(q, k, v, ck, cv, *rows)
+    if list(cv.placements) != pl or any(
+            p not in (Replicate(), Shard(0), Shard(2)) for p in pl):
+        raise ValueError(f"KV cache placed {pl} / {list(cv.placements)}: "
+                         f"the decode path takes a cache sharded on its rows "
+                         f"and KV heads only (Model.cache_init(mesh=))")
+    rep = [Replicate()] * mesh.ndim
+    row_pl = [p if p == Shard(0) else Replicate() for p in pl]
+
+    def dt(x):
+        return x if is_dtensor(x) else DTensor.from_local(
+            x, mesh, rep, run_check=False)
+    pls = [row_pl if r.shape[0] == q.shape[0] else rep for r in rows]
+    return local_map(fn, out_placements=pl,
+                     in_placements=(pl, pl, pl, pl, pl, *pls),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, dt(k), dt(v), ck, cv, *(dt(r) for r in rows))
+
+
 def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
                     window=None, cache: Optional[Params] = None,
                     kv_len=None, backend: str = "cuda",
@@ -431,39 +517,19 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and torch.is_tensor(kv_len):
-        rows = torch.arange(B, device=x.device)[:, None]
-        cache["k"][rows, positions] = k.to(cache["k"].dtype)
-        cache["v"][rows, positions] = v.to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
-        valid = kv_len + S
-    elif cache is not None:
-        start = int(kv_len or 0)
-        smax = cache["k"].shape[1]
-        if start + S > smax:
-            raise ValueError(f"KV cache full: {start} + {S} > {smax}")
-        cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
-        valid = start + S
+    if cache is None:
+        out = attention_core(q, k, v, positions, positions, None,
+                             causal=causal, window=window)
     else:
-        valid = None
-
-    if backend == "cuda" and cache is not None and S == 1 and window is None:
-        # serving fast path: the hand-written decode kernel attends the
-        # cache through strided (B, KV, Smax, hd) views, no copy
-        rep = H // KV
-        out = decode_attention(
-            q.reshape(B, KV, rep, hd), k.transpose(1, 2), v.transpose(1, 2),
-            valid.to(torch.int32) if torch.is_tensor(valid) else
-            torch.full((B,), valid, dtype=torch.int32, device=x.device),
-            block_k=decode_block(k.shape[1]))
-        out = out.reshape(B, S, H, hd)
-    else:
-        kpos = positions if cache is None else torch.arange(
-            k.shape[1], device=x.device).expand(B, k.shape[1])
-        out = attention_core(q, k, v, positions, kpos, valid, causal=causal,
-                             window=window)
+        def attend(q, k, v, ck, cv, positions, *lens):
+            return _cached_attention(q, k, v, ck, cv, positions,
+                                     lens[0] if lens else kv_len, window,
+                                     causal, backend)
+        if is_dtensor(q):
+            lens = (kv_len,) if torch.is_tensor(kv_len) else ()
+            out = _cached_per_shard(attend, q, k, v, cache, positions, *lens)
+        else:
+            out = attend(q, k, v, cache["k"], cache["v"], positions)
     out = reshape(out, (B, S, H * hd)) @ p["wo"]
     return x + shard(out, "batch", None, None), cache
 

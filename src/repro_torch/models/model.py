@@ -20,7 +20,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.distributed.sharding import replicate_plain
+from repro_torch.distributed.sharding import (current_rules, place,
+                                              replicate_plain)
 from repro_torch.models import transformer as T
 
 BACKENDS = ("cuda", "torch")
@@ -81,9 +82,19 @@ class Model:
         return T.cache_spec(self.cfg, batch, max_len, mode="shape",
                             dtype=self.cdtype)
 
-    def cache_init(self, batch: int, max_len: int):
-        return T.cache_spec(self.cfg, batch, max_len, mode="init",
-                            device=self.device, dtype=self.cdtype)
+    def cache_init(self, batch: int, max_len: int, mesh=None):
+        """A zeroed cache tree for ``batch`` rows of ``max_len`` positions.
+        With a ``mesh`` each tensor is a DTensor placed by its logical axes
+        (``cache_axes``) under the active rules, its sequence axis whole
+        (the rule ``kv_seq`` set aside): each rank holds whole rows of its
+        batch shard and its KV heads, which the decode path writes and
+        attends in place (``layers.apply_attention``)."""
+        cache = T.cache_spec(self.cfg, batch, max_len, mode="init",
+                             device=self.device, dtype=self.cdtype)
+        if mesh is None:
+            return cache
+        return place(cache, self.cache_axes(batch, max_len), mesh,
+                     dict(current_rules(), kv_seq=()))
 
     def cache_axes(self, batch: int, max_len: int):
         return T.cache_spec(self.cfg, batch, max_len, mode="axes")

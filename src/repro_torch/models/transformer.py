@@ -41,8 +41,9 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (in_context, reduced_grad,
-                                              replicate_plain, shard)
+from repro_torch.distributed.sharding import (copy_row, in_context,
+                                              reduced_grad, replicate_plain,
+                                              shard)
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -526,10 +527,11 @@ def reset(cache: Params) -> Params:
 def copy_rows(dst: Params, d: int, src: Params, s: int) -> None:
     """Copy row ``s`` of every leaf of cache ``src`` into row ``d`` of the
     same leaf of ``dst`` (trees of one model; each leaf on its own batch
-    axis, ``cache_leaves``); ``len`` is left to the caller."""
+    axis, ``cache_leaves``); ``len`` is left to the caller.  On a mesh
+    each rank copies only its own piece (``sharding.copy_row``)."""
     for (_, big, axis), (_, one, _) in zip(cache_items(dst),
                                            cache_items(src)):
-        big.select(axis, d).copy_(one.select(axis, s))
+        copy_row(big, axis, d, one, s)
 
 
 # logical axes of each cache leaf, the reference's

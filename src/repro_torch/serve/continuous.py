@@ -30,6 +30,20 @@ seeded from ``(seed, rid)``, so a request's tokens never depend on its
 slot or on what else is resident.  JAX's ``fold_in`` streams cannot be
 reproduced in PyTorch, so sampled tokens differ from the reference's;
 greedy decoding is unaffected.
+
+Under a mesh (``sharding.axis_rules(mesh)``, as the reference's
+``serve_bench --mesh`` drives the engine) the engines serve on it: plain
+params are placed by their logical axes, DTensor params (``Model.init(
+mesh=)``) used as they are, every cache made on the mesh (``Model.
+cache_init(mesh=)``), and each step's logits gathered whole on every rank
+(``sharding.full``), so every rank samples the same tokens from the same
+generators.  On a mesh of more than one rank (one process a rank) the
+ranks also agree on every host decision: each ``step`` first gathers from
+every rank the count of requests its serving loop has submitted, and rank 0's
+queue, which becomes every rank's; so a rank whose wall clock lags
+admits what rank 0 admitted, and no rank prefills while another decodes.
+``busy`` stays true while the ranks' counts differ, so loops that
+submit by their own clocks end on the same step.
 """
 
 from __future__ import annotations
@@ -40,7 +54,10 @@ from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import (current_mesh, full, is_dtensor,
+                                              place)
 from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
 from repro_torch.models.transformer import copy_rows
@@ -67,6 +84,25 @@ def request_generator(seed: int, rid: int,
     ``(seed, rid)``."""
     state = np.random.SeedSequence([seed, rid]).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def serving_params(model: Model, params, mesh):
+    """``params`` for an engine serving under ``mesh`` (the active one, or
+    None for one device): plain params placed on it by their logical axes
+    (``model.param_axes()``), each rank keeping its own piece; DTensors as
+    they are, which serve only under their own mesh."""
+    if mesh is not None:
+        return place(params, model.param_axes(), mesh)
+    if is_dtensor(params["final_norm"]):
+        raise ValueError("DTensor params serve under their mesh: run the "
+                         "engine inside sharding.axis_rules(mesh)")
+    return params
+
+
+def on_group(mesh) -> bool:
+    """Whether ``mesh`` spans more than one rank (then the default process
+    group's ranks, one process each)."""
+    return mesh is not None and mesh.size() > 1
 
 
 def sample(logits: torch.Tensor, vocab_size: int, temperature: float,
@@ -119,6 +155,7 @@ class ContinuousEngine:
         self.plan = plan                       # ServeCompilePlan or None
         self.depth = cache_depth(self.max_len)
         self.steps = 0
+        self.cuda_graphs = cuda_graphs
 
         self.pending: Deque[Request] = collections.deque()
         self.results: Dict[int, np.ndarray] = {}
@@ -126,13 +163,39 @@ class ContinuousEngine:
         self._slot_hist: List[List[int]] = [[] for _ in range(self.slots)]
         self._slot_left = np.zeros(self.slots, np.int64)
         self._slot_gen: List[Optional[torch.Generator]] = [None] * self.slots
-
-        self._cache = model.cache_init(self.slots, self.depth)
-        self._cache["len"] = np.zeros(self.slots, np.int64)
         self._tok = torch.zeros((self.slots, 1), dtype=torch.int32,
                                 device=model.device)
-        self._step = (DecodeGraph(model, params, self._cache, self.slots,
-                                  self.depth) if cuda_graphs else None)
+        # on a group of ranks: rids the ranks agreed on, this rank's
+        # accepted submissions, whether the ranks' counts differed at the
+        # last step, the arrivals of queued requests, rids with on_submit
+        self._agreed: set = set()
+        self._submitted = 0
+        self._lag = False
+        self._arrival: Dict[int, Optional[float]] = {}
+        self._noted: set = set()
+        self._given = params
+        self._bind(current_mesh())
+
+    def _bind(self, mesh) -> None:
+        """Serve on ``mesh`` (None: one device): the params placed on it
+        (``serving_params``), the slots' cache and its captured step made
+        on it.  Done again only when the active mesh changes, which must
+        not happen while a request holds a slot."""
+        if self.active_slots:
+            raise RuntimeError("the active mesh changed while requests "
+                               "held slots")
+        self._mesh = mesh
+        self.params = serving_params(self.model, self._given, mesh)
+        self._cache = self.model.cache_init(self.slots, self.depth, mesh)
+        self._cache["len"] = np.zeros(self.slots, np.int64)
+        self._step = (DecodeGraph(self.model, self.params, self._cache,
+                                  self.slots, self.depth)
+                      if self.cuda_graphs else None)
+
+    def _on_active_mesh(self) -> None:
+        mesh = current_mesh()
+        if mesh is not self._mesh:
+            self._bind(mesh)
 
     # ---- queue / admission -------------------------------------------------
 
@@ -146,32 +209,78 @@ class ContinuousEngine:
 
     @property
     def busy(self) -> bool:
-        return bool(self.pending) or self.active_slots > 0
+        """Requests queued or in slots; on a group of ranks, also while
+        the ranks' serving loops had submitted different counts at the
+        last step."""
+        return bool(self.pending) or self.active_slots > 0 or self._lag
 
     def submit(self, req: Request, arrival: Optional[float] = None) -> bool:
         """Enqueue; ``False`` (and no enqueue) when the admission queue
-        is at ``queue_limit`` — backpressure for the load generator."""
+        is at ``queue_limit`` — backpressure for the load generator.  On a
+        group of ranks a request the ranks already took from rank 0's
+        queue is accepted and not queued again."""
+        if req.rid in self._agreed:
+            self._submitted += 1
+            return True
         if self.queue_limit is not None and \
                 len(self.pending) >= self.queue_limit:
             if self.metrics:
                 self.metrics.on_reject(req.rid)
             return False
-        if self.metrics:
-            self.metrics.on_submit(req.rid, arrival)
+        self._note(req.rid, arrival)
         self.pending.append(req)
+        self._submitted += 1
         return True
+
+    def _note(self, rid: int, arrival: Optional[float]) -> None:
+        """Keep a queued request's arrival and tell the metrics, once a
+        request: on a group of ranks it may come from rank 0's queue
+        before or after this rank's serving loop submits it (also where
+        the loop submitted before the first ``step`` bound the mesh)."""
+        self._arrival[rid] = arrival
+        if rid in self._noted:
+            return
+        if self.metrics:
+            self.metrics.on_submit(rid, arrival)
+        self._noted.add(rid)
+
+    def _agree(self) -> None:
+        """On a group of ranks: gather every rank's count of accepted
+        submissions and rank 0's queue, which becomes every rank's (a
+        request rank 0 has not submitted yet waits for it); ``busy`` holds
+        while the counts differ.  No collective on one rank."""
+        if not on_group(self._mesh):
+            return
+        lead = dist.get_rank() == 0
+        queue = ([(r.rid, np.asarray(r.prompt, np.int32), r.max_new,
+                   self._arrival.get(r.rid)) for r in self.pending]
+                 if lead else None)
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, (self._submitted, queue))
+        counts = [n for n, _ in got]
+        self._lag = min(counts) != max(counts)
+        queue = got[0][1]
+        if not lead:
+            self.pending = collections.deque(
+                Request(rid, prompt, max_new)
+                for rid, prompt, max_new, _ in queue)
+            for rid, _, _, arrival in queue:
+                self._note(rid, arrival)
+        self._agreed.update(rid for rid, *_ in queue)
 
     def _admit(self, s: int) -> bool:
         """Prefill the next pending request into free slot ``s``."""
         dev = self.model.device
         while self.pending:
             req = self.pending.popleft()
-            cache = self.model.cache_init(1, self.depth)
+            self._arrival.pop(req.rid, None)
+            self._noted.discard(req.rid)
+            cache = self.model.cache_init(1, self.depth, self._mesh)
             gen = request_generator(self.seed, req.rid, dev)
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
                                      device=dev)
             logits, cache = self.model.apply(self.params, prompt, cache=cache)
-            tok0 = sample(logits[:, -1], self.model.cfg.vocab_size,
+            tok0 = sample(full(logits[:, -1]), self.model.cfg.vocab_size,
                           self.temperature, [gen])
             if self.metrics:
                 self.metrics.clock.advance(VIRTUAL_PREFILL_COST)
@@ -209,7 +318,7 @@ class ContinuousEngine:
         """(cache, token) of slot ``s`` as a B=1 engine would hold them: a
         copy of its cache rows with its length, and its next input token
         (1, 1)."""
-        one = self.model.cache_init(1, self.depth)
+        one = self.model.cache_init(1, self.depth, self._mesh)
         copy_rows(one, 0, self._cache, s)
         one["len"] = int(self._cache["len"][s])
         return one, self._tok[s:s + 1].clone()
@@ -222,20 +331,25 @@ class ContinuousEngine:
         rows), and it samples token 0.  With ``cuda_graphs`` on the card
         the logits are the captured step's static output, which the next
         step overwrites."""
+        self._on_active_mesh()
         lens = self._cache["len"]
         if self._step is not None:
             logits = self._step(self._tok, lens)
         else:
             logits, _ = self.model.apply(self.params, self._tok,
                                          cache=self._cache)
-            logits = logits[:, -1]
+            logits = full(logits[:, -1])
         active = np.asarray([r is not None for r in self._slot_req])
         self._cache["len"] = np.where(active, lens + 1, lens)
         return logits
 
     @torch.no_grad()
     def step(self) -> int:
-        """Admissions + one batched decode step; returns tokens emitted."""
+        """Admissions + one batched decode step; returns tokens emitted.
+        On a group of ranks every rank must call it as often as rank 0
+        (``busy`` says when to stop)."""
+        self._on_active_mesh()
+        self._agree()
         for s in range(self.slots):
             if self._slot_req[s] is None:
                 self._admit(s)
@@ -279,8 +393,8 @@ class ContinuousEngine:
     def serve(self, requests) -> Dict[int, np.ndarray]:
         """Run ``requests`` to completion; rid -> generated ids."""
         self.pending.extend(requests)        # bypass the queue limit
-        if self.metrics:
-            for r in requests:
-                self.metrics.on_submit(r.rid)
+        for r in requests:
+            self._note(r.rid, None)
+        self._submitted += len(requests)
         return self.drain()
 

@@ -26,27 +26,32 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import current_mesh, full
 from repro_torch.models.layers import cache_depth
 from repro_torch.models.model import Model, mask_padded_vocab
 from repro_torch.models.transformer import reset
 from repro_torch.serve.graphs import DecodeGraph
 # ContinuousEngine and Request are re-exported, as the reference's module does
 from repro_torch.serve.continuous import (ContinuousEngine, Request,  # noqa: F401
-                                         sample)
+                                         sample, serving_params)
 
 
 def make_prefill_step(model: Model) -> Callable:
+    """The prefill step: (last-position logits, gathered whole under a
+    mesh, and the cache)."""
     def prefill(params, cache, tokens, extra_embeds=None):
         logits, cache = model.apply(params, tokens, extra_embeds=extra_embeds,
                                     cache=cache)
-        return logits[:, -1], cache
+        return full(logits[:, -1]), cache
     return prefill
 
 
 def make_decode_step(model: Model) -> Callable:
+    """The decode step: (logits, gathered whole under a mesh, and the
+    cache)."""
     def decode(params, cache, token):
         logits, cache = model.apply(params, token, cache=cache)
-        return logits[:, -1], cache
+        return full(logits[:, -1]), cache
     return decode
 
 
@@ -61,16 +66,25 @@ class EngineConfig:
 class Engine:
     """Generates from a batch of prompts.  After each ``generate`` call,
     ``last_timing`` holds the prefill and decode phases' wall times (each
-    ends in a device synchronise) and the number of decode steps run."""
+    ends in a device synchronise) and the number of decode steps run.
+    Under a mesh it serves on it (``continuous.serving_params``; its
+    caches made on the mesh), every rank generating the same tokens."""
 
     def __init__(self, model: Model, params,
                  cfg: EngineConfig = EngineConfig()):
         self.model = model
-        self.params = params
         self.cfg = cfg
         self.prefill = make_prefill_step(model)
         self.decode = make_decode_step(model)
         self.last_timing: Dict[str, float] = {}
+        self._given = params
+        self._bind(current_mesh())
+
+    def _bind(self, mesh) -> None:
+        """Serve on ``mesh`` (None: one device): the params placed on it,
+        and no static cache yet."""
+        self._mesh = mesh
+        self.params = serving_params(self.model, self._given, mesh)
         # (batch, depth) -> the decode step captured over a static cache
         self._steps: Dict[Tuple[int, int], DecodeGraph] = {}
 
@@ -83,7 +97,8 @@ class Engine:
         if key not in self._steps:
             self._steps[key] = DecodeGraph(
                 self.model, self.params,
-                self.model.cache_init(batch, depth), batch, depth)
+                self.model.cache_init(batch, depth, self._mesh), batch,
+                depth)
         step = self._steps[key]
         reset(step.cache)
         return step
@@ -118,6 +133,8 @@ class Engine:
         a generator seeded with ``cfg.seed``; its streams differ from the
         reference's by design (greedy streams are the same).
         """
+        if current_mesh() is not self._mesh:
+            self._bind(current_mesh())
         device = self.model.device
         B, P = prompts.shape
         gen = torch.Generator(device=device).manual_seed(self.cfg.seed)
@@ -126,7 +143,7 @@ class Engine:
             step = self._static(B, depth)
             cache = step.cache
         else:
-            cache = self.model.cache_init(B, depth)
+            cache = self.model.cache_init(B, depth, self._mesh)
         prompt = torch.as_tensor(np.asarray(prompts, np.int64), device=device)
         t0 = time.perf_counter()
         logits, cache = self.prefill(self.params, cache, prompt, extra_embeds)
@@ -216,28 +233,39 @@ class SerialSlotEngine:
     same greedy token streams.  Sampling at a temperature draws from one
     generator seeded with ``seed``, in scheduling order, as the
     reference's single key stream does.  With ``cuda_graphs`` each slot
-    owns a static B=1 cache and a captured B=1 decode step over it.
+    owns a static B=1 cache and a captured B=1 decode step over it.  Under
+    a mesh it serves on it, as ``Engine`` does.
     """
 
     def __init__(self, model: Model, params, slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
                  seed: int = 0, cuda_graphs: bool = True):
         self.model = model
-        self.params = params
         self.slots = slots
         self.max_len = max_len
         self.cfg = EngineConfig(max_len=max_len, temperature=temperature,
                                 seed=seed, cuda_graphs=cuda_graphs)
         self.decode = make_decode_step(model)
         self.prefill = make_prefill_step(model)
-        depth = cache_depth(max_len)
-        self._steps = ([DecodeGraph(model, params, model.cache_init(1, depth),
-                                    1, depth) for _ in range(slots)]
-                       if cuda_graphs else None)
+        self._given = params
+        self._bind(current_mesh())
+
+    def _bind(self, mesh) -> None:
+        """Serve on ``mesh`` (None: one device): the params placed on it,
+        the slots' static caches and captured steps made on it."""
+        self._mesh = mesh
+        self.params = serving_params(self.model, self._given, mesh)
+        depth = cache_depth(self.max_len)
+        self._steps = ([DecodeGraph(self.model, self.params,
+                                    self.model.cache_init(1, depth, mesh), 1,
+                                    depth) for _ in range(self.slots)]
+                       if self.cfg.cuda_graphs else None)
 
     @torch.no_grad()
     def serve(self, requests) -> Dict[int, np.ndarray]:
         """Run all requests to completion; returns rid -> generated ids."""
+        if current_mesh() is not self._mesh:
+            self._bind(current_mesh())
         dev = self.model.device
         gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
         depth = cache_depth(self.max_len)
@@ -266,7 +294,7 @@ class SerialSlotEngine:
                 if self._steps is not None:
                     cache = reset(self._steps[s].cache)
                 else:
-                    cache = self.model.cache_init(1, depth)
+                    cache = self.model.cache_init(1, depth, self._mesh)
                 prompt = torch.as_tensor(
                     np.asarray(req.prompt, np.int64)[None], device=dev)
                 logits, cache = self.prefill(self.params, cache, prompt)

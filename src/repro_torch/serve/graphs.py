@@ -14,6 +14,18 @@ reads, so one graph serves one (batch, depth, params, cache).  On CPU
 tensors the same body runs eagerly, so what the CPU runs is what the card
 captures.
 
+On a mesh (DTensor params and cache, ``Model.cache_init(mesh=)``) the
+step's logits are gathered whole on every rank (``sharding.full``), so
+each rank samples the same tokens.  DTensor's dispatch then runs once, at
+capture, and the step's collectives (the reductions of the row-parallel
+products, the logits' gather) are captured on the capture stream with its
+kernels; the warm-up run creates the NCCL communicators first.  A capture
+that fails raises: only the caller's ``cuda_graphs=False`` runs the step
+eagerly.  A graph that captured a collective holds its NCCL communicator:
+drop the engines (and collect any reference cycle holding one) before
+``destroy_process_group``, which on four NCCL ranks did not return while
+such a graph was alive.
+
 A replay runs no Python, so it moves no launch counter
 (``decode_attention.launches`` and the others in ``COUNTERS``).  Capture
 runs no kernel either: what the counters moved while capturing is taken
@@ -28,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend_cuda
+from repro_torch.distributed.sharding import full
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import cuda_gemm
@@ -92,7 +105,9 @@ class DecodeGraph:
         self.logits: Optional[torch.Tensor] = None
         self.moves: Dict[str, int] = {}
         self.replays = 0
-        if dev.type == "cuda":
+        # on the card the step is captured; on the CPU it runs eagerly
+        self.capture = dev.type == "cuda"
+        if self.capture:
             # lengths go up from a pinned buffer, asynchronously; the
             # event says when the last upload has left it
             self._host = torch.zeros((batch,), dtype=torch.int32,
@@ -104,7 +119,7 @@ class DecodeGraph:
         view = {k: v for k, v in self.cache.items() if k != "len"}
         view["len"] = self.lens
         logits, _ = self.model.apply(self.params, self.tok, cache=view)
-        return logits[:, -1]
+        return full(logits[:, -1])
 
     def _put(self, tok: torch.Tensor, lens) -> None:
         """Copy a step's tokens (a (B, 1) tensor) and lengths (an int for
@@ -125,7 +140,7 @@ class DecodeGraph:
 
     def __call__(self, tok: torch.Tensor, lens) -> torch.Tensor:
         self._put(tok, lens)
-        if self.lens.device.type != "cuda":
+        if not self.capture:
             return self.body()
         if self.graph is None:
             # the first step runs eagerly (it is also the warm-up), then
@@ -136,7 +151,9 @@ class DecodeGraph:
         self.replays += 1
         return self.logits
 
-    def _capture(self) -> torch.Tensor:
+    def _warm(self):
+        """The step run eagerly on a side stream, the one it is captured
+        on: (its logits, the stream)."""
         dev = self.lens.device
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -144,11 +161,19 @@ class DecodeGraph:
             out = self.body()
         torch.cuda.current_stream(dev).wait_stream(stream)
         out.record_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
+        return out, stream
+
+    def _capture(self) -> torch.Tensor:
+        out, stream = self._warm()
         before = counters()
-        with torch.cuda.graph(graph, stream=stream):
-            self.logits = self.body()
-        self.moves = moved(before, counters())
-        add(self.moves, -1)
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                self.logits = self.body()
+        finally:
+            # a capture launches nothing: take back what it moved, also
+            # where it failed (the failure is raised, never stepped round)
+            self.moves = moved(before, counters())
+            add(self.moves, -1)
         self.graph = graph
         return out

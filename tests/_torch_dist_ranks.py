@@ -6,17 +6,22 @@ cannot collide), runs the function ``name`` of this module as
 ``fn(rank, world, payload)`` on each, and returns their results in rank
 order: gloo CPU ranks, or with ``device="cuda"`` NCCL ranks, one card
 each (rank r on card r).  A run that outlives its ``timeout`` is killed
-and raises, so a hang cannot eat the suite's time; the group's own
-timeout also ends a stuck collective.
+and raises, so a hang cannot eat the suite's time (each rank prints its
+threads' stacks and exits shortly before); the group's own timeout also
+ends a stuck collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import faulthandler
+import gc
 import os
 import pickle
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -30,7 +35,7 @@ def run(name: str, world: int, tmp, payload=None, timeout: float = 120.0,
     tmp = str(tmp)
     with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
         pickle.dump(payload, f)
-    ctx = mp.start_processes(_main, args=(world, tmp, name, device),
+    ctx = mp.start_processes(_main, args=(world, tmp, name, device, timeout),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
@@ -47,8 +52,11 @@ def run(name: str, world: int, tmp, payload=None, timeout: float = 120.0,
 
 
 def _main(rank: int, world: int, tmp: str, name: str,
-          device: str = "cpu") -> None:
+          device: str = "cpu", timeout: float = 120.0) -> None:
     global DEVICE
+    # a rank still running shortly before the run's deadline prints every
+    # thread's stack and exits, so a hang shows where it waits
+    faulthandler.dump_traceback_later(max(10.0, timeout - 20.0), exit=True)
     kw = {}
     if device == "cuda":
         DEVICE = torch.device("cuda", rank)
@@ -67,6 +75,24 @@ def _main(rank: int, world: int, tmp: str, name: str,
         result = globals()[name](rank, world, payload)
         with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
+    finally:
+        # the body's dropped engines first: a CUDA graph that captured a
+        # collective holds its NCCL communicator, and ending the group
+        # while one lives does not return (serve/graphs.py)
+        gc.collect()
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A (1, 1) mesh (``launch.mesh.make_host_mesh``) over a 1-rank gloo
+    group started in this process, ended with the context, so that a test
+    worker keeps no group."""
+    from repro_torch.launch.mesh import make_host_mesh
+    if dist.is_initialized():
+        raise RuntimeError("a process group already runs in this process")
+    try:
+        yield make_host_mesh(device="cpu")
     finally:
         dist.destroy_process_group()
 
@@ -428,19 +454,31 @@ def elastic(rank, world, p):
             "step": extra["step"], "factored": factored}
 
 
-def smoke_parts(rank, world, p):
-    """``chip_smoke.py``'s four-card deepseek-v2 parts (``moe_parts``) on
-    a ``p["mesh"]`` (data, model) mesh of these ranks, with the rest of
-    ``p`` as their options (``parts``, ``reduced`` and sizes): their
-    record."""
+def _smoke():
+    """``chip_smoke.py`` as a module (its parts and its ``Collectives``)."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def serve_cut_part(rank, world, p):
+    """``chip_smoke.py``'s four-card serving part (a) (``serve_cut``) on a
+    ``p["mesh"]`` (data, model) mesh of these ranks: its record."""
+    return {"rank": rank, "card": str(DEVICE),
+            "cut": _smoke().serve_cut(_mesh(*p["mesh"]), DEVICE, None)}
+
+
+def smoke_parts(rank, world, p):
+    """``chip_smoke.py``'s four-card deepseek-v2 parts (``moe_parts``) on
+    a ``p["mesh"]`` (data, model) mesh of these ranks, with the rest of
+    ``p`` as their options (``parts``, ``reduced`` and sizes): their
+    record."""
     opts = dict(p)
-    return smoke.moe_parts(_mesh(*opts.pop("mesh")), DEVICE, **opts)
+    return _smoke().moe_parts(_mesh(*opts.pop("mesh")), DEVICE, **opts)
 
 
 def host_mesh_train(rank, world, p):
@@ -764,3 +802,208 @@ def ckpt_cards(rank, world, p):
         _, met = fn(restored, placed(p["batches"][2], other))
         out["third_2x2"] = met["loss"].item()
     return out
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh
+# --------------------------------------------------------------------------
+
+
+def serve_case(cfg, seed=5, batch=4, prompt=6, requests=8):
+    """Serving inputs of ``cfg``: ``batch`` prompts of ``prompt`` tokens
+    and ``requests`` requests (rid, prompt of 3-8 tokens, 2-6 new
+    tokens), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(
+        np.int32)
+    reqs = [(i, rng.integers(0, cfg.vocab_size,
+                             (int(rng.integers(3, 9)),)).tolist(),
+             int(rng.integers(2, 7))) for i in range(requests)]
+    return {"prompts": prompts, "requests": reqs, "steps": 5,
+            "max_len": 24, "slots": 3, "temperature": 0.8}
+
+
+def _requests(p):
+    from repro_torch.serve.continuous import Request
+    return [Request(rid, np.asarray(prompt, np.int32), n)
+            for rid, prompt, n in p["requests"]]
+
+
+def _weight_pieces(params):
+    """The shapes a piece of a param can take: each leaf whole and local,
+    with and without its stacked layer axis (a layer's slice)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.optim.optimizer import tree_leaves
+    out = set()
+    for leaf in tree_leaves(params):
+        for shape in {tuple(leaf.shape), tuple(
+                leaf.to_local().shape if is_dtensor(leaf) else leaf.shape)}:
+            out |= {shape, shape[1:]} if len(shape) > 1 else {shape}
+    return out
+
+
+def _engine_run(model, params, p, cuda_graphs):
+    """``chip_smoke.engine_logits`` over ``p``'s prompts: (the engine, its
+    tokens, the gathered logits it sampled from)."""
+    return _smoke().engine_logits(model, params, p["prompts"], cuda_graphs,
+                                  p["steps"], p["max_len"])
+
+
+def _slot_engines(model, params, p, out, prefix=""):
+    """``SerialSlotEngine`` greedy and ``ContinuousEngine`` greedy and at
+    ``p["temperature"]`` over ``p["requests"]``, into ``out``."""
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.engine import SerialSlotEngine
+    out[prefix + "serial"] = SerialSlotEngine(
+        model, params, slots=p["slots"],
+        max_len=p["max_len"]).serve(_requests(p))
+    for t in (0.0, p["temperature"]):
+        out[f"{prefix}continuous T{t:g}"] = ContinuousEngine(
+            model, params, slots=p["slots"], max_len=p["max_len"],
+            temperature=t, seed=3).serve(_requests(p))
+
+
+def serve_engines(rank, world, p):
+    """The serving engines of ``p["cfg"]`` on a ``p["mesh"]`` (data, model)
+    mesh, against the same engines without a mesh in this rank, from the
+    params ``p["params"]``: numpy (plain on this rank's device: the
+    engines place them), a seed (drawn by ``Model.init(mesh=)``), or
+    ``("plain", seed)`` (drawn whole on this rank's device and placed by
+    the engines, as the reference's ``serve_bench --mesh`` gives them).
+    ``Engine.generate`` greedy over ``p["prompts"]``, captured and eager:
+    tokens, the largest difference of its sampled logits from the run
+    without a mesh and their largest magnitude, whether captured and eager
+    logits are bit-equal, decode_attention launches on the mesh, its
+    static cache's leaves (placements, local and global shapes), the
+    collectives of one more eager decode step (``chip_smoke.Collectives``,
+    param pieces watched), and what the decode kernel's plain version
+    received (on the CPU); then ``SerialSlotEngine`` greedy and
+    ``ContinuousEngine`` greedy and at ``p["temperature"]`` over
+    ``p["requests"]`` (``_slot_engines``), on the mesh and without one."""
+    from repro_torch.convert import to_torch
+    from repro_torch.distributed.sharding import axis_rules, is_dtensor
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.models.transformer import cache_items
+    from repro_torch.optim.optimizer import tree_leaves
+    mesh = _mesh(*p["mesh"])
+    model = Model(p["cfg"], RunConfig(max_seq=p["max_len"]), device=DEVICE)
+
+    def params_on(m):
+        given = p["params"]
+        if isinstance(given, tuple):
+            return model.init(torch.Generator(device=DEVICE).manual_seed(
+                given[1]))
+        if isinstance(given, int):
+            return model.init(torch.Generator(device=DEVICE).manual_seed(
+                given), mesh=m)
+        return to_torch(given, DEVICE)
+    seen, plain_ref = [], da.decode_attention_ref
+
+    def spy(q, k, v, valid):
+        seen.append([any(is_dtensor(t) for t in (q, k, v, valid)),
+                     list(q.shape), list(k.shape)])
+        return plain_ref(q, k, v, valid)
+    da.decode_attention_ref = spy
+    out = {}
+    try:
+        with axis_rules(mesh), torch.no_grad():
+            params = params_on(mesh)
+            launches = da.decode_attention.launches
+            eng, out["tokens"], got = _engine_run(model, params, p, True)
+            out["launches"] = da.decode_attention.launches - launches
+            (key, step), = eng._steps.items()
+            out["cache"] = [[name, str(leaf.placements),
+                             list(leaf.to_local().shape), list(leaf.shape)]
+                            for name, leaf, _ in cache_items(step.cache)]
+            out["replays"] = step.replays
+            # param pieces holding more storage than their own bytes
+            out["views"] = [list(t.shape) for t in tree_leaves(eng.params)
+                            if t.to_local().untyped_storage().nbytes() >
+                            t.to_local().numel() * t.element_size()]
+            tok = torch.as_tensor(out["tokens"][:, -1:], device=DEVICE)
+            pieces = _weight_pieces(eng.params)
+            with _smoke().Collectives(
+                    mesh, lambda shape: shape in pieces) as calls:
+                eng.decode(eng.params, step.cache, tok)
+            out["calls"], out["watched"] = calls.rows(), calls.watched
+            del eng, step
+            _, eager_toks, eager = _engine_run(model, params, p, False)
+            out["eager_equal"] = (bool(torch.equal(got, eager))
+                                  and (eager_toks == out["tokens"]).all())
+            _slot_engines(model, params, p, out)
+            del params
+    finally:
+        da.decode_attention_ref = plain_ref
+    out["seen"] = seen
+    if DEVICE.type == "cuda":
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        params = params_on(None)
+        _, plain_toks, want = _engine_run(model, params, p, True)
+        out["plain_tokens"] = plain_toks
+        out["err"] = float((got - want).abs().max())
+        out["scale"] = float(want.abs().max())
+        _slot_engines(model, params, p, out, "plain ")
+    return out
+
+
+def serve_skewed(rank, world, p):
+    """``ContinuousEngine`` on a ``p["mesh"]`` mesh from the params of
+    seed ``p["params"]`` drawn on it (``Model.init(mesh=)``), driven as
+    the reference's ``serve_bench`` drives it: each request of
+    ``p["stream"]`` submitted once it has arrived, a step after each round
+    of submissions, a short sleep while idle before the next arrival.  A
+    rank sees arrivals late by ``p["skew"]`` times its rank: ``("s", x)``,
+    its ``WallClock`` started x seconds a rank later; or ``("steps", x)``,
+    request i arriving at its step 2 i, an odd one x steps a rank later (a
+    jitter that one rank's lead on the others would not absorb).  With
+    ``p["outside"]`` the engine is built as ``serve_bench.run_config``
+    builds it, before ``axis_rules`` and from plain params (drawn whole on
+    this rank), so the loop's first submissions come before the first
+    ``step`` binds the mesh.  Returns the results, the completed and
+    submitted counts and the batched steps run."""
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.models.model import Model, RunConfig
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    from repro_torch.serve.metrics import ServeMetrics, WallClock
+    model = Model(p["cfg"], RunConfig(max_seq=p["max_len"]), device=DEVICE)
+    stream = p["stream"]                    # (rid, prompt, max_new, arrival)
+    kind, skew = p["skew"]
+    mesh = _mesh(*p["mesh"])
+    gen = torch.Generator(device=DEVICE).manual_seed(p["params"])
+
+    def engine(params):
+        return ContinuousEngine(model, params, slots=p["slots"],
+                                max_len=p["max_len"], metrics=metrics,
+                                queue_limit=p["queue_limit"])
+    if kind == "s":
+        time.sleep(rank * skew)
+    clock = WallClock()
+    metrics = ServeMetrics(clock, slots=p["slots"])
+    if p.get("outside"):
+        eng = engine(model.init(gen))
+    with axis_rules(mesh), torch.no_grad():
+        if not p.get("outside"):
+            eng = engine(model.init(gen, mesh=mesh))
+        i = steps = 0
+
+        def arrived(k):
+            if kind == "s":
+                return stream[k][3] <= clock.now()
+            return 2 * k + skew * rank * (k % 2) <= steps
+        while i < len(stream) or eng.busy:
+            while i < len(stream) and arrived(i):
+                rid, prompt, n, arrival = stream[i]
+                if not eng.submit(Request(rid, np.asarray(prompt, np.int32),
+                                          n), arrival=arrival):
+                    break
+                i += 1
+            steps += 1
+            if eng.step() == 0 and i < len(stream) and kind == "s":
+                gap = stream[i][3] - clock.now()
+                if gap > 0:
+                    time.sleep(min(gap, 0.01))
+    reqs = metrics.snapshot()["requests"]
+    return {"results": eng.results, "steps": eng.steps,
+            "completed": reqs["completed"], "submitted": reqs["submitted"]}

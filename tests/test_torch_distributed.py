@@ -33,6 +33,8 @@ from repro.models.layers import Maker as JMaker
 from repro.models import model as jax_model
 from repro.models import moe as jax_moe
 from repro.optim import optimizer as jopt
+from repro.serve import continuous as jax_continuous
+from repro.serve import engine as jax_engine
 from repro.train import step as jstep
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import to_torch
@@ -722,3 +724,38 @@ def test_pipeline_sharded_batch_matches_the_reference(tmp_path):
     want = JaxPipeline(JaxDataConfig(**cfg)).jax_batch(2)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_serve_on_a_mesh_matches_reference(tmp_path, mesh):
+    """Reduced qwen1.5-32b (4 query and 4 KV heads, QKV bias) served on 4
+    gloo ranks of a (data, model) mesh from the reference's params: the
+    greedy tokens of ``Engine.generate`` and of ``ContinuousEngine`` over
+    8 requests are the reference's ``Engine`` and ``ContinuousEngine``
+    run without a mesh on the same params, on every rank."""
+    jcfg = jax_reduced(jax_get_config("qwen1_5_32b"))
+    cfg = reduced(get_config("qwen1_5_32b"))
+    jm = jax_model.Model(jcfg, jax_model.RunConfig(max_seq=24))
+    jp = jm.init(jax.random.PRNGKey(3))
+    case = ranks.serve_case(cfg)
+    case.update(cfg=cfg, mesh=mesh, params=jax.tree.map(np.asarray, jp))
+    out = ranks.run("serve_engines", 4, tmp_path, case, timeout=300)
+    want = np.asarray(jax_engine.Engine(
+        jm, jp, jax_engine.EngineConfig(max_len=case["max_len"])).generate(
+            case["prompts"], case["steps"]))
+    reqs = jax_continuous.ContinuousEngine(
+        jm, jp, slots=case["slots"], max_len=case["max_len"]).serve(
+        [jax_continuous.Request(rid, np.asarray(p, np.int32), n)
+         for rid, p, n in case["requests"]])
+    for o in out:
+        np.testing.assert_array_equal(o["tokens"], want)
+        got = o["continuous T0"]
+        assert sorted(got) == sorted(reqs)
+        for rid in reqs:
+            np.testing.assert_array_equal(got[rid], np.asarray(reqs[rid]))

@@ -251,7 +251,7 @@ def test_launch_accounting():
     step = graphs.DecodeGraph(m, p, m.cache_init(2, 8), 2)
     step.graph, step.moves, step.logits = _Replay(), moves, torch.zeros(2, 3)
     step._put = lambda tok, lens: None
-    step.lens = _FakeCuda()                   # takes the replay branch
+    step.capture = True                       # takes the replay branch
     for _ in range(5):
         assert step(None, 0) is step.logits
     after = graphs.counters()
@@ -263,11 +263,6 @@ def test_launch_accounting():
     assert step.replays == 5 and _Replay.replays == 5
     graphs.add(moves, -5)
     assert graphs.counters() == before
-
-
-class _FakeCuda:
-    """A lengths buffer that says it lies on the card."""
-    device = torch.device("cuda")
 
 
 # ---- the recurrent and MoE families --------------------------------------
@@ -373,3 +368,49 @@ def test_family_engine_reuses_its_static_cache(arch):
                             cuda_graphs=False).serve(reqs)
     for rid in want:
         np.testing.assert_array_equal(again[rid], want[rid])
+
+
+def test_capture_failure_on_a_mesh_raises(monkeypatch):
+    """A decode step on a (1, 1) gloo mesh whose capture fails (the CUDA
+    graph refused at its end, as a capture that met a host sync is)
+    raises that error, each call again, and never hands back the eager
+    step's logits: the graph stays unmade, no replay is counted, and the
+    launch counters the capture moved are taken back.  Only
+    ``cuda_graphs=False`` runs the step eagerly."""
+    import _torch_dist_ranks as ranks
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.serve.continuous import serving_params
+    _, _, m, p = _pair()
+
+    class Refused:
+        def __init__(self, graph, stream=None):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+    with ranks.one_rank_mesh() as mesh, axis_rules(mesh):
+        step = graphs.DecodeGraph(m, serving_params(m, p, mesh),
+                                  m.cache_init(2, 24, mesh), 2)
+        step.capture = True                   # takes the card's branch
+        body = step.body
+
+        def launching():
+            # the kernel's launch while capturing moves its counter
+            graphs.decode_attention.launches += 1
+            return body()
+        step.body = launching
+        monkeypatch.setattr(graphs.DecodeGraph, "_warm",
+                            lambda self: (None, None))
+        monkeypatch.setattr(graphs.torch.cuda, "CUDAGraph", object)
+        monkeypatch.setattr(graphs.torch.cuda, "graph", Refused)
+        before = graphs.counters()
+        tok = torch.zeros((2, 1), dtype=torch.int32)
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="stream is capturing"):
+                step(tok, 3)
+            assert step.graph is None and step.replays == 0
+        assert graphs.counters() == before

@@ -17,7 +17,11 @@ gradients.  Checkpoints on the group: a (2, 2) state saved with each
 rank writing only its own pieces and restored onto (4, 1), (1, 4), (2, 2)
 and one process; ``Trainer`` resumed from one, bit-equal to a straight
 run; a SIGTERM seen by one rank stopping all four at the same step; and
-``FailoverRunner`` rolling every rank back when one fails.  DTensor decides which ops a sharded tensor may take in
+``FailoverRunner`` rolling every rank back when one fails.  Serving on
+(1, 4) and (2, 2): ``Engine``, ``SerialSlotEngine`` and
+``ContinuousEngine`` given plain params under ``axis_rules``, against the
+same engines without a mesh, and ``ContinuousEngine`` driven by ranks that
+see the arrivals at other times.  DTensor decides which ops a sharded tensor may take in
 Python, the same on the CPU and on CUDA, so gloo ranks meet the
 refusals that NCCL ranks on cards would.  ``test_torch_distributed.py``
 holds the same bodies to the JAX reference.
@@ -34,7 +38,7 @@ mesh, with SGD, and with the launcher's recipe (AdamW, its cosine
 schedule, remat full, its batches) on (4, 1), and its checkpoint after
 two AdamW steps on (4, 1) restored onto (2, 2) and one card; deepseek-v2
 at full width on (1, 4) and (2, 2), its MoE layer and 3 SGD steps of 2
-layers:
+layers; qwen1.5-32b at full width cut to 2 layers served on (1, 4):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mesh_ranks.py
 """
@@ -60,6 +64,8 @@ from repro_torch.models import moe
 from repro_torch.models.layers import Maker
 from repro_torch.models.model import Model, RunConfig
 from repro_torch.optim import optimizer as opt_mod
+from repro_torch.serve import loadgen
+from repro_torch.serve.continuous import ContinuousEngine, Request
 from repro_torch.train import step as step_mod
 
 import _torch_dist_ranks as ranks
@@ -1038,3 +1044,181 @@ def test_remat_recompute_in_another_thread_keeps_the_mesh(tmp_path, mesh):
         assert not isinstance(there, str), there
         for a, b in zip(here, there):
             np.testing.assert_array_equal(a, b)
+
+
+# ---- serving on a mesh ----------------------------------------------------
+
+SERVE_ARCH = "qwen1.5-32b"     # reduced: 4 query and 4 KV heads, QKV bias
+
+
+def _same_results(got, want):
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_serve_engines_on_a_mesh_match_no_mesh(tmp_path, mesh):
+    """Reduced qwen1.5-32b served on 4 gloo ranks under ``axis_rules`` of
+    a (data, model) mesh, the engines given plain params (they place
+    them): ``Engine.generate`` greedy gives the tokens of the same engine
+    without a mesh, from logits within 1e-5 of their largest magnitude,
+    captured and eager bit-equal; ``SerialSlotEngine`` and
+    ``ContinuousEngine`` greedy, and ``ContinuousEngine`` at temperature
+    0.8 over 8 requests, the streams of their runs without a mesh; every
+    rank's the same.  The static cache's leaves are DTensors, each rank
+    holding (B / data, Smax, KV / model, hd) of every layer's keys and
+    values; the decode kernel's plain version receives plain tensors of
+    each rank's rows and KV / model heads; one more decode step moves no
+    piece of a weight over ``model`` (all-reduces of the row-parallel
+    products and the logits' gather), and on (1, 4) none at all (on
+    (2, 2) the ``fsdp`` halves are gathered over ``data``, as the
+    reference's specs place them); and no rank's piece of a param keeps
+    the whole param's storage alive (the vocab-sharded embedding table's
+    rows were a view of the whole table)."""
+    data, model = mesh
+    cfg = reduced(get_config(SERVE_ARCH))
+    assert (cfg.num_heads, cfg.num_kv_heads) == (4, 4) and cfg.qkv_bias
+    m = Model(cfg, RunConfig(max_seq=24), device="cpu")
+    case = ranks.serve_case(cfg)
+    case.update(cfg=cfg, mesh=mesh,
+                params=_numpy(m.init(torch.Generator().manual_seed(0))))
+    out = ranks.run("serve_engines", 4, tmp_path, case, timeout=300)
+    _served_as_without_a_mesh(out, case, cfg, mesh)
+    # the engines' steps: B rows a data shard, 1 (serial), 3 slots
+    # (continuous; 3 rows do not split over data, so every rank's)
+    for o in out:
+        assert {q[0] for _, q, _ in o["seen"]} == {
+            case["prompts"].shape[0] // data, 1, 3}
+        for dtensor, q, k in o["seen"]:
+            assert not dtensor
+            assert q[1] == k[1] == cfg.num_kv_heads // model, (q, k)
+            assert k[2] == 24, k
+
+
+def _served_as_without_a_mesh(out, case, cfg, mesh):
+    """``serve_engines``' records on a (data, model) ``mesh``: tokens,
+    logits and streams those of the engines without a mesh and of rank 0,
+    captured bit-equal to eager, no piece of a param keeping a whole
+    param alive, the static cache's leaves split by rows and KV heads,
+    and one more decode step moving no piece of a weight over ``model``
+    (on (1, 4) none at all)."""
+    from repro_torch.models.layers import cache_depth
+    data, model = mesh
+    B, P = case["prompts"].shape
+    hd = cfg.resolved_head_dim
+    depth = cache_depth(case["max_len"])
+    for r, o in enumerate(out):
+        np.testing.assert_array_equal(o["tokens"], o["plain_tokens"])
+        np.testing.assert_array_equal(o["tokens"], out[0]["tokens"])
+        assert o["tokens"].shape == (B, P + case["steps"])
+        assert o["err"] <= 1e-5 * o["scale"], (o["err"], o["scale"])
+        assert o["eager_equal"]
+        assert o["views"] == []
+        for kind in ("serial", "continuous T0", "continuous T0.8"):
+            _same_results(o[kind], o["plain " + kind])
+            _same_results(o[kind], out[0][kind])
+        assert len(o["cache"]) == 2
+        for name, placements, local, whole in o["cache"]:
+            assert whole == [cfg.num_layers, B, depth, cfg.num_kv_heads, hd]
+            assert local == [cfg.num_layers, B // data, depth,
+                             cfg.num_kv_heads // model, hd], (name, local)
+            assert placements.startswith("("), placements
+        kinds = {(kind, axis) for kind, axis, _, _ in o["calls"]}
+        assert ("all_reduce", "model") in kinds, o["calls"]
+        assert ("all_gather_into_tensor", "model") in kinds, o["calls"]
+        assert [c for c in o["watched"] if c[1] != "data"] == []
+        if data == 1:
+            assert o["watched"] == [] and {a for _, a in kinds} == {"model"}
+
+
+@pytest.mark.parametrize("skew,outside", [(("s", 0.01), False),
+                                          (("steps", 1), False),
+                                          (("s", 0.01), True)],
+                         ids=["0.01s", "1steps", "0.01s-built-outside"])
+def test_serve_continuous_ranks_agree_under_skewed_submissions(tmp_path, skew,
+                                                               outside):
+    """``ContinuousEngine`` on 4 gloo ranks of a (2, 2) mesh (reduced
+    qwen1.5-32b, params drawn on the mesh), driven as ``serve_bench``
+    drives it (arrival times, a queue limit of 2, a step a round), where
+    the ranks see the arrivals at other times: rank r's wall clock started
+    r x 10 ms late, or every other request reaching rank r r steps late.
+    Rank 0's queue decides each step's admissions on every rank, and no
+    rank stops stepping before the others: every rank completes the 10
+    requests in the same number of steps, with the tokens of the engine
+    run without a mesh, and counts each submitted once; within the run's
+    timeout (a rank that prefilled while another decoded would make gloo
+    fail or hang).  The ``built-outside`` case builds the engine before
+    ``axis_rules`` from plain params, as ``serve_bench.run_config`` does:
+    the first submissions reach it before its first step binds the
+    mesh."""
+    cfg = reduced(get_config(SERVE_ARCH))
+    load = loadgen.LoadConfig(
+        num_requests=10, vocab_size=cfg.vocab_size, seed=2, rate=20.0,
+        prompt=loadgen.LengthDist("uniform", 3, 8),
+        output=loadgen.LengthDist("uniform", 2, 6))
+    stream = [(r.rid, np.asarray(r.prompt).tolist(), r.max_new, r.arrival)
+              for r in loadgen.generate_stream(load)]
+    out = ranks.run("serve_skewed", 4, tmp_path,
+                    {"cfg": cfg, "params": 0, "mesh": (2, 2),
+                     "stream": stream, "skew": skew, "max_len": 24,
+                     "slots": 3, "queue_limit": 2, "outside": outside},
+                    timeout=120)
+    m = Model(cfg, RunConfig(max_seq=24), device="cpu")
+    want = ContinuousEngine(m, m.init(torch.Generator().manual_seed(0)),
+                            slots=3, max_len=24).serve(
+        [Request(rid, np.asarray(p, np.int32), n)
+         for rid, p, n, _ in stream])
+    for o in out:
+        assert o["completed"] == o["submitted"] == len(stream)
+        assert o["steps"] == out[0]["steps"]
+        _same_results(o["results"], want)
+
+
+@pytest.mark.cuda
+def test_serve_at_full_width_on_four_cards_matches_one_card(tmp_path):
+    """qwen1.5-32b at full width cut to 2 layers (40 query and 40 KV
+    heads, 10 a card) on a (1, 4) mesh of four NCCL ranks, a card each,
+    through ``chip_smoke.py``'s serving part (a) (``serve_cut``): params
+    of seed 0 drawn by ``Model.init(mesh=)``, ``Engine.generate`` greedy
+    (4 prompts of 128 tokens, 32 new) replaying its captured decode step,
+    the decode kernel launching once a layer a step on each card; its
+    sampled logits bit-equal to the eager engine's on the mesh and within
+    1e-5 of their largest magnitude of one card's without a mesh, its
+    tokens one card's and every rank's the same (``serve_cut_report``)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    out = ranks.run("serve_cut_part", 4, tmp_path, {"mesh": (1, 4)},
+                    timeout=300, device="cuda")
+    smoke = _smoke()
+    smoke.serve_cut_report(f"[serve] {smoke.SERVE_ARCH} on (1, 4)", out)
+
+
+@pytest.mark.cuda
+def test_serve_engines_on_four_cards_match_one_card(tmp_path):
+    """The CPU case's ``serve_engines`` body on four NCCL ranks of a
+    (1, 4) mesh, a card each: qwen1.5-32b at full width cut to 2 layers,
+    f32, params drawn whole on every card and placed by the engines (as
+    the reference's ``serve_bench --mesh`` gives them); ``Engine`` (4
+    prompts of 128 tokens, 32 new) captured, eager and under a collective
+    count, ``SerialSlotEngine`` greedy and ``ContinuousEngine`` greedy
+    and at temperature 0.8 over 8 requests: everything as the CPU case
+    holds it, against each card's own run without a mesh; the decode
+    kernel launching once a layer a step (replays of the captured step).
+    Each rank collects its dropped engines before the group ends (a graph
+    that captured a collective holds the communicator)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    smoke = _smoke()
+    cfg = smoke.serve_cfg(2)
+    case = ranks.serve_case(cfg, prompt=128)
+    case.update(cfg=cfg, mesh=(1, 4), params=("plain", 0), steps=32,
+                max_len=161)
+    out = ranks.run("serve_engines", 4, tmp_path, case, timeout=300,
+                    device="cuda")
+    _served_as_without_a_mesh(out, case, cfg, (1, 4))
+    for o in out:
+        assert o["seen"] == []                # the kernel ran, not its plain
+        assert o["launches"] == cfg.num_layers * case["steps"]
+        assert o["replays"] == case["steps"] - 1

@@ -247,3 +247,90 @@ def test_launcher_runs_continuous_on_cpu(capsys):
     assert res["requests"]["completed"] == 5
     assert res["clock"] == "wall" and res["tokens_per_s"] > 0
     assert res["engine"].steps > 0
+
+
+# ---- serving on a mesh: the placement helper and the refusals -------------
+
+
+def test_cache_init_without_a_mesh_is_unchanged():
+    """``Model.cache_init`` with no mesh (``mesh=None`` or left out) gives
+    what ``cache_spec`` makes in "init" mode: plain zero tensors on the
+    model's device in the cache's dtypes, ``len`` the int 0."""
+    from repro_torch.models import transformer as T
+    for bf16 in (False, True):
+        _, _, m, _ = _pair(bf16=bf16)
+        want = T.cache_spec(m.cfg, 3, 40, mode="init", device="cpu",
+                            dtype=m.cdtype)
+        for got in (m.cache_init(3, 40), m.cache_init(3, 40, mesh=None)):
+            assert sorted(got) == sorted(want) and got["len"] == 0
+            for (kg, a, ax), (kw, b, bx) in zip(T.cache_items(got),
+                                                T.cache_items(want)):
+                assert (kg, ax) == (kw, bx)
+                assert type(a) is torch.Tensor and a.dtype == b.dtype
+                assert torch.equal(a, b)
+
+
+def test_placement_on_a_one_rank_mesh():
+    """On a (1, 1) gloo mesh: ``sharding.place`` makes each tensor of a
+    tree a DTensor placed by its logical axes (every placement
+    ``Replicate`` on size-1 mesh dims), values kept, host counters and
+    DTensors left as they are, a DTensor of another mesh refused;
+    ``Model.cache_init(mesh=)`` places the cache so; ``copy_row`` copies a
+    B=1 cache's row into a placed cache; ``Engine`` under ``axis_rules``
+    places plain params and gives the greedy tokens of the engine without
+    a mesh, and a plain cache under DTensor params is refused (each rank
+    would write it whole); ``decode_attention`` refuses DTensors with a
+    ``TypeError``."""
+    import _torch_dist_ranks as ranks
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, EngineConfig
+    _, _, m, p = _pair()
+    prompts = np.random.default_rng(4).integers(
+        0, m.cfg.vocab_size, (2, 5)).astype(np.int32)
+    want = Engine(m, p, EngineConfig(max_len=24)).generate(prompts, 4)
+    with ranks.one_rank_mesh() as mesh:
+        cache = m.cache_init(2, 16)
+        cache["k_extra"] = torch.ones(3)
+        axes = dict(m.cache_axes(2, 16), k_extra="kv_heads")
+        placed = S.place(cache, axes, mesh)
+        assert placed["len"] == 0
+        for (_, a, _), (_, b, _) in zip(T.cache_items(placed),
+                                        T.cache_items(cache)):
+            assert isinstance(a, DTensor) and tuple(a.shape) == b.shape
+            assert list(a.placements) == [Replicate(), Replicate()]
+            assert torch.equal(a.to_local(), b)
+        assert S.place(placed, axes, mesh)["k_extra"] is placed["k_extra"]
+        other = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                           mesh_dim_names=("rows", "cols"))
+        with pytest.raises(ValueError, match="not on the active"):
+            S.place(placed, axes, other)
+        dcache = m.cache_init(2, 16, mesh=mesh)
+        assert all(isinstance(t, DTensor) for t in cache_leaves(dcache))
+        one = m.cache_init(1, 16)
+        for leaf in cache_leaves(one):
+            leaf.normal_()
+        T.copy_rows(dcache, 1, one, 0)
+        for (_, a, ax), (_, b, _) in zip(T.cache_items(dcache),
+                                         T.cache_items(one)):
+            assert torch.equal(a.to_local().select(ax, 1), b.select(ax, 0))
+            assert not a.to_local().select(ax, 0).any()
+        with S.axis_rules(mesh):
+            eng = Engine(m, p, EngineConfig(max_len=24))
+            assert isinstance(eng.params["final_norm"], DTensor)
+            np.testing.assert_array_equal(eng.generate(prompts, 4), want)
+            (step,) = eng._steps.values()
+            assert all(isinstance(t, DTensor)
+                       for t in cache_leaves(step.cache))
+            with pytest.raises(TypeError, match="must be placed"):
+                m.apply(eng.params, torch.as_tensor(prompts[:, :1]),
+                        cache=m.cache_init(2, 16))
+        q = torch.zeros((2, 2, 7, 8))
+        kv = torch.zeros((2, 2, 16, 8))
+        valid = torch.full((2,), 3, dtype=torch.int32)
+        dq = DTensor.from_local(q, mesh, [Replicate(), Replicate()])
+        with pytest.raises(TypeError, match="plain tensors"):
+            decode_attention(dq, kv, kv, valid)
